@@ -1,0 +1,153 @@
+// Shared int8 tensor-core GEMM main loop for the port's kernels (sm_90a).
+//
+// One thread block computes a BM x BN tile of C = A . B^T with int8
+// operands and exact int32 sums: A rows and B rows are both K-contiguous
+// (B is the weight stored [N][K], "K-minor"), which is the operand form of
+// mma.sync.m16n8k32.row.col.s32.s8.s8.s32. The caller supplies where each
+// thread's A row and B row live for a given k, so the same loop serves a
+// gathered operand (shifted image rows with zero padding, or a source view
+// picked per k-block) without materialising it: a load whose source is
+// outside the operand is a zero-filled cp.async (src-size 0).
+//
+// Tiles: 128 x 128 x 32, 256 threads = 8 warps as 4 (m) x 2 (n), each warp
+// 32 x 64 = 2 x 8 mma tiles. Two shared-memory stages, cp.async double
+// buffering. Shared rows are 48 bytes (32 + 16 pad) so the fragment loads
+// of a warp hit 32 distinct banks.
+#pragma once
+
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace posetpu {
+
+constexpr int BM = 128, BN = 128, BK = 32, THREADS = 256;
+constexpr int LDS = BK + 16;  // bytes per shared row
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  int src_size = valid ? 16 : 0;
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(s), "l"(gmem), "r"(src_size) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait1() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4],
+                                       const unsigned (&b)[2]) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// acc[i][j][r]: m-tile i (16 rows), n-tile j (8 cols), register r of the
+// m16n8 accumulator fragment. Element (i, j, r) sits at tile row
+// warp_m*32 + i*16 + (lane>>2) + (r>=2 ? 8 : 0) and tile column
+// warp_n*64 + j*8 + (lane&3)*2 + (r&1).
+struct Acc {
+  int v[2][8][4];
+};
+
+// ALoad / BLoad: per-thread functors; operator()(k, valid) returns the
+// address of 16 bytes at depth k (a multiple of 16) of this thread's row,
+// setting valid=false (and returning any mapped address) for a zero row.
+template <class ALoad, class BLoad>
+__device__ __forceinline__ void mma_mainloop(const ALoad& la, const BLoad& lb,
+                                             int k_steps, Acc& acc) {
+  __shared__ __align__(16) int8_t sA[2][BM * LDS];
+  __shared__ __align__(16) int8_t sB[2][BN * LDS];
+
+  const int tid = threadIdx.x;
+  const int lrow = tid >> 1;          // this thread's A row and B row in the tile
+  const int lcol = (tid & 1) * 16;    // its 16-byte half of the 32-byte k-step
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int gid = lane >> 2, tig = lane & 3;
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc.v[i][j][r] = 0;
+
+  auto load = [&](int stage, int ks) {
+    const int k = ks * BK + lcol;
+    bool va, vb;
+    const void* pa = la(k, va);
+    const void* pb = lb(k, vb);
+    cp_async16(&sA[stage][lrow * LDS + lcol], pa, va);
+    cp_async16(&sB[stage][lrow * LDS + lcol], pb, vb);
+  };
+
+  load(0, 0);
+  cp_async_commit();
+  for (int ks = 0; ks < k_steps; ++ks) {
+    if (ks + 1 < k_steps) load((ks + 1) & 1, ks + 1);
+    cp_async_commit();  // possibly empty: keeps the group count uniform
+    cp_async_wait1();   // stage ks has landed
+    __syncthreads();
+    const int8_t* a = sA[ks & 1];
+    const int8_t* b = sB[ks & 1];
+    unsigned af[2][4], bf[8][2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int r = wm * 32 + i * 16 + gid;
+      af[i][0] = *reinterpret_cast<const unsigned*>(a + r * LDS + tig * 4);
+      af[i][1] = *reinterpret_cast<const unsigned*>(a + (r + 8) * LDS + tig * 4);
+      af[i][2] = *reinterpret_cast<const unsigned*>(a + r * LDS + 16 + tig * 4);
+      af[i][3] = *reinterpret_cast<const unsigned*>(a + (r + 8) * LDS + 16 + tig * 4);
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int n = wn * 64 + j * 8 + gid;
+      bf[j][0] = *reinterpret_cast<const unsigned*>(b + n * LDS + tig * 4);
+      bf[j][1] = *reinterpret_cast<const unsigned*>(b + n * LDS + 16 + tig * 4);
+    }
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) mma_s8(acc.v[i][j], af[i], bf[j]);
+    __syncthreads();  // the next iteration's load overwrites this stage
+  }
+}
+
+// Walk this thread's accumulator elements as (tile row, tile col pair):
+// f(row, col, v0, v1) with v0/v1 the sums at columns col and col+1.
+template <class F>
+__device__ __forceinline__ void for_each_pair(const Acc& acc, F&& f) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int wm = warp & 3, wn = warp >> 2;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = wm * 32 + i * 16 + gid;
+      const int col = wn * 64 + j * 8 + tig * 2;
+      f(row, col, acc.v[i][j][0], acc.v[i][j][1]);
+      f(row + 8, col, acc.v[i][j][2], acc.v[i][j][3]);
+    }
+}
+
+// f32 epilogue steps, each rounded on its own (no FMA contraction), as the
+// JAX reference rounds them.
+__device__ __forceinline__ float scale_bias(int acc, float s, float b) {
+  return __fadd_rn(__fmul_rn(__int2float_rn(acc), s), b);
+}
+
+// requant(+ReLU) to int8: clip(round_half_even(max(z, 0) * inv_so), -127, 127)
+__device__ __forceinline__ signed char requant_relu(float z, float inv_so) {
+  float q = rintf(__fmul_rn(fmaxf(z, 0.0f), inv_so));
+  q = fminf(fmaxf(q, -127.0f), 127.0f);
+  return static_cast<signed char>(static_cast<int>(q));
+}
+
+}  // namespace posetpu

@@ -1,0 +1,65 @@
+"""Batched camera models (the OpenCV convention used by the triangulation
+stack, reference lib/multiviews/triangulate.py:17-40: per-axis focals and the
+standard [k1, k2, p1, p2, k3] distortion).
+
+Cameras are a struct of tensors with matching leading batch dims, so every
+op runs over any batch of cameras at once.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+
+class CameraParams(NamedTuple):
+    """R [..., 3, 3] world->camera rotation; T [..., 3] camera centre in
+    world coords (x_cam = R @ (x - T)); f [..., 2] (fx, fy); c [..., 2]
+    principal point; k [..., 3] radial (k1, k2, k3); p [..., 2] tangential."""
+
+    R: torch.Tensor
+    T: torch.Tensor
+    f: torch.Tensor
+    c: torch.Tensor
+    k: torch.Tensor
+    p: torch.Tensor
+
+    def map(self, fn) -> "CameraParams":
+        return CameraParams(*[fn(x) for x in self])
+
+
+def _distortion(yx, yy, k, p):
+    r2 = yx * yx + yy * yy
+    k1, k2, k3 = k[..., 0:1], k[..., 1:2], k[..., 2:3]
+    p1, p2 = p[..., 0:1], p[..., 1:2]
+    radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+    dx = 2.0 * p1 * yx * yy + p2 * (r2 + 2.0 * yx * yx)
+    dy = p1 * (r2 + 2.0 * yy * yy) + 2.0 * p2 * yx * yy
+    return radial, dx, dy
+
+
+def undistort_opencv(yd, k, p, iters: int = 10):
+    """Invert OpenCV distortion by fixed-point iteration (the cv2/pymvg
+    ``undistortPoints`` scheme). yd: [..., N, 2] distorted normalised coords."""
+    y = yd
+    for _ in range(iters):
+        radial, dx, dy = _distortion(y[..., 0], y[..., 1], k, p)
+        y = torch.stack([(yd[..., 0] - dx) / radial,
+                         (yd[..., 1] - dy) / radial], dim=-1)
+    return y
+
+
+def pixels_to_normalized(pix, cam: CameraParams, no_distortion: bool = False,
+                         iters: int = 10):
+    """Pixels [..., N, 2] -> undistorted normalised camera coords."""
+    y = (pix - cam.c[..., None, :]) / cam.f[..., None, :]
+    if no_distortion:
+        return y
+    return undistort_opencv(y, cam.k, cam.p, iters=iters)
+
+
+def extrinsic_matrix(cam: CameraParams, t_scale: float = 1.0):
+    """[..., 3, 4] matrix P = [R | -R T / t_scale]: x_cam = P @ [x/t_scale; 1]."""
+    t = -torch.einsum("...ij,...j->...i", cam.R, cam.T) / t_scale
+    return torch.cat([cam.R, t[..., None]], dim=-1)

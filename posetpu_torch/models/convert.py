@@ -1,0 +1,88 @@
+"""Weight bridge from the JAX package's variables and serving params.
+
+:func:`from_jax_variables` is the inverse of the JAX package's
+``models/convert_torch.py:convert_multiview``: a numpy tree of Flax
+variables -> a state dict for :class:`~posetpu_torch.models.multiview.
+MultiViewPose` (or, for a tree without a ``resnet`` subtree, for
+:class:`~posetpu_torch.models.pose_resnet.PoseResNet`):
+
+* HWIO conv kernel [kh, kw, I, O] -> OIHW [O, I, kh, kw];
+* the spatially flipped HWIO ConvTranspose kernel -> the unflipped
+  ConvTranspose2d [I, O, kh, kw];
+* BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
+  running_mean/running_var;
+* the stacked [12, S, S] aggregation bank as it is.
+
+:func:`from_jax_params` turns a JAX serving pipeline's params
+({"q": qparams, "qagg": bank}, as numpy) into the port's, so a test can hand
+the same quantized state to both packages.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping
+
+import numpy as np
+import torch
+
+from posetpu_torch import resolve_device
+from posetpu_torch.ops import aggregation as _agg
+from posetpu_torch.ops import phase_tail as _pt
+
+
+def _flatten(tree, prefix=()):
+    for k, v in tree.items():
+        if isinstance(v, Mapping):
+            yield from _flatten(v, prefix + (k,))
+        else:
+            yield prefix + (k,), np.asarray(v)
+
+
+def from_jax_variables(tree) -> dict[str, torch.Tensor]:
+    """Flax variables ({"params", "batch_stats"}, numpy leaves) -> a torch
+    state dict (load it with ``module.load_state_dict``)."""
+    sd = {}
+    for path, v in _flatten(tree["params"]):
+        module, leaf = ".".join(path[:-1]), path[-1]
+        if leaf == "kernel":
+            if path[-2].startswith("deconv") and path[-2].endswith("_conv"):
+                w = v[::-1, ::-1].transpose(2, 3, 0, 1)  # -> [I, O, kh, kw]
+            else:
+                w = v.transpose(3, 2, 0, 1)  # HWIO -> OIHW
+            sd[f"{module}.weight"] = w
+        elif leaf in ("scale", "weight"):  # BN scale, aggregation bank
+            sd[f"{module}.weight"] = v
+        elif leaf == "bias":
+            sd[f"{module}.bias"] = v
+        else:
+            raise ValueError(f"unknown variable {'/'.join(path)}")
+    for path, v in _flatten(tree.get("batch_stats", {})):
+        module, leaf = ".".join(path[:-1]), path[-1]
+        sd[f"{module}.running_{leaf}"] = v
+        sd[f"{module}.num_batches_tracked"] = np.asarray(0, np.int64)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def from_jax_params(tree, device=None) -> dict:
+    """A JAX serving pipeline's params (numpy leaves) -> the port's params on
+    ``device``: trunk weights as int8 HWIO tensors, scales as f32 tensors,
+    the kernels' argument packs and bank in the kernels' layouts. CUDA
+    unless ``device`` is given."""
+    dev = resolve_device(device)
+    t = lambda a: torch.from_numpy(np.array(a)).to(dev)
+    q = tree["q"]
+    qp = {k: {n: t(v) for n, v in q[k].items()}
+          for k in ("weights", "w_scales", "biases")}
+    qp["act_scales"] = {n: t(np.float32(v)) for n, v in q["act_scales"].items()}
+    for k, v in q.items():
+        if k == "phase_tail2":
+            qp[k] = _pt.tail2_device_args(v, dev)
+        elif k.startswith("subpix_"):
+            qp[k] = _pt.subpixel_device_args(v, dev)
+        elif k not in qp:
+            raise NotImplementedError(f"qparams entry {k!r} is not ported")
+    qagg = tree.get("qagg")
+    if qagg is not None and "wq4" in qagg:
+        raise NotImplementedError("the s4 aggregation bank (agg_w4) is not ported")
+    return {"q": qp,
+            "qagg": None if qagg is None else _agg.aggregation_device_params(qagg, dev)}

@@ -1,0 +1,75 @@
+"""Multi-view wrapper + cross-view heatmap aggregation.
+
+The reference runs 12 separate ``ChannelWiseFC`` modules in a Python double
+loop over ordered view pairs (lib/models/multiview_pose_resnet.py:42-58).
+Here the bank is ONE ``[12, S, S]`` parameter and the fusion one batched
+matmul with the per-view mean folded in. Views live in a leading axis and
+are folded into the batch for the shared backbone.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from posetpu_torch.models.pose_resnet import PoseResNet, get_pose_net
+
+# source-view index for each of the 12 ordered (target i, slot) pairs, in the
+# reference's fc_idx order: i=0 reads views 1,2,3; i=1 reads 0,2,3; ...
+SRC_VIEW = tuple(src for tgt in range(4) for src in range(4) if src != tgt)
+
+
+class Aggregation(nn.Module):
+    """12-way learned heatmap warp bank (multiview_pose_resnet.py:31-58)."""
+
+    def __init__(self, heatmap_size: int,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        s = heatmap_size * heatmap_size
+        # ChannelWiseFC init U(0, 0.1)
+        self.weight = nn.Parameter(torch.empty(12, s, s))
+        nn.init.uniform_(self.weight, 0.0, 0.1, generator=generator)
+
+    def forward(self, heatmaps):
+        """heatmaps: [N, 4, h, w, J] -> fused [N, 4, h, w, J]. Each target
+        view's output is the mean of its three warped source views."""
+        n, v, h, w, j = heatmaps.shape
+        if v != 4:
+            raise ValueError(f"the aggregation bank is built for 4 views, got {v}")
+        s = h * w
+        x = heatmaps.reshape(n, v, s, j).transpose(2, 3)  # [N, V, J, S]
+        g = x[:, list(SRC_VIEW)].transpose(0, 1).reshape(12, n * j, s)
+        warped = torch.bmm(g, self.weight)  # [12, N*J, S]
+        fused = warped.reshape(4, 3, n, j, s).mean(dim=1)  # [V, N, J, S]
+        return fused.permute(1, 0, 3, 2).reshape(n, v, h, w, j)
+
+
+class MultiViewPose(nn.Module):
+    """Shared backbone over 4 views + optional aggregation
+    (multiview_pose_resnet.py:61-84)."""
+
+    def __init__(self, resnet: PoseResNet, heatmap_size: int | None = None,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.resnet = resnet
+        self.aggre_layer = (None if heatmap_size is None
+                            else Aggregation(heatmap_size, generator))
+
+    def forward(self, views):
+        """views: [N, V, H, W, 3] -> (raw [N, V, h, w, J], fused or None,
+        low_features, high_features)."""
+        n, v = views.shape[:2]
+        heatmaps, low, high = self.resnet(views.reshape((n * v,) + views.shape[2:]))
+        split = lambda t: t.reshape((n, v) + t.shape[1:])
+        heatmaps, low, high = split(heatmaps), split(low), split(high)
+        fused = None if self.aggre_layer is None else self.aggre_layer(heatmaps)
+        return heatmaps, fused, low, high
+
+
+def get_multiview_pose_net(cfg, generator: torch.Generator | None = None
+                           ) -> MultiViewPose:
+    resnet = get_pose_net(cfg)
+    if generator is not None:
+        resnet.init_weights(generator)
+    size = int(cfg.NETWORK.HEATMAP_SIZE[0]) if bool(cfg.NETWORK.AGGRE) else None
+    return MultiViewPose(resnet, size, generator)

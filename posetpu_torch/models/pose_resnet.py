@@ -1,0 +1,163 @@
+"""SimpleBaseline PoseResNet as a PyTorch module — ResNet backbone + deconv
+heatmap head (reference: lib/models/pose_resnet.py:102-254).
+
+Layout is NCHW inside the module (PyTorch's own), NHWC at ``forward``'s
+boundary so callers pass the same [N, H, W, 3] images as to the JAX model.
+The deconvs are native ``nn.ConvTranspose2d`` (k4/s2/p1), so weights carry
+the reference checkpoint layout unchanged. Submodule names follow the JAX
+model (``layer1_0.conv1``, ``deconv0_conv``, ``final_layer``) so the weight
+bridge (models/convert.py) is a pure name-and-layout mapping.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BN_MOMENTUM = 0.1
+
+# (block kind, per-stage block counts) per depth — the standard ResNet family
+RESNET_SPEC = {
+    18: ("basic", (2, 2, 2, 2)),
+    34: ("basic", (3, 4, 6, 3)),
+    50: ("bottleneck", (3, 4, 6, 3)),
+    101: ("bottleneck", (3, 4, 23, 3)),
+    152: ("bottleneck", (3, 8, 36, 3)),
+}
+
+
+def _conv(cin, cout, k, stride=1):
+    return nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=False)
+
+
+def _bn(c):
+    return nn.BatchNorm2d(c, eps=1e-5, momentum=BN_MOMENTUM)
+
+
+class BasicBlock(nn.Module):
+    expansion = 1
+
+    def __init__(self, inplanes, planes, stride=1, downsample=False):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 3, stride)
+        self.bn1 = _bn(planes)
+        self.conv2 = _conv(planes, planes, 3)
+        self.bn2 = _bn(planes)
+        self.downsample_conv = _conv(inplanes, planes, 1, stride) if downsample else None
+        self.downsample_bn = _bn(planes) if downsample else None
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(out + residual)
+
+
+class Bottleneck(nn.Module):
+    expansion = 4
+
+    def __init__(self, inplanes, planes, stride=1, downsample=False):
+        super().__init__()
+        self.conv1 = _conv(inplanes, planes, 1)
+        self.bn1 = _bn(planes)
+        self.conv2 = _conv(planes, planes, 3, stride)
+        self.bn2 = _bn(planes)
+        self.conv3 = _conv(planes, planes * 4, 1)
+        self.bn3 = _bn(planes * 4)
+        self.downsample_conv = (_conv(inplanes, planes * 4, 1, stride)
+                                if downsample else None)
+        self.downsample_bn = _bn(planes * 4) if downsample else None
+
+    def forward(self, x):
+        out = F.relu(self.bn1(self.conv1(x)))
+        out = F.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x
+        if self.downsample_conv is not None:
+            residual = self.downsample_bn(self.downsample_conv(x))
+        return F.relu(out + residual)
+
+
+class PoseResNet(nn.Module):
+    """Backbone + deconv head. ``forward(x [N, H, W, 3])`` returns
+    (heatmaps [N, h, w, J], layer1 features, deconv features), NHWC."""
+
+    def __init__(self, num_layers: int = 50, num_joints: int = 16,
+                 deconv_filters=(256, 256, 256), deconv_kernels=(4, 4, 4),
+                 final_conv_kernel: int = 1, deconv_with_bias: bool = False):
+        super().__init__()
+        self.num_layers = num_layers
+        self.num_joints = num_joints
+        self.deconv_filters = tuple(deconv_filters)
+        self.deconv_kernels = tuple(deconv_kernels)
+        kind, stage_blocks = RESNET_SPEC[num_layers]
+        block_cls = BasicBlock if kind == "basic" else Bottleneck
+
+        self.conv1 = nn.Conv2d(3, 64, 7, 2, 3, bias=False)
+        self.bn1 = _bn(64)
+        self.block_names = []
+        inplanes = 64
+        for stage, (planes, nblocks) in enumerate(
+                zip((64, 128, 256, 512), stage_blocks), start=1):
+            for b in range(nblocks):
+                stride = (1 if stage == 1 else 2) if b == 0 else 1
+                need_ds = b == 0 and (stride != 1
+                                      or inplanes != planes * block_cls.expansion)
+                name = f"layer{stage}_{b}"
+                self.add_module(name, block_cls(inplanes, planes, stride, need_ds))
+                self.block_names.append(name)
+                inplanes = planes * block_cls.expansion
+
+        for i, (nf, nk) in enumerate(zip(self.deconv_filters, self.deconv_kernels)):
+            padding, out_padding = {4: (1, 0), 3: (1, 1), 2: (0, 0)}[nk]
+            self.add_module(f"deconv{i}_conv", nn.ConvTranspose2d(
+                inplanes, nf, nk, 2, padding, out_padding, bias=deconv_with_bias))
+            self.add_module(f"deconv{i}_bn", _bn(nf))
+            inplanes = nf
+        pad = 1 if final_conv_kernel == 3 else 0
+        self.final_layer = nn.Conv2d(inplanes, num_joints, final_conv_kernel,
+                                     1, pad, bias=True)
+        self.init_weights()
+
+    def init_weights(self, generator: torch.Generator | None = None):
+        """The reference's init (pose_resnet.py:190-254): every conv and
+        deconv kernel N(0, 0.001), conv biases 0, BN at identity."""
+        for m in self.modules():
+            if isinstance(m, (nn.Conv2d, nn.ConvTranspose2d)):
+                nn.init.normal_(m.weight, std=0.001, generator=generator)
+                if m.bias is not None:
+                    nn.init.zeros_(m.bias)
+            elif isinstance(m, nn.BatchNorm2d):
+                m.reset_parameters()
+
+    def forward(self, x):
+        x = x.permute(0, 3, 1, 2)
+        x = F.relu(self.bn1(self.conv1(x)))
+        x = F.max_pool2d(x, 3, 2, 1)
+        x1 = None
+        for name in self.block_names:
+            x = getattr(self, name)(x)
+            if name.startswith("layer1_"):
+                x1 = x
+        f = x
+        for i in range(len(self.deconv_filters)):
+            f = getattr(self, f"deconv{i}_conv")(f)
+            f = F.relu(getattr(self, f"deconv{i}_bn")(f))
+        heatmaps = self.final_layer(f)
+        nhwc = lambda t: t.permute(0, 2, 3, 1)
+        return nhwc(heatmaps).float(), nhwc(x1), nhwc(f)
+
+
+def get_pose_net(cfg) -> PoseResNet:
+    """Factory mirroring the reference entry point (pose_resnet.py:257-266)."""
+    return PoseResNet(
+        num_layers=cfg.POSE_RESNET.NUM_LAYERS,
+        num_joints=cfg.NETWORK.NUM_JOINTS,
+        deconv_filters=tuple(cfg.POSE_RESNET.NUM_DECONV_FILTERS),
+        deconv_kernels=tuple(cfg.POSE_RESNET.NUM_DECONV_KERNELS),
+        final_conv_kernel=cfg.POSE_RESNET.FINAL_CONV_KERNEL,
+        deconv_with_bias=cfg.POSE_RESNET.DECONV_WITH_BIAS,
+    )

@@ -1,0 +1,539 @@
+"""int8 post-training-quantized inference path for PoseResNet (the serving
+configuration: space-to-depth stem input, subpixel deconv0, two-level phase
+tail, optional 4-bit block boundaries).
+
+1. **fold** — BatchNorm folds into each conv's per-output-channel scale+bias;
+2. **calibrate** — batches run through the folded float graph recording
+   per-quantization-point absolute maxima;
+3. **quantize** — weights become per-output-channel int8, activation scales
+   come from calibration; the forward keeps activations int8 between layers
+   (conv -> int32 -> f32 requantize(+ReLU) -> int8), residual adds
+   dequantize-add-requantize.
+
+The weight-side steps are numpy and copy the JAX package's arithmetic, so
+the int8 weights match it bit for bit. The trunk convs are exact int8 GEMMs:
+im2col on int8 NHWC (padding + strided slices) and ``torch._int_mm``
+(int8 x int8 -> int32, ops/int_mm.py). Never an f32 conv: layer4's 3x3x512 contraction
+reaches ~7.4e7 > 2^24, past f32's exact integers. The deconv tail runs the
+hand-written CUDA kernels of ops/phase_tail.py.
+
+Every scale is a float32 tensor, and products of scales are taken in f32 in
+the JAX association, so each rounds as it does there.
+"""
+
+from __future__ import annotations
+
+import contextlib
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from posetpu_torch import resolve_device
+from posetpu_torch.models.pose_resnet import RESNET_SPEC
+from posetpu_torch.ops import phase_tail as _pt
+from posetpu_torch.ops.int_mm import int_mm
+
+
+# --------------------------------------------------------------- BN folding
+
+
+def _fold_conv_bn(kernel, bn_params, bn_stats, eps: float = 1e-5):
+    """conv (no bias) followed by BN -> conv with per-out-channel scale/bias
+    baked in. kernel: [kh, kw, i, o]."""
+    gamma = bn_params["scale"]
+    beta = bn_params["bias"]
+    mean = bn_stats["mean"]
+    var = bn_stats["var"]
+    mult = gamma / np.sqrt(np.asarray(var) + eps)
+    w = np.asarray(kernel) * np.asarray(mult)[None, None, None, :]
+    b = np.asarray(beta) - np.asarray(mean) * np.asarray(mult)
+    return w.astype(np.float32), b.astype(np.float32)
+
+
+def _plan(num_layers: int, num_deconvs: int):
+    """Linear layer plan mirroring PoseResNet's structure."""
+    kind, stage_blocks = RESNET_SPEC[num_layers]
+    expansion = 1 if kind == "basic" else 4
+    plan = [("stem", {})]
+    inplanes = 64
+    for stage, (planes, nblocks) in enumerate(
+            zip((64, 128, 256, 512), stage_blocks), start=1):
+        for b in range(nblocks):
+            stride = (1 if stage == 1 else 2) if b == 0 else 1
+            need_ds = b == 0 and (stride != 1 or inplanes != planes * expansion)
+            plan.append(("block", {"name": f"layer{stage}_{b}", "kind": kind,
+                                   "stride": stride, "downsample": need_ds}))
+            inplanes = planes * expansion
+    for i in range(num_deconvs):
+        plan.append(("deconv", {"name": f"deconv{i}"}))
+    plan.append(("final", {}))
+    return plan
+
+
+def fold_params(model) -> dict:
+    """Float params of a PoseResNet module with BN folded, keyed by conv site
+    name: {site: (HWIO kernel [kh, kw, i, o], bias [o])} as numpy f32. The
+    deconv kernels come spatially flipped (the input-dilated-correlation
+    form of ConvTranspose2d), as the JAX package stores them."""
+    sd = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    hwio = lambda name: sd[f"{name}.weight"].transpose(2, 3, 1, 0)
+    bn = lambda name: ({"scale": sd[f"{name}.weight"], "bias": sd[f"{name}.bias"]},
+                       {"mean": sd[f"{name}.running_mean"],
+                        "var": sd[f"{name}.running_var"]})
+    folded = {"stem": _fold_conv_bn(hwio("conv1"), *bn("bn1"))}
+    for kind, info in _plan(model.num_layers, len(model.deconv_filters)):
+        name = info.get("name")
+        if kind == "block":
+            convs = ["conv1", "conv2"] + (["conv3"] if info["kind"] == "bottleneck" else [])
+            for c in convs:
+                folded[f"{name}.{c}"] = _fold_conv_bn(
+                    hwio(f"{name}.{c}"), *bn(f"{name}.bn{c[-1]}"))
+            if info["downsample"]:
+                folded[f"{name}.downsample"] = _fold_conv_bn(
+                    hwio(f"{name}.downsample_conv"), *bn(f"{name}.downsample_bn"))
+        elif kind == "deconv":
+            # torch ConvTranspose2d [I, O, kh, kw] -> flipped HWIO
+            k = sd[f"{name}_conv.weight"][:, :, ::-1, ::-1].transpose(2, 3, 0, 1)
+            folded[name] = _fold_conv_bn(k, *bn(f"{name}_bn"))
+    folded["final"] = (hwio("final_layer").astype(np.float32),
+                       sd["final_layer.bias"].astype(np.float32))
+    return folded
+
+
+# ----------------------------------------------------- weight transforms
+
+
+def subpixel_deconv_weights(wf):
+    """[4, 4, I, O] flipped transposed-conv kernel -> [2, 2, I, 4*O] phase
+    bank, groups ordered (a, b) = (0,0), (0,1), (1,0), (1,1)."""
+    w = np.asarray(wf)
+    groups = [w[a::2, b::2] for a in range(2) for b in range(2)]
+    return np.concatenate(groups, axis=-1)
+
+
+def s2d_stem_weights(w):
+    """[7, 7, C, O] stride-2 stem kernel -> [4, 4, 4*C, O] space-to-depth
+    form: pad to 8x8 with a zero row/col at the FRONT (stride-2 padding 3 ->
+    stride-1 padding (2, 1)), then fold the 2x2 input phases into channels,
+    (a, b) major. Same weight set plus zeros, so the per-output-channel
+    scales and int8 values are unchanged."""
+    w = np.asarray(w)
+    k, _, c, o = w.shape
+    assert k == 7
+    w8 = np.zeros((8, 8, c, o), w.dtype)
+    w8[1:8, 1:8] = w
+    out = np.zeros((4, 4, 4 * c, o), w.dtype)
+    for a in range(2):
+        for b in range(2):
+            out[:, :, (a * 2 + b) * c:(a * 2 + b + 1) * c] = w8[a::2, b::2]
+    return out
+
+
+def _subpixel_wants(subpixel_deconvs, name) -> bool:
+    if isinstance(subpixel_deconvs, bool):
+        return subpixel_deconvs
+    return name in subpixel_deconvs
+
+
+# ------------------------------------------------------------- convolutions
+
+
+def _nchw(x):
+    return x.permute(0, 3, 1, 2)
+
+
+def _nhwc(x):
+    return x.permute(0, 2, 3, 1)
+
+
+def _conv_f32(x, w_hwio, stride=1, padding=None):
+    """Float NHWC conv with an HWIO kernel; symmetric (k-1)//2 padding."""
+    if padding is None:
+        padding = (w_hwio.shape[0] - 1) // 2
+    w = w_hwio.permute(3, 2, 0, 1)
+    return _nhwc(F.conv2d(_nchw(x), w, stride=stride, padding=padding))
+
+
+def _deconv_f32(x, w_flipped_hwio):
+    """Float NHWC ConvTranspose2d k4/s2/p1 from the flipped HWIO kernel the
+    folded params carry."""
+    w = w_flipped_hwio.flip(0, 1).permute(2, 3, 0, 1)  # [I, O, kh, kw]
+    return _nhwc(F.conv_transpose2d(_nchw(x), w, stride=2, padding=1))
+
+
+def _im2col(x, kh, kw, stride, pad):
+    """int8 NHWC [N, H, W, C] -> ([N*Ho*Wo, kh*kw*C], (N, Ho, Wo)), columns
+    in HWIO order so an HWIO kernel reshaped to [kh*kw*C, O] is the other
+    GEMM operand. ``pad`` = ((top, bottom), (left, right)), zeros."""
+    n, h, w, c = x.shape
+    (pt, pb), (pl, pr) = pad
+    if pt or pb or pl or pr:
+        xp = x.new_zeros(n, h + pt + pb, w + pl + pr, c)
+        xp[:, pt:pt + h, pl:pl + w] = x
+        x, h, w = xp, h + pt + pb, w + pl + pr
+    ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
+    if kh == kw == 1:
+        cols = x[:, ::stride, ::stride] if stride > 1 else x
+        return cols.reshape(n * ho * wo, c), (n, ho, wo)
+    cols = [x[:, dy:dy + stride * (ho - 1) + 1:stride,
+              dx:dx + stride * (wo - 1) + 1:stride]
+            for dy in range(kh) for dx in range(kw)]
+    return torch.stack(cols, dim=3).reshape(n * ho * wo, kh * kw * c), (n, ho, wo)
+
+
+def _conv_int8(x, wq, stride=1, padding=None):
+    """Exact int8 conv: int8 NHWC x HWIO int8 kernel -> int32 NHWC."""
+    kh, kw, cin, cout = wq.shape
+    if padding is None:
+        p = (kh - 1) // 2
+        padding = ((p, p), (p, p))
+    cols, (n, ho, wo) = _im2col(x, kh, kw, stride, padding)
+    y = int_mm(cols, wq.reshape(kh * kw * cin, cout))
+    return y.reshape(n, ho, wo, cout)
+
+
+def _max_pool_3x3_s2(x, fill):
+    """3x3/s2/p1 max pool on NHWC, padding with ``fill`` (-inf for floats,
+    -128 for int8: the max never picks it). Exact on int8, which CUDA's
+    pooling kernels may refuse."""
+    n, h, w, c = x.shape
+    xp = x.new_full((n, h + 2, w + 2, c), fill)
+    xp[:, 1:h + 1, 1:w + 1] = x
+    ho, wo = (h - 1) // 2 + 1, (w - 1) // 2 + 1
+    out = None
+    for dy in range(3):
+        for dx in range(3):
+            s = xp[:, dy:dy + 2 * (ho - 1) + 1:2, dx:dx + 2 * (wo - 1) + 1:2]
+            out = s if out is None else torch.maximum(out, s)
+    return out.contiguous()
+
+
+# ----------------------------------------------------------- the executors
+
+
+class _Recorder:
+    """Calibration-mode executor: float math over the folded params,
+    recording the post-activation absolute maxima at every point that will
+    carry an int8 tensor in the quantized graph."""
+
+    def __init__(self, folded, device):
+        self.folded = {k: (torch.as_tensor(w, device=device),
+                           torch.as_tensor(b, device=device))
+                       for k, (w, b) in folded.items()}
+        self.amax: dict[str, torch.Tensor] = {}
+
+    def _record(self, x, name):
+        a = x.abs().amax()
+        self.amax[name] = a if name not in self.amax else torch.maximum(self.amax[name], a)
+
+    def input(self, x):
+        self._record(x, "input")
+        return x, None
+
+    def qchain(self, h, s_h, name, stride=1, relu=True, deconv=False):
+        w, b = self.folded[name]
+        if deconv:
+            y = _deconv_f32(h, w) + b
+        else:
+            y = _conv_f32(h, w, stride=stride) + b
+        if relu:
+            y = torch.relu(y)
+        self._record(y, f"{name}.out")
+        return y, None
+
+    def conv_f32(self, h, s_h, name, stride=1):
+        w, b = self.folded[name]
+        return _conv_f32(h, w, stride=stride) + b
+
+    def max_pool(self, h):
+        return _max_pool_3x3_s2(h, float("-inf"))
+
+    def dequant(self, h, s_h):
+        return h
+
+    def requant(self, y, name):
+        self._record(y, name)
+        return y, None
+
+
+class _Int8Runner:
+    """int8-mode executor. Every tensor between convs (block outputs,
+    intra-block activations, branch outputs) is int8 with a calibrated
+    scale; dequantize -> affine -> ReLU -> requantize happen in f32 on each
+    conv's int32 output.
+
+    ``act4``: block-output names (e.g. "layer1_0.out") stored at 4 bits: the
+    same calibrated amax over 7 steps instead of 127, held as int8 values in
+    [-7, 7] with the 4-bit scale (numerically identical to JAX's native
+    int4; the nibble-packed carrier is later work)."""
+
+    def __init__(self, qparams, act4=()):
+        self.q = qparams
+        self.act4 = frozenset(act4)
+
+    @staticmethod
+    def _quant(x, scale):
+        # multiply by the reciprocal (f32), not divide, as the JAX epilogue
+        return torch.clamp(torch.round(x * (1.0 / scale)), -127, 127).to(torch.int8)
+
+    def input(self, x):
+        if x.dtype != torch.int8:
+            raise ValueError("the int8 forward takes the int8 input of make_u8_quant")
+        return x, self.q["act_scales"]["input"]
+
+    def qchain(self, h_q, s_h, name, stride=1, relu=True, s2d=False):
+        ws = self.q["w_scales"][name]
+        b = self.q["biases"][name]
+        s_out = self.q["act_scales"][f"{name}.out"]
+        padding = None
+        if s2d:
+            # space-to-depth stem: the input already arrives s2d-packed (the
+            # serving input contract); the 4x4/s1 form of the 7x7/s2 conv
+            stride, padding = 1, ((2, 1), (2, 1))
+        y = _conv_int8(h_q, self.q["weights"][name], stride, padding)
+        y = y.float() * (s_h * ws) + b
+        if relu:
+            y = torch.relu(y)
+        if f"{name}.out" in self.act4:
+            s4 = s_out * (127.0 / 7.0)
+            return torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8), s4
+        return self._quant(y, s_out), s_out
+
+    def conv_f32(self, h_q, s_h, name, stride=1):
+        ws = self.q["w_scales"][name]
+        b = self.q["biases"][name]
+        y = _conv_int8(h_q, self.q["weights"][name], stride)
+        return y.float() * (s_h * ws) + b
+
+    def max_pool(self, h_q):
+        return _max_pool_3x3_s2(h_q, -128)
+
+    def dequant(self, h_q, s_h):
+        return h_q.float() * s_h
+
+    def requant(self, y, name):
+        s = self.q["act_scales"][name]
+        if name in self.act4:
+            s4 = s * (127.0 / 7.0)
+            return torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8), s4
+        return self._quant(y, s), s
+
+
+def _forward(runner, x, num_layers, num_deconvs):
+    """Shared calibration/int8 forward over the layer plan. The calibration
+    recorder runs the 7x7/s2 stem on [N, H, W, 3], every deconv as a float
+    ConvTranspose2d and the 1x1 head, returning [N, h, w, J]; the int8
+    runner takes the s2d-packed input, runs deconv0 through the B2 kernel
+    and the rest of the tail through the B1 kernel, returning f32
+    [J, N, 16*h0*w0] in the levels=2 packed order."""
+    plan = _plan(num_layers, num_deconvs)
+    q = getattr(runner, "q", None)
+    h_q, s_h = runner.input(x)
+    for kind, info in plan:
+        if kind == "stem":
+            if q is None:
+                h_q, s_h = runner.qchain(h_q, s_h, "stem", stride=2)
+            else:
+                h_q, s_h = runner.qchain(h_q, s_h, "stem", s2d=True)
+            # max-pool commutes with the (positive-scale) quantization
+            h_q = runner.max_pool(h_q)
+        elif kind == "block":
+            name = info["name"]
+            if info["kind"] == "bottleneck":
+                m, s_m = runner.qchain(h_q, s_h, f"{name}.conv1")
+                m, s_m = runner.qchain(m, s_m, f"{name}.conv2", stride=info["stride"])
+                y = runner.conv_f32(m, s_m, f"{name}.conv3")
+            else:
+                m, s_m = runner.qchain(h_q, s_h, f"{name}.conv1", stride=info["stride"])
+                y = runner.conv_f32(m, s_m, f"{name}.conv2")
+            if info["downsample"]:
+                r_q, r_s = runner.qchain(h_q, s_h, f"{name}.downsample",
+                                         stride=info["stride"], relu=False)
+            else:
+                r_q, r_s = h_q, s_h
+            out = torch.relu(y + runner.dequant(r_q, r_s))
+            h_q, s_h = runner.requant(out, f"{name}.out")
+        elif kind == "deconv":
+            name = info["name"]
+            if q is None:
+                h_q, s_h = runner.qchain(h_q, s_h, name, deconv=True)
+                continue
+            n, hh, ww, c = h_q.shape
+            if "phase_tail2" in q and name == f"deconv{num_deconvs - 2}":
+                # deconv1 + deconv2 + head: the B1 kernel; heatmaps come out
+                # in the levels=2 packing
+                return _pt.fused_phase_tail2(h_q.reshape(n, hh * ww, c),
+                                             q["phase_tail2"], h=hh, w=ww)
+            if f"subpix_{name}" not in q:
+                raise NotImplementedError(
+                    f"{name}: only the subpixel-kernel deconv0 and the "
+                    f"two-level phase tail are ported")
+            z = _pt.fused_subpixel_deconv_batched(h_q.reshape(n, hh * ww, c),
+                                                  q[f"subpix_{name}"], h=hh, w=ww)
+            h_q = _pt.subpixel_interleave_packed_nmajor(z).contiguous()
+            s_h = q["act_scales"][f"{name}.out"]
+        else:  # final 1x1 head (calibration recorder only)
+            h_q = runner.conv_f32(h_q, s_h, "final")
+    return h_q
+
+
+@contextlib.contextmanager
+def _full_fp32():
+    """f32 convolutions and matmuls in full f32 on CUDA (cuDNN defaults to
+    TF32 for convolutions, which would shift the calibrated scales)."""
+    saved = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+@torch.no_grad()
+def calibrate(model, batches, device=None) -> tuple[dict, dict]:
+    """Run calibration batches ([N, H, W, 3] normalised floats) through the
+    folded float graph on ``device`` (CUDA unless given); returns
+    (folded_params, activation_scales)."""
+    folded = fold_params(model)
+    dev = resolve_device(device)
+    amax: dict[str, float] = {}
+    with _full_fp32():
+        for x in batches:
+            rec = _Recorder(folded, dev)
+            _forward(rec, torch.as_tensor(x, dtype=torch.float32, device=dev),
+                     model.num_layers, len(model.deconv_filters))
+            for k, v in rec.amax.items():
+                amax[k] = max(amax.get(k, 0.0), float(v))
+    scales = {k: max(v, 1e-8) / 127.0 for k, v in amax.items()}
+    return folded, scales
+
+
+def quantize_weights(folded: dict, act_scales: dict, subpixel_deconvs=False,
+                     stem_s2d: bool = False, device=None) -> dict:
+    """Per-output-channel int8 weight quantization of the folded params
+    (numpy, as the JAX package), returned as tensors on ``device`` (CUDA
+    unless given)."""
+    device = resolve_device(device)
+    weights, w_scales, biases = {}, {}, {}
+    for name, (w, b) in folded.items():
+        if stem_s2d and name == "stem":
+            w = s2d_stem_weights(w)  # [4, 4, 4*C, O]
+        if (_subpixel_wants(subpixel_deconvs, name)
+                and name.startswith("deconv") and w.shape[0] == 4):
+            w = subpixel_deconv_weights(w)  # [2, 2, I, 4*O]
+        s = np.maximum(np.abs(w).max(axis=(0, 1, 2)), 1e-8) / 127.0
+        wq = np.clip(np.round(w / s[None, None, None, :]), -127, 127).astype(np.int8)
+        weights[name] = torch.as_tensor(np.ascontiguousarray(wq), device=device)
+        w_scales[name] = torch.as_tensor(s.astype(np.float32), device=device)
+        biases[name] = torch.as_tensor(b, device=device)
+    return {
+        "weights": weights,
+        "w_scales": w_scales,
+        "biases": biases,
+        "act_scales": {k: torch.tensor(v, dtype=torch.float32, device=device)
+                       for k, v in act_scales.items()},
+    }
+
+
+def quantize_pose_resnet(model, calib_batches, *, subpixel_deconvs=frozenset({"deconv0"}),
+                         act4=(), device=None) -> tuple[dict, Any]:
+    """One-call PTQ of a PoseResNet module into the serving configuration
+    (JAX: ``jns_head="phase", phase_kernel=2, stem_s2d="pre"``). Returns
+    (qparams, forward) with ``forward(qparams, x)``: x the s2d-packed int8
+    input [N, H/2, W/2, 12] from :func:`make_u8_quant` -> f32 heatmaps
+    [J, N, h*w] in the ``phase_index_tables(levels=2)`` order. ``device``:
+    CUDA unless given.
+
+    ``act4``: block-output names stored at 4 bits (see _Int8Runner)."""
+    dfs, dks = model.deconv_filters, model.deconv_kernels
+    if set(subpixel_deconvs) != {"deconv0"} or len(dfs) != 3 or tuple(dks) != (4, 4, 4):
+        raise NotImplementedError(
+            "the port runs three k4 deconvs with subpixel_deconvs={'deconv0'} "
+            "(deconv0 kernel + two-level phase tail); other tails are queued")
+    dev = resolve_device(device)
+    folded, act_scales = calibrate(model, calib_batches, dev)
+    qparams = quantize_weights(folded, act_scales, subpixel_deconvs,
+                               stem_s2d=True, device=dev)
+    qparams["phase_tail2"] = _pt.tail2_device_args(_pt.build_phase_tail2_args(
+        qparams, "deconv1", "deconv2", float(act_scales["deconv0.out"])), dev)
+    last_block = [i["name"] for k, i in _plan(model.num_layers, len(dfs))
+                  if k == "block"][-1]
+    qparams["subpix_deconv0"] = _pt.subpixel_device_args(
+        _pt.build_subpixel_deconv_args(
+            qparams, "deconv0", float(act_scales[f"{last_block}.out"])), dev)
+    num_layers = model.num_layers
+
+    @torch.no_grad()
+    def forward(qparams, x):
+        runner = _Int8Runner(qparams, act4=act4)
+        return _forward(runner, x, num_layers, len(dfs))
+
+    return qparams, forward
+
+
+# ------------------------------------------------------------ uint8 input
+
+
+def make_u8_quant(qparams, mean, std):
+    """Serving front end: raw uint8 images -> int8 quantized input.
+
+    Folds the reference's (x/255 - mean)/std normalisation and the input
+    quantisation into ONE per-channel affine on the uint8 pixels:
+        q = clip(round(u * a_c + b_c)),  a_c = 1/(255*std_c*s_in),
+                                         b_c = -mean_c/(std_c*s_in)
+    computed in f32 from the params' own input scale (the JAX package's
+    numpy arithmetic, op for op). Returns fn: uint8 [..., 3 or 12] -> int8.
+    """
+    s_in = qparams["act_scales"]["input"]
+    dev = s_in.device
+    mean = torch.as_tensor(np.asarray(mean, np.float32), device=dev)
+    std = torch.as_tensor(np.asarray(std, np.float32), device=dev)
+    a = 1.0 / (255.0 * std * s_in)
+    b = -mean / (std * s_in)
+
+    def fn(u8):
+        av, bv = a, b
+        if u8.shape[-1] != a.shape[-1] and u8.shape[-1] % a.shape[-1] == 0:
+            # s2d-packed input: channels are (a, b)-major x RGB
+            reps = u8.shape[-1] // a.shape[-1]
+            av, bv = a.repeat(reps), b.repeat(reps)
+        x = u8.float() * av + bv
+        return torch.clamp(torch.round(x), -127, 127).to(torch.int8)
+
+    return fn
+
+
+# ------------------------------------------------------- quantized fusion
+
+
+def quantize_aggregation_grouped(bank, calib_heatmaps=None):
+    """The [12, S, S] ChannelWiseFC bank -> int8 with ONE weight scale per
+    (target view, output column) shared by the target's 3 source pairs, so
+    the 3-pair mean folds into the matmul contraction. Numpy, as the JAX
+    package: {"wq" [4, 3, S, S] int8, "w_scale" [4, 1, S] f32, "x_scale"}."""
+    bank = bank.detach().cpu().numpy() if isinstance(bank, torch.Tensor) else bank
+    w = np.asarray(bank, np.float32).reshape(4, 3, bank.shape[1], bank.shape[2])
+    s_w = np.maximum(np.abs(w).max(axis=(1, 2), keepdims=True), 1e-8) / 127.0
+    wq = np.clip(np.round(w / s_w), -127, 127).astype(np.int8)  # [4,3,S,S]
+    amax = 1.2
+    if calib_heatmaps is not None:
+        amax = max(float(np.abs(np.asarray(calib_heatmaps)).max()), 1e-6)
+    return {
+        "wq": wq,
+        "w_scale": s_w[:, 0].astype(np.float32),  # [4,1,S]
+        "x_scale": np.float32(amax / 127.0),
+    }
+
+
+def permute_aggregation_packed(qagg, tables):
+    """Offline, exact re-index of the int8 bank into the phase-packed S order
+    (ops/heatmap.phase_index_tables): only the summation order changes."""
+    r = np.asarray(tables["rowmajor"])
+    return {
+        "wq": np.asarray(qagg["wq"])[..., r, :][..., :, r],
+        "w_scale": np.asarray(qagg["w_scale"])[..., r],
+        "x_scale": qagg["x_scale"],
+    }

@@ -87,6 +87,9 @@ def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: interpret-mode Pallas / full-oracle / multi-step "
         "tests, skipped by default (enable with --slow)")
+    config.addinivalue_line(
+        "markers", "gpu: needs an NVIDIA GPU with CUDA (the port's hand-written "
+        "kernels); skips where torch.cuda.is_available() is false")
 
 
 def pytest_collection_modifyitems(config, items):

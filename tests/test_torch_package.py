@@ -1,0 +1,72 @@
+"""The port stands alone: posetpu_torch and chip_smoke.py import neither JAX,
+Flax nor the JAX package, and importing the kernel build helper needs no
+CUDA toolkit."""
+
+from __future__ import annotations
+
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "posetpu_torch"
+
+
+def _modules():
+    import posetpu_torch
+
+    return ["posetpu_torch"] + sorted(
+        m.name for m in pkgutil.walk_packages(posetpu_torch.__path__, "posetpu_torch."))
+
+
+def _run(code, env=None):
+    return subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_every_module_imports_with_jax_blocked():
+    mods = _modules()
+    assert {"posetpu_torch.serving", "posetpu_torch.models.quant",
+            "posetpu_torch.ops.phase_tail", "posetpu_torch.ops.aggregation"} <= set(mods)
+    code = ("import sys, importlib\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'posetpu'):\n"
+            "    sys.modules[m] = None\n"
+            f"for m in {mods!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    r = _run(code)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|posetpu)\b|\bposetpu\.",
+                        re.MULTILINE)
+
+
+@pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
+                                        list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]))
+def test_no_jax_or_reference_package_reference(path):
+    hits = [m.group(0) for m in _FORBIDDEN.finditer((ROOT / path).read_text())]
+    assert not hits, f"{path}: {hits}"
+
+
+def test_build_helper_imports_without_nvcc():
+    env = dict(os.environ, PATH="/nonexistent")
+    r = _run("import posetpu_torch.ops._build as b; print(b.BUILD_DIR.name)", env=env)
+    assert r.returncode == 0 and r.stdout.strip() == "kernels", r.stderr
+
+
+def test_entry_points_refuse_a_missing_gpu():
+    import torch
+
+    from posetpu_torch import resolve_device
+
+    assert resolve_device("cpu").type == "cpu"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
