@@ -9,23 +9,35 @@ Phases, each of which fails the run on its own:
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device -> exit 1;
 2. build every CUDA kernel from ``posetpu_torch/csrc`` (one nvcc per source,
    all started together), printing the build time and ptxas' report;
-3. the main path at full width: ResNet-50, 256x256 input, 4 views, 16
-   joints, 64x64 heatmaps, the S=4096 aggregation bank, random weights from
-   a seed, calibrated on 2 batches; ``build_serving_pipeline`` then serves
-   4 requests of 32 four-view groups (128 images) through prepare -> infer
-   -> triangulate_points. The first request warms up; frames/s is over the
-   last 3. Every kernel's launch count is set to 0 just before and read just
-   after: each must have launched. One more request is timed in parts: the
-   host packing, then infer + triangulate under torch.profiler (device time
-   by kernel family, and the device's idle share);
+3. four paths at full width: ResNet-50, 256x256 input, 4 views, 16 joints,
+   64x64 heatmaps, the S=4096 aggregation bank, random weights from a seed,
+   calibrated on 2 batches. Each path serves a few requests through
+   prepare -> infer -> triangulate_points; the first warms up and frames/s
+   is over the rest. Every kernel's launch count is set to 0 just before a
+   path and read just after: each kernel of the path must have launched.
+   - path 1, the defaults: ``build_serving_pipeline``, 32 four-view groups
+     (128 images) per request: B2, B1, B3;
+   - path 2: ``build_serving_pipeline(flip_test="premirrored",
+     agg_w4=True)``, 32 groups, so 256 images through the trunk: B2, B1, B4;
+     one request is profiled (device time by kernel family, idle share) and
+     one request with ``flip_test=True`` must give equal preds and maxvals;
+   - path 3: ``quantize_pose_resnet(phase_kernel=1)`` with
+     ``SUBPIX_BATCHED = False``, the levels=1 tables, the int8 bank, decode
+     and triangulation, 8 groups: B6, B5 (and B3); deconv1 runs the dilated
+     int8 conv;
+   - path 4: ``build_float_pipeline(flip_test=True)``, 8 groups: B7;
 4. each kernel against its plain PyTorch version on the card, on the inputs
-   the main path gives it (taken from one more request): int8 and f32
-   outputs must be equal. Timed with CUDA events (3 warm-up calls, median
-   of 20): the kernel, its plain version, and for the aggregation the
-   yardstick of 4 ``torch._int_mm`` calls on pre-gathered operands;
-5. card vs CPU: one group (4 images) through the same port on
-   ``device="cpu"`` with the same params: maxvals equal, preds within
-   atol 1e-4 (the inverse affine's tiny matmul may round differently).
+   its path gives it (taken from one more request): outputs must be equal.
+   Timed with CUDA events (3 warm-up calls, median of 20): the kernel, its
+   plain version, and where one PyTorch call computes the same function a
+   yardstick (B3, B4: 4 ``torch._int_mm`` calls on pre-gathered operands,
+   the 4-bit bank widened to int8; B7: ``torch.max`` over the flat maps);
+5. card vs CPU on one group through the same port on ``device="cpu"`` with
+   the same params, for path 1 and path 2 (the s4 bank): maxvals equal,
+   preds within atol 1e-4 (the inverse affine's tiny matmul may round
+   differently); for path 4, whose float convolutions sum in another order
+   on the card: maxvals within atol 1e-3 and at least 90 % of the joints
+   within 1e-3 px (a near-tie may move a peak or flip a nudge).
 
 The last lines are the card line, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``.
@@ -47,9 +59,11 @@ ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published dense peaks (NVIDIA data sheet): int8 tensor cores and HBM3
 PEAK_INT8_OPS = 1.979e15
+PEAK_F32_OPS = 67e12  # outside the tensor cores
 PEAK_BYTES = 3.35e12
 
-GROUPS, VIEWS, REQUESTS = 32, 4, 4
+GROUPS, VIEWS = 32, 4
+SMALL_GROUPS = 8  # paths 3 and 4
 
 
 def fail(msg: str):
@@ -155,8 +169,13 @@ def profile_request(fn) -> dict:
         wall_us = (time.perf_counter() - t) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(dev, "torch.profiler recorded no device activity")
-    families = {"phase_conv (B1, B2)": ("phase_conv",), "phase_head (B1)": ("phase_head",),
-                "aggregation (B3)": ("aggregation_kernel",),
+    families = {"phase_conv (B1, B2, B5, B6)": ("phase_conv",),
+                "phase_head (B1, B5)": ("phase_head",),
+                "aggregation (B3, B4)": ("aggregation_kernel", "aggregation_s4_kernel"),
+                "decode (B7)": ("decode_kernel",),
+                "f32 convolutions and GEMMs (float path)": (
+                    "cudnn", "conv", "sgemm", "gemv", "f32f32", "fft",
+                    "pointwise_mult_and_sum"),
                 "int8 GEMM (trunk, torch._int_mm)": ("gemm", "Gemm", "cutlass", "xmma"),
                 "memcpy/memset": ("Memcpy", "Memset")}
     by_family, by_name = {}, {}
@@ -191,9 +210,10 @@ def nbytes(*tensors) -> int:
     return total
 
 
-def bound(macs: float, nbytes_: float):
-    """(least ms, "operations" | "bytes") at the published peaks."""
-    t_ops, t_bytes = 2 * macs / PEAK_INT8_OPS * 1e3, nbytes_ / PEAK_BYTES * 1e3
+def bound(ops: float, nbytes_: float, peak_ops: float = PEAK_INT8_OPS):
+    """(least ms, "operations" | "bytes") at the published peaks; ``ops``
+    counts a multiply-accumulate as 2."""
+    t_ops, t_bytes = ops / peak_ops * 1e3, nbytes_ / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -206,14 +226,23 @@ def main() -> int:
           f"run from a checkout of the repository")
     sys.path.insert(0, str(ROOT))
     from posetpu_torch.config import default_config
+    from posetpu_torch.core.inference import final_preds_packed, fuse_routing_jns
     from posetpu_torch.data.synthetic import make_camera_ring, tile_cameras
     from posetpu_torch.geometry.triangulate import triangulate_points
+    from posetpu_torch.models import quant
     from posetpu_torch.models.multiview import get_multiview_pose_net
     from posetpu_torch.ops import _build
     from posetpu_torch.ops import aggregation as agg
+    from posetpu_torch.ops import decode as dec
     from posetpu_torch.ops import phase_tail as pt
-    from posetpu_torch.serving import build_serving_pipeline, pack_hwcn
+    from posetpu_torch.ops.heatmap import decode_heatmaps, phase_index_tables
+    from posetpu_torch.serving import (
+        build_float_pipeline,
+        build_serving_pipeline,
+        pack_hwcn,
+    )
 
+    t_start = time.perf_counter()
     # ------------------------------------------------------------ 1. the card
     card = card_line()
     dev = torch.device("cuda")
@@ -229,11 +258,12 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {s}: {line.strip()}")
 
-    # ------------------------------------------------------------ 3. main path
+    # ------------------------------------------------------------ 3. the paths
     cfg = default_config()
     cfg.NETWORK.IMAGE_SIZE = np.array([256, 256])
     cfg.NETWORK.HEATMAP_SIZE = np.array([64, 64])
     cfg.NETWORK.AGGRE = True
+    cfg.TEST.POST_PROCESS = True  # the float path's quarter-pixel nudge
     gen = torch.Generator().manual_seed(0)
     t0 = time.perf_counter()
     model = get_multiview_pose_net(cfg, generator=gen)
@@ -246,91 +276,205 @@ def main() -> int:
         model.resnet.final_layer.weight.mul_(1.0 / float(hm.abs().max()))
     pipe = build_serving_pipeline(cfg, model, calib, device=dev)
     torch.cuda.synchronize()
-    log(f"model + calibration + quantization: {time.perf_counter() - t0:.1f} s")
+    log(f"model + path 1 calibration + quantization: {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    pipe_pre = build_serving_pipeline(cfg, model, calib, flip_test="premirrored",
+                                      agg_w4=True, device=dev)
+    pipe_flip = build_serving_pipeline(cfg, model, calib, flip_test=True,
+                                       agg_w4=True, device=dev)
+    bank4 = pipe_pre.params["qagg"]["wq4"]
+    s_bank = 64 * 64
+    check(bank4.dtype == torch.uint8 and bank4.is_cuda
+          and bank4.numel() * bank4.element_size() == 4 * 3 * s_bank * s_bank // 2,
+          f"the s4 bank is not nibble-packed on the card: {bank4.dtype} {tuple(bank4.shape)}")
+    act4 = tuple(f"layer1_{i}.out" for i in range(3)) + tuple(
+        f"layer2_{i}.out" for i in range(4))
+    q3, fwd3 = quant.quantize_pose_resnet(model.resnet, calib, phase_kernel=1,
+                                          subpixel_deconvs={"deconv0"}, act4=act4,
+                                          device=dev)
+    tables3 = phase_index_tables((64, 64), levels=1)
+    qagg3 = agg.aggregation_device_params(quant.permute_aggregation_packed(
+        quant.quantize_aggregation_grouped(model.aggre_layer.weight), tables3), dev)
+    torch.cuda.synchronize()
+    log(f"paths 2 and 3 calibration + quantization: {time.perf_counter() - t0:.1f} s")
 
     images = rs.randint(0, 256, (GROUPS, VIEWS, 256, 256, 3)).astype(np.uint8)
     center = torch.full((GROUPS, VIEWS, 2), 500.0, device=dev)
     scale = torch.full((GROUPS, VIEWS, 2), 2.5, device=dev)
     is_h36m = torch.ones(GROUPS, device=dev)
     cams = tile_cameras(make_camera_ring(device=dev), GROUPS)
-    wrappers = {"fused_subpixel_deconv_batched": pt.fused_subpixel_deconv_batched,
-                "fused_phase_tail2": pt.fused_phase_tail2,
-                "aggregation_grouped": agg.aggregation_grouped}
+    cams_small = tile_cameras(make_camera_ring(device=dev), SMALL_GROUPS)
+    g = SMALL_GROUPS
+    views_f32 = rs.randn(g, VIEWS, 256, 256, 3).astype(np.float32)
 
-    def serve(x):
-        preds, maxvals = pipe.infer(pipe.params, x, center, scale, is_h36m)
-        return preds, maxvals, triangulate_points(preds, cams, (maxvals > 0.0).float())
+    # every kernel wrapper, by the module attribute its callers look up
+    wrappers = {"fused_subpixel_deconv_batched": pt, "fused_phase_tail2": pt,
+                "aggregation_grouped": agg, "aggregation_grouped_s4": agg,
+                "fused_phase_tail": pt, "fused_subpixel_deconv": pt,
+                "decode_heatmaps_kernel": dec}
+    wrapper = lambda name: getattr(wrappers[name], name)
 
-    for fn in wrappers.values():
-        fn.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    times = []
-    for _ in range(REQUESTS):
+    def triangulated(preds, maxvals, cams_):
+        return preds, maxvals, triangulate_points(preds, cams_, (maxvals > 0.0).float())
+
+    def serve_with(p, n_groups=GROUPS, cams_=cams):
+        return lambda x: triangulated(*p.infer(p.params, x, center[:n_groups],
+                                               scale[:n_groups], is_h36m[:n_groups]),
+                                      cams_)
+
+    def serve3(x):
+        """Path 3: the one-level tail's forward and the rest of the serving
+        pipeline, assembled from the package's functions."""
+        u8_quant = quant.make_u8_quant(q3, cfg.DATASET.MEAN, cfg.DATASET.STD)
+        hm3 = fwd3(q3, u8_quant(x.permute(3, 0, 1, 2)).contiguous())  # [J, N*V, S]
+        raw = hm3.reshape(hm3.shape[0], g, VIEWS, hm3.shape[-1])
+        out = fuse_routing_jns(raw, agg.aggregation_grouped(qagg3, raw), is_h36m[:g])
+        return triangulated(*final_preds_packed(out, center[:g], scale[:g], (64, 64),
+                                                tables3), cams_small)
+
+    pipe4 = build_float_pipeline(cfg, model, flip_test=True, device=dev)
+
+    launches_by_path = {}
+
+    def drive(label, serve, make_x, n_groups, requests, expect):
+        """Serve ``requests`` requests (the first warms up); frames/s over the
+        rest; the launch counts of this path alone."""
+        for name in wrappers:
+            wrapper(name).launches = 0
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        times = []
+        for _ in range(requests):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            preds, maxvals, pts3d = serve(make_x())
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t)
+        counts = {name: wrapper(name).launches for name in wrappers}
+        launches_by_path[label] = counts
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
+        for name in expect:
+            check(counts[name] > 0, f"{label}: {name} never launched")
+        check(tuple(preds.shape) == (n_groups, VIEWS, 16, 2), f"{label}: preds {tuple(preds.shape)}")
+        check(tuple(maxvals.shape) == (n_groups, VIEWS, 16), f"{label}: maxvals {tuple(maxvals.shape)}")
+        check(tuple(pts3d.shape) == (n_groups, 16, 3), f"{label}: pts3d {tuple(pts3d.shape)}")
+        for name, t in (("preds", preds), ("maxvals", maxvals), ("pts3d", pts3d)):
+            check(bool(torch.isfinite(t).all()), f"{label}: non-finite {name}")
+        check(float(maxvals.std()) > 0, f"{label}: maxvals are constant")
+        fps = (requests - 1) * n_groups * VIEWS / sum(times[1:])
+        log(f"{label}: {requests} requests x {n_groups * VIEWS} frames, request s "
+            f"{[round(t, 4) for t in times]}, {fps:.1f} frames/s over the last "
+            f"{requests - 1}, peak {peak_gib:.2f} GiB, launches "
+            f"{ {k: v for k, v in counts.items() if v} } | {card}")
+        return preds, maxvals
+
+    drive("path 1 (defaults)", serve_with(pipe), lambda: pipe.prepare(images), GROUPS, 3,
+          ["fused_subpixel_deconv_batched", "fused_phase_tail2", "aggregation_grouped"])
+    p_pre, m_pre = drive(
+        "path 2 (premirrored flip, s4 bank)", serve_with(pipe_pre),
+        lambda: pipe_pre.prepare(images), GROUPS, 4,
+        ["fused_subpixel_deconv_batched", "fused_phase_tail2", "aggregation_grouped_s4"])
+    pt.SUBPIX_BATCHED = False
+    try:
+        drive("path 3 (one-level tail, per-pair deconv0)", serve3,
+              lambda: pipe.prepare(images[:g]), g, 3,
+              ["fused_subpixel_deconv", "fused_phase_tail", "aggregation_grouped"])
+        with capture_first_calls([(pt, "fused_subpixel_deconv"),
+                                  (pt, "fused_phase_tail")]) as seen3:
+            serve3(pipe.prepare(images[:g]))
+    finally:
+        pt.SUBPIX_BATCHED = True
+    drive("path 4 (float, flip test)", serve_with(pipe4, g, cams_small),
+          lambda: pipe4.prepare(views_f32), g, 3, ["decode_heatmaps_kernel"])
+
+    # flip_test=True mirrors inside infer: the same bytes, so equal outputs
+    p_flip, m_flip = pipe_flip.infer(pipe_pre.params, pipe_flip.prepare(images),
+                                     center, scale, is_h36m)
+    check(torch.equal(p_flip, p_pre) and torch.equal(m_flip, m_pre),
+          "flip_test=True and 'premirrored' differ")
+    log("flip_test=True == 'premirrored': preds and maxvals equal")
+
+    # where one request's time goes on each path: host packing and upload,
+    # then the device by kernel family
+    for label, prepare, serve, batched in (
+            ("path 1", lambda: pipe.prepare(images), serve_with(pipe), True),
+            ("path 2", lambda: pipe_pre.prepare(images), serve_with(pipe_pre), True),
+            ("path 3", lambda: pipe.prepare(images[:g]), serve3, False),
+            ("path 4", lambda: pipe4.prepare(views_f32),
+             serve_with(pipe4, g, cams_small), True)):
         t = time.perf_counter()
-        preds, maxvals, pts3d = serve(pipe.prepare(images))
+        x = prepare()
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t)
-    launches = {k: fn.launches for k, fn in wrappers.items()}
-    peak_gib = torch.cuda.max_memory_allocated() / 2**30
-    for k, n in launches.items():
-        check(n > 0, f"{k} never launched on the main path")
-    check(tuple(preds.shape) == (GROUPS, VIEWS, 16, 2), f"preds {tuple(preds.shape)}")
-    check(tuple(maxvals.shape) == (GROUPS, VIEWS, 16), f"maxvals {tuple(maxvals.shape)}")
-    check(tuple(pts3d.shape) == (GROUPS, 16, 3), f"pts3d {tuple(pts3d.shape)}")
-    for name, t in (("preds", preds), ("maxvals", maxvals), ("pts3d", pts3d)):
-        check(bool(torch.isfinite(t).all()), f"non-finite {name}")
-    check(float(maxvals.std()) > 0, "maxvals are constant")
-    fps = 3 * GROUPS * VIEWS / sum(times[1:])
-    log(f"main path: {REQUESTS} requests x {GROUPS * VIEWS} images, request s "
-        f"{[round(t, 4) for t in times]}, {fps:.1f} frames/s over the last 3, "
-        f"peak {peak_gib:.2f} GiB, launches {launches} | {card}")
+        prepare_ms = (time.perf_counter() - t) * 1e3
+        pt.SUBPIX_BATCHED = batched
+        try:
+            prof = profile_request(lambda: serve(x))
+        finally:
+            pt.SUBPIX_BATCHED = True
+        log(f"profile {label}: " + json.dumps({"prepare_ms": prepare_ms, **prof}))
 
-    # where one request's time goes: host packing, then the device by kernel
-    t = time.perf_counter()
-    x = pipe.prepare(images)
-    torch.cuda.synchronize()
-    prepare_ms = (time.perf_counter() - t) * 1e3
-    prof = profile_request(lambda: serve(x))
-    log("profile: " + json.dumps({"prepare_ms": prepare_ms, **prof}))
-
-    # one more request to take each kernel's inputs for phase 4 (serving.py
-    # and quant.py look the kernels up on their modules at call time)
+    # one more request per path to take each kernel's inputs for phase 4 (the
+    # callers look the kernels up on their modules at call time)
     with capture_first_calls([(pt, "fused_subpixel_deconv_batched"),
                               (pt, "fused_phase_tail2"),
                               (agg, "aggregation_grouped")]) as seen:
-        serve(x)
-    check(set(seen) == set(wrappers), f"kernels not reached on the path: "
+        serve_with(pipe)(pipe.prepare(images))
+    with capture_first_calls([(agg, "aggregation_grouped_s4")]) as seen2:
+        serve_with(pipe_pre)(pipe_pre.prepare(images))
+    with capture_first_calls([(dec, "decode_heatmaps_kernel")]) as seen4:
+        serve_with(pipe4, g, cams_small)(pipe4.prepare(views_f32))
+    seen.update(seen2)
+    seen.update(seen3)
+    seen.update(seen4)
+    check(set(seen) == set(wrappers), f"kernels not reached on their paths: "
           f"{set(wrappers) - set(seen)}")
 
     # ------------------------------------------------------------ 4. kernels
     results = []
+    home = {"fused_subpixel_deconv_batched": "path 1 (defaults)",
+            "fused_phase_tail2": "path 1 (defaults)",
+            "aggregation_grouped": "path 1 (defaults)",
+            "aggregation_grouped_s4": "path 2 (premirrored flip, s4 bank)",
+            "fused_phase_tail": "path 3 (one-level tail, per-pair deconv0)",
+            "fused_subpixel_deconv": "path 3 (one-level tail, per-pair deconv0)",
+            "decode_heatmaps_kernel": "path 4 (float, flip test)"}
 
-    def compare(name, source, replaces, plain, args, kw, macs, nbytes_, library=None):
-        kernel = lambda: wrappers[name](*args, **kw)
+    def as_tuple(out):
+        return out if isinstance(out, tuple) else (out,)
+
+    def compare(name, source, replaces, plain, args, kw, ops, nbytes_, library=None,
+                peak_ops=PEAK_INT8_OPS):
+        kernel = lambda: wrapper(name)(*args, **kw)
         ref_fn = lambda: plain(*args, **kw)
-        got, ref = kernel(), ref_fn()
+        got, ref = as_tuple(kernel()), as_tuple(ref_fn())
         torch.cuda.synchronize()
-        check(got.dtype == ref.dtype and got.shape == ref.shape, f"{name}: shape/dtype")
-        err = float((got.double() - ref.double()).abs().max())
-        check(torch.equal(got, ref), f"{name}: kernel != plain (max abs err {err})")
+        err = 0.0
+        for a, b in zip(got, ref):
+            check(a.dtype == b.dtype and a.shape == b.shape, f"{name}: shape/dtype")
+            err = max(err, float((a.double() - b.double()).abs().max()))
+        check(all(torch.equal(a, b) for a, b in zip(got, ref)),
+              f"{name}: kernel != plain (max abs err {err})")
         ms, plain_ms = cuda_ms(kernel), cuda_ms(ref_fn)
         lib_ms = None if library is None else cuda_ms(library)
-        b_ms, b_by = bound(macs, nbytes_)
+        b_ms, b_by = bound(ops, nbytes_, peak_ops)
         results.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib_ms})
+                        "replaces": replaces,
+                        "launches": launches_by_path[home[name]][name],
+                        "path": home[name], "max_abs_err": err, "ms": ms,
+                        "plain_ms": plain_ms, "bound_ms": b_ms, "bound_by": b_by,
+                        "library_ms": lib_ms})
         log(f"kernel {name}: equal to plain, {ms:.4f} ms (plain {plain_ms:.4f}, "
             f"library {lib_ms}, bound {b_ms:.4f} by {b_by}) | {card}")
 
+    def subpixel_work(x0, a0):
+        n, hw, cin = x0.shape
+        cout = a0["w"].shape[2]
+        return 2 * 16 * n * hw * cout * cin, nbytes(x0, a0) + 4 * n * hw * cout
+
     (x0, a0), kw0 = seen["fused_subpixel_deconv_batched"]
-    n, hw, cin = x0.shape
-    cout = a0["w"].shape[2]
     compare("fused_subpixel_deconv_batched", "posetpu_torch/csrc/phase_tail.cu",
             "posetpu/ops/pallas/phase_tail.py:609", pt.subpixel_deconv_plain,
-            (x0, a0), kw0, 16 * n * hw * cout * cin,
-            nbytes(x0, a0) + 4 * n * hw * cout)
+            (x0, a0), kw0, *subpixel_work(x0, a0))
 
     (x1, a1), kw1 = seen["fused_phase_tail2"]
     n, hw, cin = x1.shape
@@ -339,21 +483,58 @@ def main() -> int:
              + n * 16 * hw * joints * cout)
     compare("fused_phase_tail2", "posetpu_torch/csrc/phase_tail.cu",
             "posetpu/ops/pallas/phase_tail.py:384", pt.phase_tail2_plain,
-            (x1, a1), kw1, macs1, nbytes(x1, a1) + 4 * joints * n * 16 * hw)
+            (x1, a1), kw1, 2 * macs1, nbytes(x1, a1) + 4 * joints * n * 16 * hw)
+
+    def gathered_operands(qagg, hm, bank_ok):
+        """The library yardstick's operands: per target one int8 GEMM
+        [JN, 3S] x [3S, S], gathered beforehand (not timed); ``bank_ok``
+        [4, 3, S_out, S_in] int8."""
+        s = hm.shape[-1]
+        xq, _ = agg._quantize(qagg, hm)
+        gathered = [torch.cat([xq[p] for p in range(4) if p != t], dim=1) for t in range(4)]
+        bank_kn = [bank_ok[t].transpose(-1, -2).reshape(3 * s, s).contiguous()
+                   for t in range(4)]
+        return lambda: [torch._int_mm(gathered[t], bank_kn[t]) for t in range(4)]
 
     (qagg, hm), kw3 = seen["aggregation_grouped"]
     j, ng, v, s = hm.shape
-    # the library yardstick: per target one int8 GEMM [JN, 3S] x [3S, S] on
-    # operands gathered beforehand (not timed)
-    xq, _ = agg._quantize(qagg, hm)
-    gathered = [torch.cat([xq[p] for p in range(4) if p != t], dim=1) for t in range(4)]
-    bank_kn = [qagg["wq"][t].transpose(-1, -2).reshape(3 * s, s).contiguous()
-               for t in range(4)]
     compare("aggregation_grouped", "posetpu_torch/csrc/aggregation.cu",
             "posetpu/ops/pallas/aggregation.py:148", agg.aggregation_grouped_plain,
-            (qagg, hm), kw3, 4 * j * ng * 3 * s * s, nbytes(hm, qagg) + hm.numel() * 4,
-            library=lambda: [torch._int_mm(gathered[t], bank_kn[t]) for t in range(4)])
-    del gathered, bank_kn
+            (qagg, hm), kw3, 2 * 4 * j * ng * 3 * s * s, nbytes(hm, qagg) + hm.numel() * 4,
+            library=gathered_operands(qagg, hm, qagg["wq"]))
+
+    # B4: the bank counts at half a byte per weight (its tensor is uint8
+    # [4, 3, S, S/2]); the diagonal term adds 3 multiply-adds per output
+    (qagg4, hm4), kw4 = seen["aggregation_grouped_s4"]
+    j, ng, v, s = hm4.shape
+    compare("aggregation_grouped_s4", "posetpu_torch/csrc/aggregation.cu",
+            "posetpu/ops/pallas/aggregation.py:294", agg.aggregation_grouped_s4_plain,
+            (qagg4, hm4), kw4, 2 * 4 * j * ng * 3 * s * s,
+            nbytes(hm4, qagg4) + hm4.numel() * 4,
+            library=gathered_operands(qagg4, hm4, agg.unpack_nibbles_k(qagg4["wq4"])))
+
+    (x5, a5), kw5 = seen["fused_phase_tail"]
+    n, hw, cin = x5.shape
+    cout, joints = a5["w"].shape[2], a5["wh"].shape[0]
+    compare("fused_phase_tail", "posetpu_torch/csrc/phase_tail.cu",
+            "posetpu/ops/pallas/phase_tail.py:184", pt.phase_tail_plain, (x5, a5), kw5,
+            2 * (16 * n * hw * cout * cin + n * 4 * hw * joints * cout),
+            nbytes(x5, a5) + 4 * joints * n * 4 * hw)
+
+    (x6, a6), kw6 = seen["fused_subpixel_deconv"]
+    compare("fused_subpixel_deconv", "posetpu_torch/csrc/phase_tail.cu",
+            "posetpu/ops/pallas/phase_tail.py:527", pt.subpixel_deconv_pairs_plain,
+            (x6, a6), kw6, *subpixel_work(x6, a6))
+
+    # B7: one compare and one select per element, outside the tensor cores;
+    # every map read once, 12 bytes written per map
+    (hm7,), kw7 = seen["decode_heatmaps_kernel"]
+    maps = hm7.numel() // (hm7.shape[-1] * hm7.shape[-2])
+    flat7 = hm7.reshape(maps, -1)
+    compare("decode_heatmaps_kernel", "posetpu_torch/csrc/decode.cu",
+            "posetpu/ops/pallas/decode.py:61", decode_heatmaps, (hm7,), kw7,
+            2 * hm7.numel(), nbytes(hm7) + 12 * maps,
+            library=lambda: torch.max(flat7, dim=-1), peak_ops=PEAK_F32_OPS)
 
     # ------------------------------------------------------------ 5. card vs CPU
     one = images[:1]
@@ -361,16 +542,35 @@ def main() -> int:
     to_cpu = lambda t: ({k: to_cpu(u) for k, u in t.items()} if isinstance(t, dict)
                         else None if t is None else t.cpu())
     args_gpu = (center[:1], scale[:1], is_h36m[:1])
-    p_gpu, m_gpu = pipe.infer(pipe.params, x_cpu.to(dev), *args_gpu)
-    t = time.perf_counter()
-    p_cpu, m_cpu = pipe.infer(to_cpu(pipe.params), x_cpu, *[a.cpu() for a in args_gpu])
-    check(torch.equal(m_gpu.cpu(), m_cpu), "card vs CPU: maxvals differ (max "
-          f"{float((m_gpu.cpu() - m_cpu).abs().max())})")
-    perr = float((p_gpu.cpu() - p_cpu).abs().max())
-    check(perr <= 1e-4, f"card vs CPU: preds differ by {perr}")
-    log(f"card vs CPU on one group: maxvals equal, preds max abs diff {perr} "
-        f"(CPU run {time.perf_counter() - t:.1f} s)")
+    args_cpu = [a.cpu() for a in args_gpu]
+    for label, p, x1_cpu in (
+            ("path 1", pipe, x_cpu),
+            ("path 2 (s4 bank)", pipe_pre,
+             torch.cat([x_cpu, quant.mirror_s2d_hwcn(x_cpu)], dim=3))):
+        p_gpu, m_gpu = p.infer(p.params, x1_cpu.to(dev), *args_gpu)
+        t = time.perf_counter()
+        p_cpu, m_cpu = p.infer(to_cpu(p.params), x1_cpu, *args_cpu)
+        check(torch.equal(m_gpu.cpu(), m_cpu), f"card vs CPU, {label}: maxvals differ "
+              f"(max {float((m_gpu.cpu() - m_cpu).abs().max())})")
+        perr = float((p_gpu.cpu() - p_cpu).abs().max())
+        check(perr <= 1e-4, f"card vs CPU, {label}: preds differ by {perr}")
+        log(f"card vs CPU on one group, {label}: maxvals equal, preds max abs diff "
+            f"{perr} (CPU run {time.perf_counter() - t:.1f} s)")
 
+    v1 = pipe4.prepare(views_f32[:1])
+    p_gpu, m_gpu = pipe4.infer(pipe4.params, v1, *args_gpu)
+    t = time.perf_counter()
+    pipe4_cpu = build_float_pipeline(cfg, model, flip_test=True, device="cpu")
+    p_cpu, m_cpu = pipe4_cpu.infer(pipe4_cpu.params, v1.cpu(), *args_cpu)
+    merr = float((m_gpu.cpu() - m_cpu).abs().max())
+    same = float(((p_gpu.cpu() - p_cpu).abs().amax(dim=-1) <= 1e-3).float().mean())
+    check(merr <= 1e-3, f"card vs CPU, path 4: maxvals differ by {merr}")
+    check(same >= 0.9, f"card vs CPU, path 4: only {same:.3f} of the joints agree")
+    log(f"card vs CPU on one group, path 4: maxvals max abs diff {merr}, "
+        f"{same:.3f} of the joints within 1e-3 px (CPU run "
+        f"{time.perf_counter() - t:.1f} s)")
+
+    log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(card)
     log(json.dumps({"kernels": results}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu",

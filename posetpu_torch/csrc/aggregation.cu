@@ -16,6 +16,17 @@
 // tensor-core mma.sync on 128x128 tiles; each bank tile is read by the
 // JN/128 = 4 row blocks of its target, mostly from L2. Not yet at the bound
 // (mma.sync, not wgmma/TMA; no persistent weight streaming).
+//
+// B4 replaces aggregation_grouped_pallas_s4 (_agg_kernel_s4): the same dot on
+// a 4-bit residual bank plus the exact f32 diagonal term,
+//   out = acc * sv[t] + sum_p xq[src(t, p)][m, o] * dv[t, p][o]
+// with res and dia each built from separately rounded multiplies and adds,
+// dia summed in pair order p = 0, 1, 2, then res + dia. The bank arrives
+// nibble-packed K-minor, wq4 [4, 3, S_out, S_in / 2] bytes (int8_mma.cuh:
+// mma_mainloop_w4 gives the order), so the card reads 100.7 MB of weights at
+// S = 4096, not 201 MB; each nibble pair is widened to int8 in registers and
+// fed to the same mma.sync. Bound at the serving shapes: 1.03e11 MAC,
+// ~0.104 ms by operations; all inputs and outputs (~152 MB) are 0.045 ms.
 
 #include "int8_mma.cuh"
 
@@ -65,9 +76,65 @@ __global__ void __launch_bounds__(THREADS) aggregation_kernel(
   });
 }
 
+struct AggB4Row {
+  const uint8_t* wq4;
+  int t, o, s;
+  __device__ const void* operator()(int k_byte, bool& valid) const {
+    const int half = s / 2;
+    const int p = k_byte / half, kk = k_byte - p * half;
+    valid = o < s;
+    return valid ? wq4 + ((static_cast<size_t>(t) * 3 + p) * s + o) * half + kk : wq4;
+  }
+};
+
+__global__ void __launch_bounds__(THREADS) aggregation_s4_kernel(
+    const int8_t* xq, const uint8_t* wq4, const float* sv, const float* dv,
+    float* out, int jn, int s) {
+  const int t = blockIdx.z;
+  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
+  AggARow la{xq, t, m0 + (static_cast<int>(threadIdx.x) >> 1), jn, s};
+  AggB4Row lb{wq4, t, n0 + static_cast<int>(threadIdx.x), s};
+
+  Acc acc;
+  mma_mainloop_w4(la, lb, 3 * s / BK, acc);
+
+  const float* svt = sv + static_cast<size_t>(t) * s;
+  const float* dvt = dv + static_cast<size_t>(t) * 3 * s;
+  for_each_pair(acc, [&](int row, int col, int v0, int v1) {
+    const int m = m0 + row, o = n0 + col;
+    if (m >= jn || o >= s) return;
+    float dia[2];
+#pragma unroll
+    for (int p = 0; p < 3; ++p) {
+      const int src = p < t ? p : p + 1;
+      const char2 x = *reinterpret_cast<const char2*>(
+          xq + (static_cast<size_t>(src) * jn + m) * s + o);
+      const float d0 = __fmul_rn(static_cast<float>(x.x), dvt[p * s + o]);
+      const float d1 = __fmul_rn(static_cast<float>(x.y), dvt[p * s + o + 1]);
+      dia[0] = p == 0 ? d0 : __fadd_rn(dia[0], d0);
+      dia[1] = p == 0 ? d1 : __fadd_rn(dia[1], d1);
+    }
+    float2 r;
+    r.x = __fadd_rn(__fmul_rn(__int2float_rn(v0), svt[o]), dia[0]);
+    r.y = __fadd_rn(__fmul_rn(__int2float_rn(v1), svt[o + 1]), dia[1]);
+    *reinterpret_cast<float2*>(out + (static_cast<size_t>(t) * jn + m) * s + o) = r;
+  });
+}
+
 }  // namespace posetpu
 
 using namespace posetpu;
+
+extern "C" int aggregation_grouped_s4(const void* xq, const void* wq4,
+                                      const void* sv, const void* dv, void* out,
+                                      int jn, int s, void* stream) {
+  dim3 grid((s + BN - 1) / BN, (jn + BM - 1) / BM, 4);
+  aggregation_s4_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(wq4),
+      static_cast<const float*>(sv), static_cast<const float*>(dv),
+      static_cast<float*>(out), jn, s);
+  return static_cast<int>(cudaGetLastError());
+}
 
 extern "C" int aggregation_grouped(const void* xq, const void* wq,
                                    const void* sv, void* out, int jn, int s,

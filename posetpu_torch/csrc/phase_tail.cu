@@ -1,10 +1,16 @@
 // Phase-domain deconvolution kernels for the serving tail (sm_90a).
 //
-// Replaces two Pallas TPU kernels of posetpu/ops/pallas/phase_tail.py:
+// Replaces four Pallas TPU kernels of posetpu/ops/pallas/phase_tail.py:
 //   B2 fused_subpixel_deconv_batched (_subpixel_deconv_kernel_batched) —
 //      deconv0 as 4 phases x 4 taps of int8 dots + per-phase requant;
 //   B1 fused_phase_tail2 (_phase_tail2_kernel) — deconv1 + deconv2 + the
-//      1x1 head, heatmaps in the phase_index_tables(levels=2) order.
+//      1x1 head, heatmaps in the phase_index_tables(levels=2) order;
+//   B5 fused_phase_tail (_phase_tail_kernel) — the last deconv + the 1x1
+//      head, heatmaps in the phase_index_tables(levels=1) order: phase_conv
+//      (phase-major output) then phase_head(levels=1);
+//   B6 fused_subpixel_deconv (_subpixel_deconv_kernel) — B2's arithmetic
+//      with the per-pair kernel's N-minor output [4, H, W, N, Cout]
+//      (phase_conv output mode 2).
 //
 // phase_conv: one k4/s2/p1 transposed conv in phase form. Output element
 // (g=(a,b), n, i, j, o) = requant(sum_t sum_c x[n, i+sr, j+sc, c] * w[g,t,o,c])
@@ -20,7 +26,9 @@
 // phase_head: the [C -> J] int8 head over deconv2's phase maps, writing f32
 // [J, N, 16*h*w] directly in the levels=2 packed order (ops/heatmap.py:
 // phase_index_tables): packed p = ((g2*4 + 2al+be) * bh*bw) + i*bw + j reads
-// deconv2 phase g2 at pixel (2i+al, 2j+be). No separate gather pass.
+// deconv2 phase g2 at pixel (2i+al, 2j+be). No separate gather pass. With
+// levels=1 it writes the one-level order instead: p = g*h*w + r reads phase
+// g at row-major pixel r.
 //
 // Bound on the H100 (1,979 TOP/s int8 dense, 3.35 TB/s), at the serving
 // shapes (128 images, 256^2 input): B2 6.87e10 MAC over 33.6 MB, ~0.069 ms,
@@ -32,6 +40,9 @@
 // kernel keeps both in VMEM; here one image's z1 plane (32x32x256 = 256 KB)
 // does not fit in the 227 KB of shared memory a block can use, so fusing
 // the three stages needs a tiled redesign (queued in ROADMAP.md).
+// B5 at the serving shapes (128 images, 32x32 -> 64x64, C 256): 1.36e11 MAC,
+// ~0.137 ms, compute-bound; it round-trips its deconv output (134 MB int8)
+// through device memory as B1 does. B6 is B2's work: ~0.069 ms.
 //
 // Exactness: every epilogue rounds multiply and add separately
 // (__fmul_rn/__fadd_rn; the library is also built with --fmad=false), the
@@ -49,8 +60,10 @@ struct PhaseConvArgs {
   const float* bv;      // bias, same layout
   int phase_stride;     // Cout (per-phase vectors) or 0 (one broadcast vector)
   const float* so;      // output scale, one value
-  int8_t* out;          // [4, N, H, W, Cout] or interleaved [N, 2H, 2W, Cout]
-  int n, h, wd, cin, cout, interleave;  // wd: image width
+  int8_t* out;          // by out_mode, below
+  int n, h, wd, cin, cout;  // wd: image width
+  int out_mode;         // 0: [4, N, H, W, Cout]; 1: interleaved [N, 2H, 2W, Cout];
+                        // 2: [4, H, W, N, Cout]
 };
 
 struct PhaseARow {
@@ -102,8 +115,10 @@ __global__ void __launch_bounds__(THREADS) phase_conv_kernel(PhaseConvArgs p) {
     if (mo >= m_total || o >= p.cout) return;
     const int j = mo % p.wd, i = (mo / p.wd) % p.h, n = mo / (p.wd * p.h);
     size_t base;
-    if (p.interleave)
+    if (p.out_mode == 1)
       base = ((static_cast<size_t>(n) * 2 * p.h + 2 * i + a) * 2 * p.wd + 2 * j + b) * p.cout;
+    else if (p.out_mode == 2)
+      base = (((static_cast<size_t>(g) * p.h + i) * p.wd + j) * p.n + n) * p.cout;
     else
       base = (static_cast<size_t>(g) * m_total + mo) * p.cout;
     char2 q;
@@ -121,7 +136,7 @@ __global__ void __launch_bounds__(THREADS) phase_head_kernel(
     const int8_t* __restrict__ wh,  // [J, C]
     const float* __restrict__ vh,   // [2, J]: scale, bias
     float* __restrict__ out,        // [J, N, 4*H2*W2]
-    int n_img, int h2, int w2, int c, int joints) {
+    int n_img, int h2, int w2, int c, int joints, int levels) {
   extern __shared__ int smem[];
   const int cw = c / 4;            // int32 words per channel row
   const int ld = cw + 1;           // padded row stride: conflict-free reads
@@ -139,9 +154,17 @@ __global__ void __launch_bounds__(THREADS) phase_head_kernel(
     const int pk = p0 + px;
     int v = 0;
     if (pk < total) {
-      const int g2 = pk / (4 * plane), rem = pk - g2 * 4 * plane;
-      const int par = rem / plane, r = rem - par * plane;
-      const int yy = 2 * (r / bw) + (par >> 1), xx = 2 * (r % bw) + (par & 1);
+      int g2, yy, xx;
+      if (levels == 1) {  // packed p = g*H2*W2 + r: phase g, row-major pixel r
+        g2 = pk / (h2 * w2);
+        const int r = pk - g2 * h2 * w2;
+        yy = r / w2; xx = r - yy * w2;
+      } else {
+        g2 = pk / (4 * plane);
+        const int rem = pk - g2 * 4 * plane;
+        const int par = rem / plane, r = rem - par * plane;
+        yy = 2 * (r / bw) + (par >> 1); xx = 2 * (r % bw) + (par & 1);
+      }
       const size_t row = ((static_cast<size_t>(g2) * n_img + n) * h2 + yy) * w2 + xx;
       v = reinterpret_cast<const int*>(z + row * c)[word];
     }
@@ -169,11 +192,11 @@ using namespace posetpu;
 extern "C" int phase_conv(const void* x, const void* w, const void* sv,
                           const void* bv, int phase_stride, const void* so,
                           void* out, int n, int h, int w_, int cin, int cout,
-                          int interleave, void* stream) {
+                          int out_mode, void* stream) {
   PhaseConvArgs p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w),
                   static_cast<const float*>(sv), static_cast<const float*>(bv),
                   phase_stride, static_cast<const float*>(so),
-                  static_cast<int8_t*>(out), n, h, w_, cin, cout, interleave};
+                  static_cast<int8_t*>(out), n, h, w_, cin, cout, out_mode};
   const int m = n * h * w_;
   dim3 grid((cout + BN - 1) / BN, (m + BM - 1) / BM, 4);
   phase_conv_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(p);
@@ -182,7 +205,7 @@ extern "C" int phase_conv(const void* x, const void* w, const void* sv,
 
 extern "C" int phase_head(const void* z, const void* wh, const void* vh,
                           void* out, int n, int h2, int w2, int c, int joints,
-                          void* stream) {
+                          int levels, void* stream) {
   const size_t smem = (HEAD_PIX * (c / 4 + 1) + joints * (c / 4)) * sizeof(int);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
@@ -194,6 +217,6 @@ extern "C" int phase_head(const void* z, const void* wh, const void* vh,
   phase_head_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int8_t*>(z), static_cast<const int8_t*>(wh),
       static_cast<const float*>(vh), static_cast<float*>(out), n, h2, w2, c,
-      joints);
+      joints, levels);
   return static_cast<int>(cudaGetLastError());
 }

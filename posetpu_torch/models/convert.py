@@ -66,8 +66,9 @@ def from_jax_variables(tree) -> dict[str, torch.Tensor]:
 def from_jax_params(tree, device=None) -> dict:
     """A JAX serving pipeline's params (numpy leaves) -> the port's params on
     ``device``: trunk weights as int8 HWIO tensors, scales as f32 tensors,
-    the kernels' argument packs and bank in the kernels' layouts. CUDA
-    unless ``device`` is given."""
+    the kernels' argument packs (``phase_tail2``, ``phase_tail``,
+    ``subpix_*``) and the bank (int8, or an s4 carrier nibble-packed) in the
+    kernels' layouts. CUDA unless ``device`` is given."""
     dev = resolve_device(device)
     t = lambda a: torch.from_numpy(np.array(a)).to(dev)
     q = tree["q"]
@@ -77,12 +78,16 @@ def from_jax_params(tree, device=None) -> dict:
     for k, v in q.items():
         if k == "phase_tail2":
             qp[k] = _pt.tail2_device_args(v, dev)
+        elif k == "phase_tail":
+            qp[k] = _pt.tail_device_args(v, dev)
         elif k.startswith("subpix_"):
             qp[k] = _pt.subpixel_device_args(v, dev)
         elif k not in qp:
-            raise NotImplementedError(f"qparams entry {k!r} is not ported")
+            raise ValueError(f"unknown qparams entry {k!r}")
     qagg = tree.get("qagg")
-    if qagg is not None and "wq4" in qagg:
-        raise NotImplementedError("the s4 aggregation bank (agg_w4) is not ported")
-    return {"q": qp,
-            "qagg": None if qagg is None else _agg.aggregation_device_params(qagg, dev)}
+    if qagg is not None:
+        # an s4 bank (wq4, w_scale, dv, x_scale) becomes the nibble-packed one
+        to_dev = (_agg.aggregation_device_params_s4 if "wq4" in qagg
+                  else _agg.aggregation_device_params)
+        qagg = to_dev(qagg, dev)
+    return {"q": qp, "qagg": qagg}

@@ -1,6 +1,10 @@
-"""int8 post-training-quantized inference path for PoseResNet (the serving
-configuration: space-to-depth stem input, subpixel deconv0, two-level phase
-tail, optional 4-bit block boundaries).
+"""int8 post-training-quantized inference path for PoseResNet (space-to-depth
+stem input, phase-packed heatmaps, optional 4-bit block boundaries), in every
+tail configuration of the JAX package's ``jns_head="phase"``: the last deconv
++ head in plain PyTorch, as the one-level kernel (B5) or, with the deconv
+before it, as the two-level kernel (B1); each inner deconv as the dilated
+int8 conv, the plain subpixel conv or the subpixel kernel (B2 batched, B6
+per pair).
 
 1. **fold** — BatchNorm folds into each conv's per-output-channel scale+bias;
 2. **calibrate** — batches run through the folded float graph recording
@@ -14,8 +18,8 @@ The weight-side steps are numpy and copy the JAX package's arithmetic, so
 the int8 weights match it bit for bit. The trunk convs are exact int8 GEMMs:
 im2col on int8 NHWC (padding + strided slices) and ``torch._int_mm``
 (int8 x int8 -> int32, ops/int_mm.py). Never an f32 conv: layer4's 3x3x512 contraction
-reaches ~7.4e7 > 2^24, past f32's exact integers. The deconv tail runs the
-hand-written CUDA kernels of ops/phase_tail.py.
+reaches ~7.4e7 > 2^24, past f32's exact integers. The deconv tail's kernels
+are the hand-written CUDA kernels of ops/phase_tail.py.
 
 Every scale is a float32 tensor, and products of scales are taken in f32 in
 the JAX association, so each rounds as it does there.
@@ -52,8 +56,9 @@ def _fold_conv_bn(kernel, bn_params, bn_stats, eps: float = 1e-5):
     return w.astype(np.float32), b.astype(np.float32)
 
 
-def _plan(num_layers: int, num_deconvs: int):
-    """Linear layer plan mirroring PoseResNet's structure."""
+def _plan(num_layers: int, deconv_kernels):
+    """Linear layer plan mirroring PoseResNet's structure; ``deconv_kernels``
+    the deconvs' kernel sizes in order."""
     kind, stage_blocks = RESNET_SPEC[num_layers]
     expansion = 1 if kind == "basic" else 4
     plan = [("stem", {})]
@@ -66,8 +71,8 @@ def _plan(num_layers: int, num_deconvs: int):
             plan.append(("block", {"name": f"layer{stage}_{b}", "kind": kind,
                                    "stride": stride, "downsample": need_ds}))
             inplanes = planes * expansion
-    for i in range(num_deconvs):
-        plan.append(("deconv", {"name": f"deconv{i}"}))
+    for i, k in enumerate(deconv_kernels):
+        plan.append(("deconv", {"name": f"deconv{i}", "kernel": int(k)}))
     plan.append(("final", {}))
     return plan
 
@@ -83,7 +88,7 @@ def fold_params(model) -> dict:
                        {"mean": sd[f"{name}.running_mean"],
                         "var": sd[f"{name}.running_var"]})
     folded = {"stem": _fold_conv_bn(hwio("conv1"), *bn("bn1"))}
-    for kind, info in _plan(model.num_layers, len(model.deconv_filters)):
+    for kind, info in _plan(model.num_layers, model.deconv_kernels):
         name = info.get("name")
         if kind == "block":
             convs = ["conv1", "conv2"] + (["conv3"] if info["kind"] == "bottleneck" else [])
@@ -131,10 +136,35 @@ def s2d_stem_weights(w):
     return out
 
 
+def mirror_s2d_hwcn(x):
+    """The flip-test input mirror on the batch-minor serving contract,
+    without unpacking: x [H/2, W/2, 4*C, N] uint8. Virtual column
+    j = 2*jj + b mirrors to W-1-j = 2*(W/2-1-jj) + (1-b): reverse the packed
+    column axis (axis 1) and swap the b-phase channel groups (axis 2).
+    Equals packing the W-reversed images (lib/core/function.py:557-562)."""
+    c = x.shape[2] // 4
+    perm = torch.cat([torch.arange(c, 2 * c), torch.arange(0, c),      # a=0: b=1 <-> b=0
+                      torch.arange(3 * c, 4 * c), torch.arange(2 * c, 3 * c)])  # a=1
+    return x.flip(1).index_select(2, perm.to(x.device))
+
+
 def _subpixel_wants(subpixel_deconvs, name) -> bool:
+    """``subpixel_deconvs`` is a bool (all k4 deconvs) or a collection of
+    deconv names (per-site policy)."""
     if isinstance(subpixel_deconvs, bool):
         return subpixel_deconvs
     return name in subpixel_deconvs
+
+
+def _subpixel_interleave(z, h: int, wd: int):
+    """z [N, H+1, W+1, 4*O] phase maps of the padded [2, 2, I, 4*O] conv ->
+    y [N, 2H, 2W, O] depth-to-space: phase (a, b) is valid on the window
+    starting at (a, b)."""
+    n, o = z.shape[0], z.shape[-1] // 4
+    rows = [torch.stack([z[:, a:h + a, b:wd + b, (2 * a + b) * o:(2 * a + b + 1) * o]
+                         for b in range(2)], dim=3) for a in range(2)]
+    y = torch.stack(rows, dim=3)  # [N, H, W, 2(a), 2(b), O]
+    return y.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * wd, o)
 
 
 # ------------------------------------------------------------- convolutions
@@ -156,11 +186,26 @@ def _conv_f32(x, w_hwio, stride=1, padding=None):
     return _nhwc(F.conv2d(_nchw(x), w, stride=stride, padding=padding))
 
 
+# stride-2 deconv kernel size -> (padding, output_padding), as PoseResNet
+_DECONV_PAD = {4: (1, 0), 3: (1, 1), 2: (0, 0)}
+
+
 def _deconv_f32(x, w_flipped_hwio):
-    """Float NHWC ConvTranspose2d k4/s2/p1 from the flipped HWIO kernel the
+    """Float NHWC stride-2 ConvTranspose2d from the flipped HWIO kernel the
     folded params carry."""
+    pad, opad = _DECONV_PAD[w_flipped_hwio.shape[0]]
     w = w_flipped_hwio.flip(0, 1).permute(2, 3, 0, 1)  # [I, O, kh, kw]
-    return _nhwc(F.conv_transpose2d(_nchw(x), w, stride=2, padding=1))
+    return _nhwc(F.conv_transpose2d(_nchw(x), w, stride=2, padding=pad,
+                                    output_padding=opad))
+
+
+def _dilate2(x):
+    """int8 NHWC [N, H, W, C] -> [N, 2H-1, 2W-1, C] with a zero between
+    neighbours (the input dilation of a stride-2 transposed conv)."""
+    n, h, w, c = x.shape
+    xd = x.new_zeros(n, 2 * h - 1, 2 * w - 1, c)
+    xd[:, ::2, ::2] = x
+    return xd
 
 
 def _im2col(x, kh, kw, stride, pad):
@@ -283,7 +328,9 @@ class _Int8Runner:
             raise ValueError("the int8 forward takes the int8 input of make_u8_quant")
         return x, self.q["act_scales"]["input"]
 
-    def qchain(self, h_q, s_h, name, stride=1, relu=True, s2d=False):
+    def qchain(self, h_q, s_h, name, stride=1, relu=True, s2d=False,
+               subpixel=False, dilated=False):
+        wq = self.q["weights"][name]
         ws = self.q["w_scales"][name]
         b = self.q["biases"][name]
         s_out = self.q["act_scales"][f"{name}.out"]
@@ -292,7 +339,23 @@ class _Int8Runner:
             # space-to-depth stem: the input already arrives s2d-packed (the
             # serving input contract); the 4x4/s1 form of the 7x7/s2 conv
             stride, padding = 1, ((2, 1), (2, 1))
-        y = _conv_int8(h_q, self.q["weights"][name], stride, padding)
+        if subpixel:
+            # the padded [2, 2, I, 4*O] phase conv; requantize BEFORE the
+            # depth-to-space, so the interleave moves int8 bytes
+            z = _conv_int8(h_q, wq, 1, ((1, 1), (1, 1)))  # [N, H+1, W+1, 4*O]
+            zf = z.float() * (s_h * ws) + b.repeat(4)
+            if relu:
+                zf = torch.relu(zf)
+            return _subpixel_interleave(self._quant(zf, s_out), h_q.shape[1],
+                                        h_q.shape[2]), s_out
+        if dilated:
+            # a stride-2 deconv as the input-dilated stride-1 conv with the
+            # flipped kernel (lhs_dilation=(2, 2) in the JAX package)
+            k = wq.shape[0]
+            p, opad = _DECONV_PAD[k]
+            pad = k - 1 - p
+            h_q, padding = _dilate2(h_q), ((pad, pad + opad), (pad, pad + opad))
+        y = _conv_int8(h_q, wq, stride, padding)
         y = y.float() * (s_h * ws) + b
         if relu:
             y = torch.relu(y)
@@ -306,6 +369,39 @@ class _Int8Runner:
         b = self.q["biases"][name]
         y = _conv_int8(h_q, self.q["weights"][name], stride)
         return y.float() * (s_h * ws) + b
+
+    def subpixel_phases(self, h_q, s_h, name):
+        """The last k4 deconv as four stride-1 2x2 phase convs, KEEPING the
+        phase groups (no depth-to-space): [N, H, W, I] int8 -> four
+        [N, H, W, O] int8 maps, (a, b) major. The padding per group,
+        ((1-a, a), (1-b, b)), selects the group's valid window."""
+        wq = self.q["weights"][name]  # [4, 4, I, O] int8
+        ws = self.q["w_scales"][name]
+        b = self.q["biases"][name]
+        s_out = self.q["act_scales"][f"{name}.out"]
+        zs = []
+        for a in range(2):
+            for bb in range(2):
+                z = _conv_int8(h_q, wq[a::2, bb::2], 1, ((1 - a, a), (1 - bb, bb)))
+                zf = z.float() * (s_h * ws) + b
+                zs.append(self._quant(torch.relu(zf), s_out))
+        return tuple(zs), s_out
+
+    def final_phase(self, zs, s_z):
+        """The 1x1 head over the four phase maps of :meth:`subpixel_phases`
+        -> f32 [J, N, 4*H*W] in the ``phase_index_tables(levels=1)`` order:
+        one exact int8 GEMM per group, then one f32 epilogue."""
+        wq = self.q["weights"]["final"]  # [1, 1, C, J]
+        ws = self.q["w_scales"]["final"]
+        bias = self.q["biases"]["final"]
+        c, j = wq.shape[2], wq.shape[3]
+        n, hh, ww, _ = zs[0].shape
+        w2 = wq.reshape(c, j)
+        y = torch.stack([int_mm(z.reshape(-1, c), w2).reshape(n, hh * ww, j)
+                         for z in zs], dim=1)  # [N, 4, H*W, J] int32
+        y = y.permute(3, 0, 1, 2).float() * (s_z * ws)[:, None, None, None] \
+            + bias[:, None, None, None]
+        return y.reshape(j, n, 4 * hh * ww)
 
     def max_pool(self, h_q):
         return _max_pool_3x3_s2(h_q, -128)
@@ -321,14 +417,21 @@ class _Int8Runner:
         return self._quant(y, s), s
 
 
-def _forward(runner, x, num_layers, num_deconvs):
+def _forward(runner, x, num_layers, deconv_kernels, subpixel_deconvs=False,
+             phase_kernel=False):
     """Shared calibration/int8 forward over the layer plan. The calibration
     recorder runs the 7x7/s2 stem on [N, H, W, 3], every deconv as a float
-    ConvTranspose2d and the 1x1 head, returning [N, h, w, J]; the int8
-    runner takes the s2d-packed input, runs deconv0 through the B2 kernel
-    and the rest of the tail through the B1 kernel, returning f32
-    [J, N, 16*h0*w0] in the levels=2 packed order."""
-    plan = _plan(num_layers, num_deconvs)
+    ConvTranspose2d and the 1x1 head, returning [N, h, w, J]. The int8
+    runner takes the s2d-packed input and returns f32 phase-packed heatmaps
+    [J, N, h*w]: with ``phase_tail2`` in its params the last two deconvs +
+    head are the B1 kernel (``phase_index_tables(levels=2)`` order);
+    otherwise the last deconv + head are the B5 kernel (``phase_tail`` in
+    the params) or plain PyTorch (levels=1 order). An inner k4 deconv named
+    in ``subpixel_deconvs`` runs the subpixel kernel where the params hold
+    its arguments (B2, or B6 under ``SUBPIX_BATCHED = False``), else the
+    plain subpixel conv; every other deconv is the dilated int8 conv."""
+    plan = _plan(num_layers, deconv_kernels)
+    num_deconvs = len(deconv_kernels)
     q = getattr(runner, "q", None)
     h_q, s_h = runner.input(x)
     for kind, info in plan:
@@ -356,26 +459,45 @@ def _forward(runner, x, num_layers, num_deconvs):
             out = torch.relu(y + runner.dequant(r_q, r_s))
             h_q, s_h = runner.requant(out, f"{name}.out")
         elif kind == "deconv":
-            name = info["name"]
+            name, k = info["name"], info["kernel"]
             if q is None:
                 h_q, s_h = runner.qchain(h_q, s_h, name, deconv=True)
                 continue
             n, hh, ww, c = h_q.shape
-            if "phase_tail2" in q and name == f"deconv{num_deconvs - 2}":
+            is_last = name == f"deconv{num_deconvs - 1}"
+            if k == 4 and name == f"deconv{num_deconvs - 2}" and "phase_tail2" in q:
                 # deconv1 + deconv2 + head: the B1 kernel; heatmaps come out
                 # in the levels=2 packing
                 return _pt.fused_phase_tail2(h_q.reshape(n, hh * ww, c),
                                              q["phase_tail2"], h=hh, w=ww)
-            if f"subpix_{name}" not in q:
-                raise NotImplementedError(
-                    f"{name}: only the subpixel-kernel deconv0 and the "
-                    f"two-level phase tail are ported")
-            z = _pt.fused_subpixel_deconv_batched(h_q.reshape(n, hh * ww, c),
-                                                  q[f"subpix_{name}"], h=hh, w=ww)
-            h_q = _pt.subpixel_interleave_packed_nmajor(z).contiguous()
-            s_h = q["act_scales"][f"{name}.out"]
-        else:  # final 1x1 head (calibration recorder only)
+            if is_last and k == 4:
+                if phase_kernel:
+                    # last deconv + head: the B5 kernel, levels=1 packing
+                    return _pt.fused_phase_tail(h_q.reshape(n, hh * ww, c),
+                                                q["phase_tail"], h=hh, w=ww)
+                # the same in plain PyTorch: four phase convs whose groups
+                # flow straight into the head (no depth-to-space)
+                h_q, s_h = runner.subpixel_phases(h_q, s_h, name)
+            elif k == 4 and _subpixel_wants(subpixel_deconvs, name):
+                if phase_kernel and f"subpix_{name}" in q:
+                    x3 = h_q.reshape(n, hh * ww, c)
+                    if _pt.SUBPIX_BATCHED:
+                        z = _pt.fused_subpixel_deconv_batched(
+                            x3, q[f"subpix_{name}"], h=hh, w=ww)
+                        h_q = _pt.subpixel_interleave_packed_nmajor(z).contiguous()
+                    else:
+                        z = _pt.fused_subpixel_deconv(
+                            x3, q[f"subpix_{name}"], h=hh, w=ww)
+                        h_q = _pt.subpixel_interleave_packed(z).contiguous()
+                    s_h = q["act_scales"][f"{name}.out"]
+                else:
+                    h_q, s_h = runner.qchain(h_q, s_h, name, subpixel=True)
+            else:
+                h_q, s_h = runner.qchain(h_q, s_h, name, dilated=True)
+        elif q is None:  # final 1x1 head, calibration recorder
             h_q = runner.conv_f32(h_q, s_h, "final")
+        else:  # phase head over subpixel_phases' groups
+            h_q = runner.final_phase(h_q, s_h)
     return h_q
 
 
@@ -404,7 +526,7 @@ def calibrate(model, batches, device=None) -> tuple[dict, dict]:
         for x in batches:
             rec = _Recorder(folded, dev)
             _forward(rec, torch.as_tensor(x, dtype=torch.float32, device=dev),
-                     model.num_layers, len(model.deconv_filters))
+                     model.num_layers, model.deconv_kernels)
             for k, v in rec.amax.items():
                 amax[k] = max(amax.get(k, 0.0), float(v))
     scales = {k: max(v, 1e-8) / 127.0 for k, v in amax.items()}
@@ -439,37 +561,74 @@ def quantize_weights(folded: dict, act_scales: dict, subpixel_deconvs=False,
 
 
 def quantize_pose_resnet(model, calib_batches, *, subpixel_deconvs=frozenset({"deconv0"}),
-                         act4=(), device=None) -> tuple[dict, Any]:
-    """One-call PTQ of a PoseResNet module into the serving configuration
-    (JAX: ``jns_head="phase", phase_kernel=2, stem_s2d="pre"``). Returns
-    (qparams, forward) with ``forward(qparams, x)``: x the s2d-packed int8
-    input [N, H/2, W/2, 12] from :func:`make_u8_quant` -> f32 heatmaps
-    [J, N, h*w] in the ``phase_index_tables(levels=2)`` order. ``device``:
-    CUDA unless given.
+                         phase_kernel=2, act4=(), device=None) -> tuple[dict, Any]:
+    """One-call PTQ of a PoseResNet module (the JAX call with
+    ``jns_head="phase", stem_s2d="pre"``). Returns (qparams, forward) with
+    ``forward(qparams, x)``: x the s2d-packed int8 input [N, H/2, W/2, 12]
+    from :func:`make_u8_quant` -> f32 phase-packed heatmaps [J, N, h*w].
+    ``device``: CUDA unless given.
+
+    ``phase_kernel``: ``2`` — the last two deconvs + head as the two-level
+    kernel (B1), heatmaps in the ``phase_index_tables(levels=2)`` order;
+    ``1`` — the last deconv + head as the one-level kernel (B5), levels=1
+    order; ``False`` — the same tail in plain PyTorch, levels=1 order, and no
+    kernel anywhere. ``subpixel_deconvs``: a bool or a collection of deconv
+    names quantized in the per-phase subpixel form (finer per-phase weight
+    scales); an inner one runs the subpixel kernel when ``phase_kernel`` is
+    set, the plain subpixel conv otherwise. The phase tail's own deconvs
+    keep the [4, 4, I, O] form, so they must not be named (``True`` names
+    them and is refused, as in the JAX package). Every other deconv runs the
+    dilated int8 conv.
 
     ``act4``: block-output names stored at 4 bits (see _Int8Runner)."""
-    dfs, dks = model.deconv_filters, model.deconv_kernels
-    if set(subpixel_deconvs) != {"deconv0"} or len(dfs) != 3 or tuple(dks) != (4, 4, 4):
-        raise NotImplementedError(
-            "the port runs three k4 deconvs with subpixel_deconvs={'deconv0'} "
-            "(deconv0 kernel + two-level phase tail); other tails are queued")
+    dfs, dks = model.deconv_filters, tuple(int(k) for k in model.deconv_kernels)
+    if phase_kernel not in (False, 1, 2):
+        raise ValueError(f"phase_kernel must be False, 1 or 2; got {phase_kernel!r}")
+    n_tail = 2 if phase_kernel == 2 else 1
+    if len(dks) < n_tail + (1 if phase_kernel else 0) or any(k != 4 for k in dks[-n_tail:]):
+        raise ValueError(f"phase_kernel={phase_kernel!r} needs at least "
+                         f"{n_tail + (1 if phase_kernel else 0)} deconvs, the last "
+                         f"{n_tail} with kernel 4; got kernels {dks}")
+    tail = [f"deconv{len(dks) - 1 - i}" for i in range(n_tail)]
+    named = [t for t in tail if _subpixel_wants(subpixel_deconvs, t)]
+    if named:
+        raise ValueError(f"subpixel_deconvs names {named}, which the phase tail "
+                         f"runs in the [4, 4, I, O] form (phase_kernel={phase_kernel!r})")
     dev = resolve_device(device)
     folded, act_scales = calibrate(model, calib_batches, dev)
     qparams = quantize_weights(folded, act_scales, subpixel_deconvs,
                                stem_s2d=True, device=dev)
-    qparams["phase_tail2"] = _pt.tail2_device_args(_pt.build_phase_tail2_args(
-        qparams, "deconv1", "deconv2", float(act_scales["deconv0.out"])), dev)
-    last_block = [i["name"] for k, i in _plan(model.num_layers, len(dfs))
-                  if k == "block"][-1]
-    qparams["subpix_deconv0"] = _pt.subpixel_device_args(
-        _pt.build_subpixel_deconv_args(
-            qparams, "deconv0", float(act_scales[f"{last_block}.out"])), dev)
+    if phase_kernel == 2:
+        qparams["phase_tail2"] = _pt.tail2_device_args(_pt.build_phase_tail2_args(
+            qparams, tail[1], tail[0],
+            float(act_scales[f"deconv{len(dks) - 3}.out"])), dev)
+    elif phase_kernel:
+        qparams["phase_tail"] = _pt.tail_device_args(_pt.build_phase_tail_args(
+            qparams, tail[0], float(act_scales[f"deconv{len(dks) - 2}.out"])), dev)
+    if phase_kernel:
+        # kernels for the INNER subpixel deconvs too: walk the plan to
+        # recover each deconv's input scale
+        prev_key = "input"
+        for kind, info in _plan(model.num_layers, dks):
+            if kind == "stem":
+                prev_key = "stem.out"
+            elif kind == "block":
+                prev_key = f"{info['name']}.out"
+            elif kind == "deconv":
+                name = info["name"]
+                if (name != f"deconv{len(dks) - 1}" and info["kernel"] == 4
+                        and _subpixel_wants(subpixel_deconvs, name)):
+                    qparams[f"subpix_{name}"] = _pt.subpixel_device_args(
+                        _pt.build_subpixel_deconv_args(
+                            qparams, name, float(act_scales[prev_key])), dev)
+                prev_key = f"{name}.out"
     num_layers = model.num_layers
 
     @torch.no_grad()
     def forward(qparams, x):
         runner = _Int8Runner(qparams, act4=act4)
-        return _forward(runner, x, num_layers, len(dfs))
+        return _forward(runner, x, num_layers, dks,
+                        subpixel_deconvs=subpixel_deconvs, phase_kernel=phase_kernel)
 
     return qparams, forward
 
@@ -535,5 +694,52 @@ def permute_aggregation_packed(qagg, tables):
     return {
         "wq": np.asarray(qagg["wq"])[..., r, :][..., :, r],
         "w_scale": np.asarray(qagg["w_scale"])[..., r],
+        "x_scale": qagg["x_scale"],
+    }
+
+
+def quantize_aggregation_grouped_s4(bank, calib_heatmaps=None):
+    """Diagonal-split 4-bit variant of :func:`quantize_aggregation_grouped`:
+    the bank streams from device memory every request, so storing it at 4
+    bits halves that stream. A straight 4-bit bank would crush the small
+    off-diagonal couplings of an identity-dominated trained bank, so split
+
+      w = diag(d) + R,   d exact in f32 (applied in the epilogue),
+                         R quantized at 4 bits against ITS OWN amax.
+
+    Numpy, as the JAX package: {"wq4" [4, 3, S, S] int8 carrier with values
+    in [-7, 7], "w_scale" [4, 1, S] f32 (the residual's), "dv" [4, 3, S] f32
+    (the diagonal pre-folded with x_scale / 3), "x_scale"}."""
+    bank = bank.detach().cpu().numpy() if isinstance(bank, torch.Tensor) else bank
+    s = int(bank.shape[-1])
+    w = np.asarray(bank, np.float32).reshape(4, 3, s, s)
+    idx = np.arange(s)
+    diag = w[:, :, idx, idx].copy()  # [4, 3, S]
+    r = w.copy()
+    r[:, :, idx, idx] = 0.0
+    s_w = np.maximum(np.abs(r).max(axis=(1, 2), keepdims=True), 1e-8) / 7.0
+    wq4 = np.clip(np.round(r / s_w), -7, 7).astype(np.int8)
+    amax = 1.2
+    if calib_heatmaps is not None:
+        amax = max(float(np.abs(np.asarray(calib_heatmaps)).max()), 1e-6)
+    x_scale = np.float32(amax / 127.0)
+    return {
+        "wq4": wq4,
+        "w_scale": s_w[:, 0].astype(np.float32),  # [4,1,S]
+        "dv": (diag * (x_scale / 3.0)).astype(np.float32),  # [4,3,S]
+        "x_scale": x_scale,
+    }
+
+
+def permute_aggregation_packed_s4(qagg, tables):
+    """:func:`permute_aggregation_packed` for the s4 diag-split bank: row and
+    column permute of the residual, column permute of its scale and of the
+    diagonal vector. Rows and columns move by the same map, so diagonal
+    entries stay on the diagonal and the split survives unchanged."""
+    r = np.asarray(tables["rowmajor"])
+    return {
+        "wq4": np.asarray(qagg["wq4"])[..., r, :][..., :, r],
+        "w_scale": np.asarray(qagg["w_scale"])[..., r],
+        "dv": np.asarray(qagg["dv"])[..., r],
         "x_scale": qagg["x_scale"],
     }

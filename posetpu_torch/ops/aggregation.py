@@ -1,5 +1,6 @@
-"""Grouped int8 cross-view aggregation (B3): a hand-written CUDA kernel
-(``csrc/aggregation.cu``) with its plain PyTorch version beside it.
+"""Grouped int8 cross-view aggregation (B3) and its 4-bit-bank twin (B4):
+hand-written CUDA kernels (``csrc/aggregation.cu``), each with its plain
+PyTorch version beside it.
 
 Ports posetpu/ops/pallas/aggregation.py's ``aggregation_grouped_pallas``
 (and, as the plain version, posetpu/models/quant.py's
@@ -19,6 +20,18 @@ there is no fallback. On a CPU tensor it runs the plain version.
 ``qagg`` holds the bank K-minor, wq [4, 3, S_out, S_in] int8 (see
 :func:`aggregation_device_params`), w_scale [4, 1, S] f32 and the 0-d f32
 x_scale.
+
+B4 ports ``aggregation_grouped_pallas_s4`` (plain version:
+``aggregation_int4_apply_jns_grouped``): the bank is split w = diag(d) + R
+(models/quant.quantize_aggregation_grouped_s4), R stored at 4 bits, and
+
+    fused[t] = acc * ((x_scale / 3) * w_scale[t]) + sum_p xq[src(t, p)] * dv[t, p]
+
+with ``dia`` summed in pair order and every multiply and add rounded on its
+own. Its ``qagg`` (:func:`aggregation_device_params_s4`) holds the bank
+nibble-packed K-minor, wq4 [4, 3, S_out, S_in / 2] uint8 — two weights per
+byte, so the card reads half the bytes of the int8 bank — plus w_scale,
+dv [4, 3, S] f32 and x_scale. :func:`pack_nibbles_k` gives the nibble order.
 """
 
 from __future__ import annotations
@@ -29,7 +42,10 @@ import torch
 from posetpu_torch.ops import _build
 from posetpu_torch.ops.int_mm import int_mm
 
-_SIGNATURES = {"aggregation_grouped": [_build.P] * 4 + [_build.I] * 2 + [_build.P]}
+_SIGNATURES = {
+    "aggregation_grouped": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
+    "aggregation_grouped_s4": [_build.P] * 5 + [_build.I] * 2 + [_build.P],
+}
 
 # source views of target t, in order: {0..3} \ {t}
 _SRC = [[s for s in range(4) if s != t] for t in range(4)]
@@ -95,15 +111,117 @@ def aggregation_grouped(qagg, hm):
 aggregation_grouped.launches = 0
 
 
+# ------------------------------------------------------------ the s4 bank (B4)
+
+
+def pack_nibbles_k(w):
+    """int8 values in [-8, 7], [..., K] with K % 32 == 0 -> uint8 [..., K/2].
+    In every block of 32 along K, byte b (0..15) holds k = b in its low
+    nibble and k = 16 + b in its high nibble: one 32-bit word of a block is
+    then a thread's two B fragments of the int8 tensor-core instruction
+    (k = 4i..4i+3 and 16+4i..16+4i+3), with no shuffle after the unpack."""
+    if w.shape[-1] % 32:
+        raise ValueError(f"pack_nibbles_k: K = {w.shape[-1]} is not a multiple of 32")
+    blocks = w.reshape(w.shape[:-1] + (w.shape[-1] // 32, 2, 16)).to(torch.int32)
+    packed = (blocks[..., 0, :] & 0xF) | ((blocks[..., 1, :] & 0xF) << 4)
+    return packed.to(torch.uint8).reshape(w.shape[:-1] + (w.shape[-1] // 2,))
+
+
+def unpack_nibbles_k(p):
+    """Inverse of :func:`pack_nibbles_k`: uint8 [..., K/2] -> int8 [..., K],
+    sign-extended by (x ^ 8) - 8."""
+    blocks = p.reshape(p.shape[:-1] + (p.shape[-1] // 16, 16)).to(torch.int32)
+    lo = ((blocks & 0xF) ^ 8) - 8
+    hi = (((blocks >> 4) & 0xF) ^ 8) - 8
+    w = torch.stack([lo, hi], dim=-2).to(torch.int8)
+    return w.reshape(p.shape[:-1] + (p.shape[-1] * 2,))
+
+
+def aggregation_grouped_s4_plain(qagg, hm):
+    """Plain version of :func:`aggregation_grouped_s4`: the residual's int8
+    products and int32 pair sums through ``ops/int_mm.py`` on the unpacked
+    bank, then res = acc * sv, dia over the pairs in order, res + dia."""
+    xq, sv = _quantize(qagg, hm)
+    wq = unpack_nibbles_k(qagg["wq4"])  # [4, 3, S_out, S_in] int8
+    ys = []
+    for t in range(4):
+        acc = None
+        for p, src in enumerate(_SRC[t]):
+            y = int_mm(wq[t, p], xq[src].t())
+            acc = y if acc is None else acc + y
+        res = acc.t().float() * sv[t]
+        dia = None
+        for p, src in enumerate(_SRC[t]):
+            d = xq[src].float() * qagg["dv"][t, p]
+            dia = d if dia is None else dia + d
+        ys.append(res + dia)
+    return _unpack(torch.stack(ys), hm)
+
+
+def aggregation_grouped_s4(qagg, hm):
+    """hm [J, N, V=4, S] f32 -> fused [J, N, V, S] f32 over the diag-split
+    4-bit bank (see the module docstring). The kernel takes S % 32 == 0 and
+    a contiguous uint8 CUDA bank [4, 3, S, S/2]; any J*N."""
+    j, n, v, s = hm.shape
+    if v != 4:
+        raise ValueError(f"the aggregation bank is built for 4 views, got {v}")
+    if not hm.is_cuda:
+        return aggregation_grouped_s4_plain(qagg, hm)
+    wq4, dv = qagg["wq4"], qagg["dv"]
+    if s % 32 or wq4.shape != (4, 3, s, s // 2) or wq4.dtype != torch.uint8 \
+            or not wq4.is_cuda or not wq4.is_contiguous() \
+            or dv.shape != (4, 3, s) or dv.dtype != torch.float32 or not dv.is_cuda:
+        raise ValueError(f"aggregation_grouped_s4: unsupported shapes hm "
+                         f"{tuple(hm.shape)}, wq4 {tuple(wq4.shape)} {wq4.dtype}, "
+                         f"dv {tuple(dv.shape)} (S % 32 == 0, contiguous "
+                         f"nibble-packed uint8 CUDA bank [4, 3, S, S/2])")
+    xq, sv = _quantize(qagg, hm)
+    xq, sv, dv = xq.contiguous(), sv.contiguous(), dv.contiguous()
+    out = torch.empty((4, j * n, s), dtype=torch.float32, device=hm.device)
+    lib = _build.load("aggregation", _SIGNATURES)
+    _build.check(lib.aggregation_grouped_s4(
+        xq.data_ptr(), wq4.data_ptr(), sv.data_ptr(), dv.data_ptr(),
+        out.data_ptr(), j * n, s,
+        torch.cuda.current_stream(hm.device).cuda_stream), "aggregation_grouped_s4")
+    aggregation_grouped_s4.launches += 1
+    return _unpack(out, hm)
+
+
+aggregation_grouped_s4.launches = 0
+
+
+def _as_np(a):
+    return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+
+def aggregation_device_params_s4(qagg: dict, device) -> dict:
+    """A JAX-layout s4 bank (``wq4`` [4, 3, S_in, S_out] as an int8 carrier
+    with values in [-7, 7], numpy or arrays) -> the B4 kernel's tensors on
+    ``device``: wq4 K-minor and nibble-packed, uint8 [4, 3, S_out, S_in/2]
+    (:func:`pack_nibbles_k`); w_scale [4, 1, S], dv [4, 3, S], x_scale f32.
+    The counterpart of the JAX package's ``finalize_device_params``, which
+    casts the carrier to a 4-bit type on the device."""
+    wq = torch.from_numpy(np.array(_as_np(qagg["wq4"]))).to(device)
+    if wq.dtype != torch.int8 or int(wq.abs().max()) > 7:
+        raise ValueError("aggregation_device_params_s4: wq4 must be an int8 "
+                         "carrier with values in [-7, 7]")
+    f32 = lambda a: torch.from_numpy(_as_np(a).astype(np.float32)).to(device)
+    return {
+        "wq4": pack_nibbles_k(wq.transpose(-1, -2).contiguous()),
+        "w_scale": f32(qagg["w_scale"]),
+        "dv": f32(qagg["dv"]).contiguous(),
+        "x_scale": torch.tensor(float(_as_np(qagg["x_scale"])), dtype=torch.float32,
+                                device=device),
+    }
+
+
 def aggregation_device_params(qagg: dict, device) -> dict:
     """A JAX-layout grouped bank (wq [4, 3, S_in, S_out], as numpy or arrays)
     -> the kernel's tensors on ``device``: wq K-minor [4, 3, S_out, S_in]."""
-    as_np = lambda a: (a.detach().cpu().numpy() if isinstance(a, torch.Tensor)
-                       else np.asarray(a))
-    wq = torch.from_numpy(np.array(as_np(qagg["wq"]))).to(device)
+    wq = torch.from_numpy(np.array(_as_np(qagg["wq"]))).to(device)
     return {
         "wq": wq.transpose(-1, -2).contiguous(),
-        "w_scale": torch.from_numpy(as_np(qagg["w_scale"]).astype(np.float32)).to(device),
-        "x_scale": torch.tensor(float(as_np(qagg["x_scale"])), dtype=torch.float32,
+        "w_scale": torch.from_numpy(_as_np(qagg["w_scale"]).astype(np.float32)).to(device),
+        "x_scale": torch.tensor(float(_as_np(qagg["x_scale"])), dtype=torch.float32,
                                 device=device),
     }

@@ -1,15 +1,125 @@
-"""Phase-packed heatmap indexing and decoding.
+"""Heatmap decoding and flip-test moves, row-major and phase-packed.
 
-The serving tail's heatmaps never exist in row-major order: the fused tail
-writes them phase-packed (:func:`phase_index_tables`), and
+The int8 serving tail's heatmaps never exist in row-major order: the fused
+tail writes them phase-packed (:func:`phase_index_tables`), and
 :func:`decode_heatmaps_packed` decodes them there with the reference's
-row-major first-occurrence argmax (lib/core/inference.py:19-75).
+row-major first-occurrence argmax (lib/core/inference.py:19-75);
+:func:`flip_back_packed` and :func:`shift_heatmap_right_packed` are the
+flip test's W-reversal and right-shift as static moves in that order.
+
+The float path keeps PyTorch's [..., J, H, W] maps: :func:`max_preds`,
+:func:`decode_heatmaps` (the plain version of the B7 kernel,
+ops/decode.py), :func:`flip_back`, :func:`shift_heatmap_right`.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def max_preds(heatmaps):
+    """Argmax decode: coords (x, y) + max value, coords zeroed where
+    max <= 0 (reference: get_max_preds, inference.py:19-47). heatmaps:
+    [..., H, W]; the first row-major index wins among equal maxima."""
+    h, w = heatmaps.shape[-2:]
+    flat = heatmaps.reshape(heatmaps.shape[:-2] + (h * w,))
+    maxvals = flat.amax(dim=-1)
+    iota = torch.arange(h * w, device=flat.device)
+    idx = torch.where(flat == maxvals[..., None], iota, h * w).amin(dim=-1)
+    idx = torch.clamp(idx, max=h * w - 1)
+    coords = torch.stack([(idx % w).float(), (idx // w).float()], dim=-1)
+    return coords * (maxvals > 0.0).float()[..., None], maxvals
+
+
+def decode_heatmaps(heatmaps, post_process: bool = True):
+    """Argmax + quarter-pixel offset decode in heatmap coordinates: where
+    the peak is strictly inside [2, W-2) x [2, H-2), nudge 0.25 px toward the
+    larger neighbour along each axis (get_final_preds, inference.py:57-66).
+
+    heatmaps: [..., H, W]. Returns coords [..., 2] (x, y) and maxvals [...].
+    """
+    coords, maxvals = max_preds(heatmaps)
+    if not post_process:
+        return coords, maxvals
+    h, w = heatmaps.shape[-2:]
+    flat = heatmaps.reshape(heatmaps.shape[:-2] + (h * w,))
+    px, py = coords[..., 0].long(), coords[..., 1].long()
+
+    def at(dy, dx):
+        yy = torch.clamp(py + dy, 0, h - 1)
+        xx = torch.clamp(px + dx, 0, w - 1)
+        return torch.gather(flat, -1, (yy * w + xx)[..., None])[..., 0]
+
+    diff_x = at(0, 1) - at(0, -1)
+    diff_y = at(1, 0) - at(-1, 0)
+    ok = (px > 1) & (px < w - 1) & (py > 1) & (py < h - 1)
+    offs = 0.25 * torch.stack([torch.sign(diff_x), torch.sign(diff_y)], dim=-1)
+    return coords + offs * ok.float()[..., None], maxvals
+
+
+def _swapped(j: int, flip_pairs, device):
+    order = list(range(j))
+    for a, b in flip_pairs:
+        order[a], order[b] = order[b], order[a]
+    return torch.as_tensor(order, dtype=torch.int64, device=device)
+
+
+def flip_back(heatmaps, flip_pairs):
+    """Un-flip heatmaps from a horizontally flipped input: reverse the W axis
+    and swap left/right joints (reference: flip_back_th, transforms.py:33-47).
+    heatmaps: [..., J, H, W]; flip_pairs: (a, b) joint index pairs."""
+    order = _swapped(heatmaps.shape[-3], flip_pairs, heatmaps.device)
+    return heatmaps.flip(-1).index_select(-3, order)
+
+
+def shift_heatmap_right(heatmaps):
+    """Shift [..., H, W] maps one pixel right, duplicating the first column:
+    the flip-test alignment trick (reference: function.py:575-580)."""
+    return torch.cat([heatmaps[..., :, :1], heatmaps[..., :, :-1]], dim=-1)
+
+
+def flip_back_packed(heatmaps, flip_pairs, hw, levels: int = 1):
+    """:func:`flip_back` over phase-PACKED [J, ..., S] maps
+    (:func:`phase_index_tables` order). The W-reversal decomposes into
+    static moves: x = 2j+b maps to w-1-x = 2(bw-1-j) + (1-b), so phase
+    column b swaps and the within-phase column reverses. ``levels=2``:
+    x = 4j + 2be + b2 maps to 4(bw-1-j) + 2(1-be) + (1-b2), so b2, be and j
+    all reverse."""
+    h, w = int(hw[0]), int(hw[1])
+    order = _swapped(heatmaps.shape[0], flip_pairs, heatmaps.device)
+    lead = heatmaps.shape[:-1]
+    n = len(lead)
+    if levels == 1:
+        x = heatmaps.reshape(lead + (2, 2, h // 2, w // 2)).flip(n + 1, n + 3)
+    else:
+        # dims (..., a2, b2, al, be, i, j): reverse b2, be, j
+        x = heatmaps.reshape(lead + (2, 2, 2, 2, h // 4, w // 4)).flip(
+            n + 1, n + 3, n + 5)
+    return x.reshape(heatmaps.shape).index_select(0, order)
+
+
+def shift_heatmap_right_packed(heatmaps, hw, levels: int = 1):
+    """:func:`shift_heatmap_right` over phase-PACKED [..., S] maps. One pixel
+    right sends phase b=0 -> b=1 at the same within-phase column and b=1 ->
+    b=0 at column j+1 (first column duplicated). ``levels=2``: new(b2=1) =
+    old(b2=0) in place, new(b2=0, be=1) = old(b2=1, be=0), new(b2=0, be=0) =
+    old(b2=1, be=1) at column j-1."""
+    h, w = int(hw[0]), int(hw[1])
+    lead = heatmaps.shape[:-1]
+    if levels == 1:
+        x = heatmaps.reshape(lead + (2, 2, h // 2, w // 2))
+        b0, b1 = x[..., 0, :, :], x[..., 1, :, :]  # [..., 2(a), bh, bw]
+        new_b0 = torch.cat([b0[..., :1], b1[..., :-1]], dim=-1)
+        return torch.stack([new_b0, b0], dim=-3).reshape(heatmaps.shape)
+    # dims (..., a2, b2, al, be, i, j)
+    x = heatmaps.reshape(lead + (2, 2, 2, 2, h // 4, w // 4))
+    b20, b21 = x[..., 0, :, :, :, :], x[..., 1, :, :, :, :]
+    # new(b2=0, be=0, j) = old(b2=1, be=1, j-1); j=0 duplicates pixel x=0
+    nb00 = torch.cat([b20[..., 0:1, :, :1], b21[..., 1:2, :, :-1]], dim=-1)
+    nb01 = b21[..., 0:1, :, :]  # new(b2=0, be=1, j) = old(b2=1, be=0, j)
+    new_b20 = torch.cat([nb00, nb01], dim=-3)
+    return torch.stack([new_b20, b20], dim=-5).reshape(heatmaps.shape)
 
 
 def phase_index_tables(hw, levels: int = 1):

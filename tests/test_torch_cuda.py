@@ -9,6 +9,8 @@ import pytest
 import torch
 
 from posetpu_torch.ops import aggregation as tagg
+from posetpu_torch.ops import decode as tdec
+from posetpu_torch.ops import heatmap as thm
 from posetpu_torch.ops import phase_tail as tpt
 
 pytestmark = pytest.mark.gpu
@@ -74,6 +76,140 @@ def test_aggregation_kernel_equals_plain(cuda, j, n, s):
     ref = tagg.aggregation_grouped_plain(qagg, hm)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("j,n,s", [(4, 2, 256), (16, 3, 1024), (5, 7, 96)])
+def test_aggregation_s4_kernel_equals_plain(cuda, j, n, s):
+    """B4 at small shapes and at an odd-but-legal one (J*N = 35 rows, S = 96:
+    ragged tiles in both directions)."""
+    gen = torch.Generator().manual_seed(3)
+    bank = torch.rand(12, s, s, generator=gen) * 0.1
+    from posetpu_torch.models.quant import quantize_aggregation_grouped_s4
+
+    qagg = tagg.aggregation_device_params_s4(quantize_aggregation_grouped_s4(bank), cuda)
+    assert qagg["wq4"].dtype == torch.uint8 and qagg["wq4"].shape == (4, 3, s, s // 2)
+    hm = (torch.rand(j, n, 4, s, generator=gen) * 2 - 0.5).to(cuda)
+    before = tagg.aggregation_grouped_s4.launches
+    got = tagg.aggregation_grouped_s4(qagg, hm)
+    assert tagg.aggregation_grouped_s4.launches == before + 1
+    ref = tagg.aggregation_grouped_s4_plain(qagg, hm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and float(ref.std()) > 0
+
+
+@pytest.mark.parametrize("n,h,w,c,joints", [(2, 4, 4, 32, 4), (3, 8, 8, 64, 16),
+                                            (5, 3, 5, 96, 7)])
+def test_phase_tail_kernel_equals_plain(cuda, n, h, w, c, joints):
+    """B5, also at an odd image size and joint count (levels=1 has no parity
+    constraint)."""
+    gen = torch.Generator().manual_seed(4)
+    x = _i8(gen, n, h * w, c, lo=0)
+    args = {"w": _i8(gen, 4, 4, c, c),
+            "sv": torch.stack([torch.rand(c, generator=gen) * 8e-3 / c ** 0.5 + 1e-4,
+                               torch.rand(c, generator=gen) * 4 - 2]),
+            "so": torch.tensor([[0.3]]), "wh": _i8(gen, joints, c),
+            "vh": torch.stack([torch.rand(joints, generator=gen) * 1e-3,
+                               torch.rand(joints, generator=gen) - 0.5])}
+    dev = {k: v.to(cuda) for k, v in args.items()}
+    before = tpt.fused_phase_tail.launches
+    got = tpt.fused_phase_tail(x.to(cuda), dev, h=h, w=w)
+    assert tpt.fused_phase_tail.launches == before + 1
+    ref = tpt.phase_tail_plain(x.to(cuda), dev, h=h, w=w)
+    torch.cuda.synchronize()
+    assert got.shape == (joints, n, 4 * h * w)
+    assert torch.equal(got, ref) and float(ref.std()) > 0
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 4, 4, 64, 32), (8, 8, 8, 256, 128),
+                                            (5, 3, 7, 96, 24)])
+def test_subpixel_deconv_pairs_kernel_equals_plain(cuda, n, h, w, cin, cout):
+    """B6: the N-minor output [4, H, W, N, Cout]."""
+    gen = torch.Generator().manual_seed(5)
+    x = _i8(gen, n, h * w, cin, lo=0)
+    args = {"w": _i8(gen, 4, 4, cout, cin),
+            "sv": torch.rand(4, cout, generator=gen) * 2e-3 / cin ** 0.5,
+            "bv": torch.rand(4, cout, generator=gen) * 40 - 20,
+            "so": torch.tensor([[0.5]])}
+    dev = {k: v.to(cuda) for k, v in args.items()}
+    before = tpt.fused_subpixel_deconv.launches
+    got = tpt.fused_subpixel_deconv(x.to(cuda), dev, h=h, w=w)
+    assert tpt.fused_subpixel_deconv.launches == before + 1
+    ref = tpt.subpixel_deconv_pairs_plain(x.to(cuda), dev, h=h, w=w)
+    torch.cuda.synchronize()
+    assert got.shape == (4, h, w, n, cout)
+    assert torch.equal(got, ref) and len(torch.unique(ref)) > 50
+    assert torch.equal(tpt.subpixel_interleave_packed(got),
+                       tpt.subpixel_interleave_packed_nmajor(
+                           tpt.subpixel_deconv_plain(x.to(cuda), dev, h=h, w=w)))
+
+
+@pytest.mark.parametrize("shape,post", [((3, 8, 16, 16), True), ((2, 4, 16, 64, 64), True),
+                                        ((37, 5, 7), True), ((6, 9, 10), False),
+                                        ((64, 64), True)])
+def test_decode_kernel_equals_plain(cuda, shape, post):
+    """B7 with ties, non-positive maps and border peaks; a map size that is
+    no multiple of 4 takes the scalar loads."""
+    gen = torch.Generator().manual_seed(6)
+    x = torch.randn(shape, generator=gen)
+    flat = x.reshape(-1, shape[-2], shape[-1])
+    flat[0] = 0.0
+    flat[0, 2, 3] = flat[0, 2, 1] = flat[0, 1, 4] = 2.0   # ties: first row-major wins
+    if flat.shape[0] > 3:
+        flat[1] = -flat[1].abs() - 0.1                    # all negative
+        flat[2] = 0.0                                     # max == 0
+        flat[3, -1, -1] = 50.0                            # border peak
+    x = torch.round(x * 4) / 4                            # many equal values
+    before = tdec.decode_heatmaps_kernel.launches
+    got_c, got_m = tdec.decode_heatmaps_kernel(x.to(cuda), post_process=post)
+    assert tdec.decode_heatmaps_kernel.launches == before + 1
+    ref_c, ref_m = thm.decode_heatmaps(x.to(cuda), post_process=post)
+    cpu_c, cpu_m = thm.decode_heatmaps(x, post_process=post)
+    torch.cuda.synchronize()
+    assert got_c.shape == shape[:-2] + (2,) and got_m.shape == shape[:-2]
+    assert torch.equal(got_c, ref_c) and torch.equal(got_m, ref_m)
+    assert torch.equal(got_c.cpu(), cpu_c) and torch.equal(got_m.cpu(), cpu_m)
+
+
+def test_decode_kernel_takes_views(cuda):
+    """A non-contiguous or offset view is made contiguous first."""
+    x = torch.randn(4, 6, 9, 9, generator=torch.Generator().manual_seed(7)).to(cuda)
+    view = x.permute(1, 0, 2, 3)[1:]
+    got_c, got_m = tdec.decode_heatmaps_kernel(view)
+    ref_c, ref_m = thm.decode_heatmaps(view)
+    assert torch.equal(got_c, ref_c) and torch.equal(got_m, ref_m)
+
+
+def test_s4_tail_pairs_decode_refuse_unsupported_shapes(cuda):
+    z = lambda *s, dt=torch.int8: torch.zeros(*s, dtype=dt, device=cuda)
+    # B4: S % 32 != 0; an int8 (unpacked) bank; a 3-view input
+    q = {"wq4": z(4, 3, 40, 20, dt=torch.uint8), "w_scale": torch.ones(4, 1, 40, device=cuda),
+         "dv": torch.ones(4, 3, 40, device=cuda), "x_scale": torch.tensor(0.01, device=cuda)}
+    with pytest.raises(ValueError):
+        tagg.aggregation_grouped_s4(q, torch.zeros(2, 2, 4, 40, device=cuda))
+    q = {"wq4": z(4, 3, 64, 64), "w_scale": torch.ones(4, 1, 64, device=cuda),
+         "dv": torch.ones(4, 3, 64, device=cuda), "x_scale": torch.tensor(0.01, device=cuda)}
+    with pytest.raises(ValueError):
+        tagg.aggregation_grouped_s4(q, torch.zeros(2, 2, 4, 64, device=cuda))
+    with pytest.raises(ValueError):
+        tagg.aggregation_grouped_s4(q, torch.zeros(2, 2, 3, 64, device=cuda))
+    # B5: Cin % 32 != 0; pixel count that is not h*w
+    args = {"w": z(4, 4, 48, 48), "sv": torch.ones(2, 48, device=cuda),
+            "so": torch.ones(1, 1, device=cuda), "wh": z(4, 48),
+            "vh": torch.ones(2, 4, device=cuda)}
+    with pytest.raises(ValueError):
+        tpt.fused_phase_tail(z(2, 16, 48), args, h=4, w=4)
+    with pytest.raises(ValueError):
+        tpt.fused_phase_tail(z(2, 15, 48), args, h=4, w=4)
+    # B6: Cout % 8 != 0
+    args = {"w": z(4, 4, 12, 32), "sv": torch.ones(4, 12, device=cuda),
+            "bv": torch.zeros(4, 12, device=cuda), "so": torch.ones(1, 1, device=cuda)}
+    with pytest.raises(ValueError):
+        tpt.fused_subpixel_deconv(z(2, 16, 32), args, h=4, w=4)
+    # B7: no map axes; an empty map
+    with pytest.raises(ValueError):
+        tdec.decode_heatmaps_kernel(torch.zeros(5, device=cuda))
+    with pytest.raises(ValueError):
+        tdec.decode_heatmaps_kernel(torch.zeros(5, 0, 4, device=cuda))
 
 
 def test_kernels_refuse_unsupported_shapes(cuda):

@@ -32,7 +32,9 @@ def _run(code, env=None):
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert {"posetpu_torch.serving", "posetpu_torch.models.quant",
-            "posetpu_torch.ops.phase_tail", "posetpu_torch.ops.aggregation"} <= set(mods)
+            "posetpu_torch.core.inference", "posetpu_torch.ops.heatmap",
+            "posetpu_torch.ops.phase_tail", "posetpu_torch.ops.aggregation",
+            "posetpu_torch.ops.decode"} <= set(mods)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'posetpu'):\n"
             "    sys.modules[m] = None\n"
@@ -52,6 +54,15 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|posetpu)\b|\bpose
 def test_no_jax_or_reference_package_reference(path):
     hits = [m.group(0) for m in _FORBIDDEN.finditer((ROOT / path).read_text())]
     assert not hits, f"{path}: {hits}"
+
+
+def test_every_kernel_source_has_a_wrapper_module():
+    """Each csrc/*.cu is built by the ops module of the same name."""
+    sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
+    assert sources == ["aggregation", "decode", "phase_tail"]
+    for name in sources:
+        text = (PKG / "ops" / f"{name}.py").read_text()
+        assert f'_build.load("{name}"' in text, name
 
 
 def test_build_helper_imports_without_nvcc():

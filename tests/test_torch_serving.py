@@ -4,9 +4,12 @@
 the same weights (carried with models/convert.from_jax_variables) and given
 the JAX pipeline's own params (convert.from_jax_params), then held against
 ``posetpu.serving.build_serving_pipeline(interpret=True)`` on the same
-images, centers, scales and fuse-routing mask. The tolerances are
-tests/test_serving.py's: XLA may contract the f32 epilogues and the routing
-lerp into FMAs, which the port rounds in two steps."""
+images, centers, scales and fuse-routing mask: at the defaults, with the
+flip test (in ``infer`` and premirrored), with the 4-bit aggregation bank and
+with the dilated deconv0. The tolerances are tests/test_serving.py's: XLA may
+contract the f32 epilogues and the routing lerp into FMAs, which the port
+rounds in two steps. ``build_float_pipeline`` is held against the JAX
+package's float functions called in the same order."""
 
 from __future__ import annotations
 
@@ -86,6 +89,139 @@ def test_serving_slice_matches_jax(rng):
                                   carried["qagg"]["wq"].numpy())
     own_preds, own_maxvals = pipe.infer(pipe.params, x, *args)
     assert torch.isfinite(own_preds).all() and float(own_maxvals.std()) > 0
+
+
+def _request(rng):
+    images = rng.randint(0, 256, (N, V, 64, 64, 3)).astype(np.uint8)
+    center = (100 + 50 * rng.rand(N, V, 2)).astype(np.float32)
+    scale = (1 + rng.rand(N, V, 2)).astype(np.float32)
+    is_h36m = np.asarray([1.0, 0.0], np.float32)
+    return images, center, scale, is_h36m
+
+
+def test_serving_flip_test_matches_jax_and_premirrored(rng):
+    """flip_test=True mirrors inside infer, "premirrored" inside prepare:
+    the same bytes reach the u8 affine, so the two are equal exactly; both
+    are within the serving bound of the JAX pipeline with flip_test=True."""
+    cfg = _small_cfg()
+    variables = _variables(rng)
+    calib = [rng.randn(2, 64, 64, 3).astype(np.float32)]
+    jpipe = jax_pipeline(cfg, variables, calib, flip_test=True, interpret=True)
+    model = _port_model(variables)
+    pipe_dev = build_serving_pipeline(cfg, model, calib, flip_test=True, device="cpu")
+    pipe_pre = build_serving_pipeline(cfg, model, calib, flip_test="premirrored",
+                                      device="cpu")
+    with pytest.raises(ValueError, match="flip_test"):
+        build_serving_pipeline(cfg, model, calib, flip_test="mirrored", device="cpu")
+
+    images, center, scale, is_h36m = _request(rng)
+    ref_preds, ref_maxvals = jpipe.infer(
+        jpipe.params, jnp.asarray(jpipe.prepare(images)), jnp.asarray(center),
+        jnp.asarray(scale), jnp.asarray(is_h36m))
+    args = (torch.from_numpy(center), torch.from_numpy(scale), torch.from_numpy(is_h36m))
+    carried = from_jax_params(_np_tree(jpipe.params), "cpu")
+    x_dev, x_pre = pipe_dev.prepare(images), pipe_pre.prepare(images)
+    assert tuple(x_dev.shape) == (32, 32, 12, N * V)
+    assert tuple(x_pre.shape) == (32, 32, 12, 2 * N * V)
+    p1, m1 = pipe_dev.infer(carried, x_dev, *args)
+    p2, m2 = pipe_pre.infer(carried, x_pre, *args)
+    assert torch.equal(p1, p2) and torch.equal(m1, m2)
+    np.testing.assert_allclose(m1.numpy(), np.asarray(ref_maxvals), rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(p1.numpy(), np.asarray(ref_preds), atol=1e-4)
+    # the merge changes the result: not the unflipped pipeline's output
+    p0, m0 = build_serving_pipeline(cfg, model, calib, device="cpu").infer(
+        carried, x_dev, *args)
+    assert not torch.equal(m0, m1)
+
+
+def test_serving_agg_w4_dilated_deconv0_matches_jax(rng):
+    """agg_w4=True (the diag-split 4-bit bank, B4's plain version here) with
+    subpixel_deconvs=False (deconv0 as the dilated int8 conv) against the
+    JAX pipeline built the same way; the bank is nibble-packed."""
+    from posetpu_torch.serving import finalize_device_params
+
+    cfg = _small_cfg()
+    variables = _variables(rng)
+    calib = [rng.randn(2, 64, 64, 3).astype(np.float32)]
+    jpipe = jax_pipeline(cfg, variables, calib, agg_w4=True, subpixel_deconvs=False,
+                         interpret=True)
+    pipe = build_serving_pipeline(cfg, _port_model(variables), calib, agg_w4=True,
+                                  subpixel_deconvs=False, device="cpu")
+    images, center, scale, is_h36m = _request(rng)
+    ref_preds, ref_maxvals = jpipe.infer(
+        jpipe.params, jnp.asarray(jpipe.prepare(images)), jnp.asarray(center),
+        jnp.asarray(scale), jnp.asarray(is_h36m))
+    args = (torch.from_numpy(center), torch.from_numpy(scale), torch.from_numpy(is_h36m))
+    carried = from_jax_params(_np_tree(jpipe.params), "cpu")
+    assert set(carried["qagg"]) == {"wq4", "w_scale", "dv", "x_scale"}
+    assert carried["qagg"]["wq4"].dtype == torch.uint8
+    assert carried["qagg"]["wq4"].numel() == 4 * 3 * 256 * 256 // 2
+    assert "subpix_deconv0" not in carried["q"] and "phase_tail2" in carried["q"]
+    for k, v in pipe.params["qagg"].items():
+        assert torch.equal(v, carried["qagg"][k]), k
+    assert finalize_device_params(carried) is carried
+
+    preds, maxvals = pipe.infer(carried, pipe.prepare(images), *args)
+    np.testing.assert_allclose(maxvals.numpy(), np.asarray(ref_maxvals),
+                               rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(preds.numpy(), np.asarray(ref_preds), atol=1e-4)
+    assert float(maxvals.std()) > 0
+
+
+@pytest.mark.parametrize("flip_test", [False, True])
+def test_float_pipeline_matches_jax_functions(rng, flip_test):
+    """build_float_pipeline against the JAX package's float functions in the
+    validate loop's order: the flax MultiViewPose forward, fuse_routing, the
+    flip-test merge (with the shift), final_preds. Heatmaps agree to atol
+    1e-4 (test_from_jax_variables_float_forward_matches_flax's bound), so
+    maxvals are held to that; on these inputs every joint decodes to the
+    same pixel and nudge, so preds are held to the serving tests' atol 1e-4
+    (the inverse affine's rounding)."""
+    from posetpu.core import inference as jinf
+    from posetpu.data.base import union_flip_pairs
+    from posetpu.models.multiview import MultiViewPose as FlaxMultiView
+    from posetpu.models.pose_resnet import PoseResNet as FlaxPoseResNet
+    from posetpu_torch.serving import build_float_pipeline
+
+    cfg = _small_cfg()
+    cfg.TEST.POST_PROCESS = True
+    cfg.TEST.SHIFT_HEATMAP = True
+    variables = jax.tree_util.tree_map_with_path(
+        lambda p, v: v * 0.5 if getattr(p[-1], "key", "") == "kernel" else v,
+        _variables(rng))
+    views = rng.randn(N, V, 64, 64, 3).astype(np.float32)
+    center = (100 + 50 * rng.rand(N, V, 2)).astype(np.float32)
+    scale = (1 + rng.rand(N, V, 2)).astype(np.float32)
+    is_h36m = np.asarray([1.0, 0.0], np.float32)
+
+    flax_model = FlaxMultiView(FlaxPoseResNet(num_layers=18))
+    pairs = union_flip_pairs()
+
+    def routed(x, mask):
+        raw, fused, _, _ = flax_model.apply(variables, jnp.asarray(x), train=False)
+        return jinf.fuse_routing(raw, fused, jnp.asarray(mask))
+
+    if flip_test:
+        out2 = routed(np.concatenate([views, views[..., ::-1, :]], axis=0),
+                      np.concatenate([is_h36m, is_h36m]))
+        output = jinf.flip_test_merge(out2[:N], out2[N:], pairs, shift=True)
+    else:
+        output = routed(views, is_h36m)
+    # decode_heatmaps over [..., J, h, w]: the decode final_preds' port uses
+    from posetpu.ops.affine import transform_preds
+    from posetpu.ops.heatmap import decode_heatmaps
+
+    coords, ref_maxvals = decode_heatmaps(jnp.moveaxis(output, -1, -3))
+    ref_preds = transform_preds(coords, jnp.asarray(center), jnp.asarray(scale), (16, 16))
+
+    pipe = build_float_pipeline(cfg, _port_model(variables), flip_test=flip_test,
+                                device="cpu")
+    preds, maxvals = pipe.infer(pipe.params, pipe.prepare(views), torch.from_numpy(center),
+                                torch.from_numpy(scale), torch.from_numpy(is_h36m))
+    assert tuple(preds.shape) == (N, V, 16, 2) and tuple(maxvals.shape) == (N, V, 16)
+    np.testing.assert_allclose(maxvals.numpy(), np.asarray(ref_maxvals), atol=1e-4)
+    np.testing.assert_allclose(preds.numpy(), np.asarray(ref_preds), atol=1e-4)
+    assert float(maxvals.std()) > 0
 
 
 def test_pack_hwcn_matches_jax(rng):
