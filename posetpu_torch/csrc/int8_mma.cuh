@@ -10,7 +10,8 @@
 // outside the operand is a zero-filled cp.async (src-size 0).
 //
 // mma_mainloop_w4 is the same loop with B stored at 4 bits (two weights per
-// byte), widened to int8 in registers.
+// byte), widened to int8 in registers. mma_resident (below) is the loop for
+// an A operand that already sits in shared memory.
 //
 // Tiles: 128 x 128 x 32, 256 threads = 8 warps as 4 (m) x 2 (n), each warp
 // 32 x 64 = 2 x 8 mma tiles. Two shared-memory stages, cp.async double
@@ -193,6 +194,128 @@ __device__ __forceinline__ signed char requant_relu(float z, float inv_so) {
   float q = rintf(__fmul_rn(fmaxf(z, 0.0f), inv_so));
   q = fminf(fmaxf(q, -127.0f), 127.0f);
   return static_cast<signed char>(static_cast<int>(q));
+}
+
+// The folded requant of the bottleneck and subpixel-deconv kernels, whose
+// scale and bias arrive pre-divided by the output scale:
+// clip(round_half_even(acc * s + b), lo, 127), multiply and add rounded
+// separately. ReLU is lo = 0.
+__device__ __forceinline__ signed char requant_folded(int acc, float s, float b, float lo) {
+  float q = rintf(scale_bias(acc, s, b));
+  q = fminf(fmaxf(q, lo), 127.0f);
+  return static_cast<signed char>(static_cast<int>(q));
+}
+
+// ---------------------------------------------------------------------------
+// mma_resident: the same 128 x 128 x 32 tile product with the A operand
+// already in shared memory (an activation tile an earlier stage of the same
+// kernel left there), so only B streams through the cp.async double buffer.
+//
+// ARows says where a tile row lives: ``row(r)`` is called once per thread and
+// row, ``ptr(row, ks, ok)`` gives the 32 bytes of k-step ks (ok=false: read
+// zeros), so a 3x3 conv can gather shifted rows tap by tap. Rows from m_lim
+// and columns from n_lim on are not computed: a warp whose rows or columns
+// all lie beyond them runs no mma. The caller zeroes ``acc`` (a K loop cut
+// into chunks accumulates across calls) and picks the warp arrangement with
+// warp_tile(), so that the warps left with work sit on all four of the
+// SM's tensor cores (a warp's core is its index mod 4). ``sB`` is the
+// caller's staging buffer, RESIDENT_SB bytes of shared memory, 16-aligned.
+
+constexpr int RESIDENT_STAGE = BN * LDS;
+constexpr int RESIDENT_SB = 2 * RESIDENT_STAGE;
+
+struct WarpTile {
+  int wm, wn;  // this warp's 32-row and 64-column slot of the tile
+};
+
+// Warps as 4 (m) x 2 (n). ``narrow`` (n_lim <= 64): column slot 0 is warps
+// 0-3; otherwise row slots 0 and 1 (m_lim <= 64) are warps 0-3.
+__device__ __forceinline__ WarpTile warp_tile(bool narrow) {
+  const int warp = threadIdx.x >> 5;
+  return narrow ? WarpTile{warp & 3, warp >> 2} : WarpTile{warp >> 1, warp & 1};
+}
+
+__device__ __forceinline__ void acc_zero(Acc& acc) {
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int r = 0; r < 4; ++r) acc.v[i][j][r] = 0;
+}
+
+template <class ARows, class BLoad>
+__device__ __forceinline__ void mma_resident(const ARows& ar, const BLoad& lb,
+                                             int k_steps, int m_lim, int n_lim,
+                                             WarpTile wt, int8_t* sB, Acc& acc) {
+
+  const int tid = threadIdx.x;
+  const int lrow = tid >> 1, lcol = (tid & 1) * 16;
+  const int lane = tid & 31, gid = lane >> 2, tig = lane & 3;
+  const bool warp_on = wt.wm * 32 < m_lim && wt.wn * 64 < n_lim;
+
+  typename ARows::Row rows[2][2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) rows[i][hh] = ar.row(wt.wm * 32 + i * 16 + hh * 8 + gid);
+
+  auto load = [&](int stage, int ks) {
+    bool vb;
+    const void* pb = lb(ks * BK + lcol, vb);
+    cp_async16(sB + stage * RESIDENT_STAGE + lrow * LDS + lcol, pb, vb);
+  };
+
+  load(0, 0);
+  cp_async_commit();
+  for (int ks = 0; ks < k_steps; ++ks) {
+    if (ks + 1 < k_steps) load((ks + 1) & 1, ks + 1);
+    cp_async_commit();
+    cp_async_wait1();
+    __syncthreads();
+    if (warp_on) {
+      const int8_t* b = sB + (ks & 1) * RESIDENT_STAGE;
+      unsigned af[2][4];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          bool ok;
+          const int8_t* pa = ar.ptr(rows[i][hh], ks, ok);
+          af[i][hh] = ok ? *reinterpret_cast<const unsigned*>(pa + tig * 4) : 0u;
+          af[i][2 + hh] = ok ? *reinterpret_cast<const unsigned*>(pa + 16 + tig * 4) : 0u;
+        }
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        if (wt.wn * 64 + j * 8 < n_lim) {
+          const int n = wt.wn * 64 + j * 8 + gid;
+          unsigned bf[2];
+          bf[0] = *reinterpret_cast<const unsigned*>(b + n * LDS + tig * 4);
+          bf[1] = *reinterpret_cast<const unsigned*>(b + n * LDS + 16 + tig * 4);
+#pragma unroll
+          for (int i = 0; i < 2; ++i) mma_s8(acc.v[i][j], af[i], bf);
+        }
+      }
+    }
+    __syncthreads();
+  }
+}
+
+// for_each_pair for a tile computed under the warp arrangement ``wt``;
+// ``idx`` numbers this thread's 32 pairs in a fixed order.
+template <class F>
+__device__ __forceinline__ void for_each_pair_at(const Acc& acc, WarpTile wt, F&& f) {
+  const int lane = threadIdx.x & 31;
+  const int gid = lane >> 2, tig = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const int row = wt.wm * 32 + i * 16 + gid;
+      const int col = wt.wn * 64 + j * 8 + tig * 2;
+      f((i * 8 + j) * 2, row, col, acc.v[i][j][0], acc.v[i][j][1]);
+      f((i * 8 + j) * 2 + 1, row + 8, col, acc.v[i][j][2], acc.v[i][j][3]);
+    }
 }
 
 }  // namespace posetpu

@@ -49,7 +49,7 @@
 // reciprocal 1/so is a correctly rounded f32 divide as in JAX, and rintf
 // rounds half to even like jnp.round.
 
-#include "int8_mma.cuh"
+#include "gather.cuh"
 
 namespace posetpu {
 
@@ -66,42 +66,13 @@ struct PhaseConvArgs {
                         // 2: [4, H, W, N, Cout]
 };
 
-struct PhaseARow {
-  const int8_t* x;
-  int n, i, j, h, w, cin, a, b;
-  bool row_ok;
-  __device__ const void* operator()(int k, bool& valid) const {
-    const int t = k / cin, c = k - t * cin;
-    const int ii = i + (t >> 1) - (1 - a), jj = j + (t & 1) - (1 - b);
-    valid = row_ok && ii >= 0 && ii < h && jj >= 0 && jj < w;
-    return valid ? x + ((static_cast<size_t>(n) * h + ii) * w + jj) * cin + c : x;
-  }
-};
-
-struct PhaseBRow {
-  const int8_t* w;
-  int g, o, cin, cout;
-  __device__ const void* operator()(int k, bool& valid) const {
-    const int t = k / cin, c = k - t * cin;
-    valid = o < cout;
-    return valid ? w + (static_cast<size_t>(g * 4 + t) * cout + o) * cin + c : w;
-  }
-};
-
 __global__ void __launch_bounds__(THREADS) phase_conv_kernel(PhaseConvArgs p) {
   const int g = blockIdx.z, a = g >> 1, b = g & 1;
   const int m_total = p.n * p.h * p.wd;
   const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
   const int lrow = threadIdx.x >> 1;
 
-  PhaseARow la;
-  const int m = m0 + lrow;
-  la.x = p.x; la.h = p.h; la.w = p.wd; la.cin = p.cin; la.a = a; la.b = b;
-  la.row_ok = m < m_total;
-  const int mm = la.row_ok ? m : 0;
-  la.j = mm % p.wd;
-  la.i = (mm / p.wd) % p.h;
-  la.n = mm / (p.wd * p.h);
+  const PhaseARow la = PhaseARow::at(p.x, m0 + lrow, p.n, p.h, p.wd, p.cin, a, b);
   PhaseBRow lb{p.w, g, n0 + lrow, p.cin, p.cout};
 
   Acc acc;

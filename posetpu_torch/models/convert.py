@@ -14,8 +14,9 @@ MultiViewPose` (or, for a tree without a ``resnet`` subtree, for
 * the stacked [12, S, S] aggregation bank as it is.
 
 :func:`from_jax_params` turns a JAX serving pipeline's params
-({"q": qparams, "qagg": bank}, as numpy) into the port's, so a test can hand
-the same quantized state to both packages.
+({"q": qparams, "qagg": bank}) or a JAX ``make_fused_forward``'s
+({"q", "fused", "deconv"}), as numpy, into the port's, so a test can hand the
+same quantized state to both packages.
 """
 
 from __future__ import annotations
@@ -27,7 +28,9 @@ import torch
 
 from posetpu_torch import resolve_device
 from posetpu_torch.ops import aggregation as _agg
+from posetpu_torch.ops import deconv as _dc
 from posetpu_torch.ops import phase_tail as _pt
+from posetpu_torch.ops import resblock as _rb
 
 
 def _flatten(tree, prefix=()):
@@ -64,30 +67,41 @@ def from_jax_variables(tree) -> dict[str, torch.Tensor]:
 
 
 def from_jax_params(tree, device=None) -> dict:
-    """A JAX serving pipeline's params (numpy leaves) -> the port's params on
-    ``device``: trunk weights as int8 HWIO tensors, scales as f32 tensors,
-    the kernels' argument packs (``phase_tail2``, ``phase_tail``,
-    ``subpix_*``) and the bank (int8, or an s4 carrier nibble-packed) in the
-    kernels' layouts. CUDA unless ``device`` is given."""
+    """A JAX pipeline's params (numpy leaves) -> the port's params on
+    ``device``: under "q" the trunk weights as int8 HWIO tensors (of any
+    ``jns_head`` / ``stem_s2d``), scales as f32 tensors and the kernels'
+    argument packs (``phase_tail2``, ``phase_tail``, ``subpix_*``); under
+    "qagg" the bank (int8, or an s4 carrier nibble-packed); under "fused" and
+    "deconv" a ``make_fused_forward``'s bottleneck and deconv (+ head)
+    arguments; all in the kernels' layouts. A key the tree lacks is left out
+    ("q" and "qagg" come back as None). CUDA unless ``device`` is given."""
     dev = resolve_device(device)
     t = lambda a: torch.from_numpy(np.array(a)).to(dev)
-    q = tree["q"]
-    qp = {k: {n: t(v) for n, v in q[k].items()}
-          for k in ("weights", "w_scales", "biases")}
-    qp["act_scales"] = {n: t(np.float32(v)) for n, v in q["act_scales"].items()}
-    for k, v in q.items():
-        if k == "phase_tail2":
-            qp[k] = _pt.tail2_device_args(v, dev)
-        elif k == "phase_tail":
-            qp[k] = _pt.tail_device_args(v, dev)
-        elif k.startswith("subpix_"):
-            qp[k] = _pt.subpixel_device_args(v, dev)
-        elif k not in qp:
-            raise ValueError(f"unknown qparams entry {k!r}")
+    out = {"q": None, "qagg": None}
+    q = tree.get("q")
+    if q is not None:
+        qp = {k: {n: t(v) for n, v in q[k].items()}
+              for k in ("weights", "w_scales", "biases")}
+        qp["act_scales"] = {n: t(np.float32(v)) for n, v in q["act_scales"].items()}
+        for k, v in q.items():
+            if k == "phase_tail2":
+                qp[k] = _pt.tail2_device_args(v, dev)
+            elif k == "phase_tail":
+                qp[k] = _pt.tail_device_args(v, dev)
+            elif k.startswith("subpix_"):
+                qp[k] = _pt.subpixel_device_args(v, dev)
+            elif k not in qp:
+                raise ValueError(f"unknown qparams entry {k!r}")
+        out["q"] = qp
     qagg = tree.get("qagg")
     if qagg is not None:
         # an s4 bank (wq4, w_scale, dv, x_scale) becomes the nibble-packed one
         to_dev = (_agg.aggregation_device_params_s4 if "wq4" in qagg
                   else _agg.aggregation_device_params)
-        qagg = to_dev(qagg, dev)
-    return {"q": qp, "qagg": qagg}
+        out["qagg"] = to_dev(qagg, dev)
+    if "fused" in tree:
+        out["fused"] = {name: _rb.bottleneck_device_args(a, dev)
+                        for name, a in tree["fused"].items()}
+    if "deconv" in tree:
+        out["deconv"] = [_dc.deconv_device_args(a, dev) for a in tree["deconv"]]
+    return out

@@ -1,10 +1,22 @@
-"""int8 post-training-quantized inference path for PoseResNet (space-to-depth
-stem input, phase-packed heatmaps, optional 4-bit block boundaries), in every
-tail configuration of the JAX package's ``jns_head="phase"``: the last deconv
-+ head in plain PyTorch, as the one-level kernel (B5) or, with the deconv
-before it, as the two-level kernel (B1); each inner deconv as the dilated
-int8 conv, the plain subpixel conv or the subpixel kernel (B2 batched, B6
-per pair).
+"""int8 post-training-quantized inference path for PoseResNet, in every
+configuration of the JAX package's ``quantize_pose_resnet``:
+
+- the input as normalised floats (quantised here) or as int8, row-major
+  [N, H, W, 3] through the 7x7/s2 stem (``stem_s2d=False``), through the
+  space-to-depth 4x4/s1 form packed here (``True``) or packed by the caller
+  (``"pre"``, the serving contract);
+- block boundaries named in ``act4`` stored at 4 bits, as int8 values in
+  [-7, 7] (``act4_mode="s4"``) or two to a uint8 byte (``"packed"``);
+- each deconv as the dilated int8 conv, the plain subpixel conv or a
+  subpixel kernel (B2 batched, B6 per pair);
+- the head as row-major [N, h, w, J] (``jns_head=False``), S-minor
+  [J, N, h*w] in f32 or bf16 (``True``, ``"bf16"``), or phase-packed
+  (``"phase"``): the last deconv + head in plain PyTorch, as the one-level
+  kernel (B5) or, with the deconv before it, as the two-level kernel (B1).
+
+:func:`make_fused_forward` is the row-major forward with every stride-1
+bottleneck as one kernel (B8a, ops/resblock.py) and the deconvs + head as the
+fused subpixel kernels (B9a, B9b, ops/deconv.py).
 
 1. **fold** — BatchNorm folds into each conv's per-output-channel scale+bias;
 2. **calibrate** — batches run through the folded float graph recording
@@ -18,8 +30,11 @@ The weight-side steps are numpy and copy the JAX package's arithmetic, so
 the int8 weights match it bit for bit. The trunk convs are exact int8 GEMMs:
 im2col on int8 NHWC (padding + strided slices) and ``torch._int_mm``
 (int8 x int8 -> int32, ops/int_mm.py). Never an f32 conv: layer4's 3x3x512 contraction
-reaches ~7.4e7 > 2^24, past f32's exact integers. The deconv tail's kernels
-are the hand-written CUDA kernels of ops/phase_tail.py.
+reaches ~7.4e7 > 2^24, past f32's exact integers. The JAX package's
+``conv_dtype_policy`` routes some sites (K <= 128, wide output) through bf16
+on the TPU, exact by construction; here every site is an int8 GEMM, which is
+no difference in results. The deconv tail's kernels are the hand-written CUDA
+kernels of ops/phase_tail.py and ops/deconv.py.
 
 Every scale is a float32 tensor, and products of scales are taken in f32 in
 the JAX association, so each rounds as it does there.
@@ -36,7 +51,9 @@ import torch.nn.functional as F
 
 from posetpu_torch import resolve_device
 from posetpu_torch.models.pose_resnet import RESNET_SPEC
+from posetpu_torch.ops import deconv as _dc
 from posetpu_torch.ops import phase_tail as _pt
+from posetpu_torch.ops import resblock as _rb
 from posetpu_torch.ops.int_mm import int_mm
 
 
@@ -136,6 +153,14 @@ def s2d_stem_weights(w):
     return out
 
 
+def _s2d(x):
+    """[N, H, W, C] -> [N, H/2, W/2, 4*C] space-to-depth, phase (a, b) major
+    in channels (matches :func:`s2d_stem_weights`)."""
+    n, h, w, c = x.shape
+    xd = x.reshape(n, h // 2, 2, w // 2, 2, c).permute(0, 1, 3, 2, 4, 5)
+    return xd.reshape(n, h // 2, w // 2, 4 * c)
+
+
 def mirror_s2d_hwcn(x):
     """The flip-test input mirror on the batch-minor serving contract,
     without unpacking: x [H/2, W/2, 4*C, N] uint8. Virtual column
@@ -165,6 +190,29 @@ def _subpixel_interleave(z, h: int, wd: int):
                          for b in range(2)], dim=3) for a in range(2)]
     y = torch.stack(rows, dim=3)  # [N, H, W, 2(a), 2(b), O]
     return y.permute(0, 1, 3, 2, 4, 5).reshape(n, 2 * h, 2 * wd, o)
+
+
+# ------------------------------------------------------- 4-bit boundaries
+
+
+def pack_nibbles(q8):
+    """int8 values in [-8, 7], even channel count -> uint8 with channel c in
+    the low nibble and channel c + C/2 in the high nibble of byte c (the JAX
+    package's order; ops/aggregation.pack_nibbles_k packs the s4 bank in
+    another). Halves the bytes of a boundary tensor."""
+    c = q8.shape[-1]
+    lo = q8[..., : c // 2].to(torch.int32) & 0xF
+    hi = q8[..., c // 2:].to(torch.int32) & 0xF
+    return (lo | (hi << 4)).to(torch.uint8)
+
+
+def unpack_nibbles(p):
+    """Inverse of :func:`pack_nibbles`: uint8 -> int8 in [-8, 7] with the
+    channel order restored; sign extension by (x ^ 8) - 8."""
+    pi = p.to(torch.int32)
+    lo = ((pi & 0xF) ^ 8) - 8
+    hi = (((pi >> 4) & 0xF) ^ 8) - 8
+    return torch.cat([lo, hi], dim=-1).to(torch.int8)
 
 
 # ------------------------------------------------------------- convolutions
@@ -302,6 +350,9 @@ class _Recorder:
         self._record(y, name)
         return y, None
 
+    def unwrap(self, h, s_h):
+        return h, s_h
+
 
 class _Int8Runner:
     """int8-mode executor. Every tensor between convs (block outputs,
@@ -309,14 +360,17 @@ class _Int8Runner:
     scale; dequantize -> affine -> ReLU -> requantize happen in f32 on each
     conv's int32 output.
 
-    ``act4``: block-output names (e.g. "layer1_0.out") stored at 4 bits: the
-    same calibrated amax over 7 steps instead of 127, held as int8 values in
-    [-7, 7] with the 4-bit scale (numerically identical to JAX's native
-    int4; the nibble-packed carrier is later work)."""
+    ``act4``: boundary names (e.g. "layer1_0.out") stored at 4 bits: the
+    same calibrated amax over 7 steps instead of 127. ``act4_mode="s4"``
+    holds them as int8 values in [-7, 7] (numerically the JAX package's
+    native int4); ``"packed"`` carries two to a uint8 byte between blocks
+    (:func:`pack_nibbles`), unpacked by each consumer (:meth:`unwrap`). Both
+    give the same heatmaps bit for bit."""
 
-    def __init__(self, qparams, act4=()):
+    def __init__(self, qparams, act4=(), act4_mode="s4"):
         self.q = qparams
         self.act4 = frozenset(act4)
+        self.act4_mode = act4_mode
 
     @staticmethod
     def _quant(x, scale):
@@ -324,9 +378,13 @@ class _Int8Runner:
         return torch.clamp(torch.round(x * (1.0 / scale)), -127, 127).to(torch.int8)
 
     def input(self, x):
-        if x.dtype != torch.int8:
-            raise ValueError("the int8 forward takes the int8 input of make_u8_quant")
-        return x, self.q["act_scales"]["input"]
+        s = self.q["act_scales"]["input"]
+        if x.dtype == torch.int8:  # pre-quantized (make_u8_quant's output)
+            return x, s
+        if not x.is_floating_point():
+            raise ValueError(f"the int8 forward takes normalised floats or the int8 "
+                             f"input of make_u8_quant, not {x.dtype}")
+        return self._quant(x, s), s
 
     def qchain(self, h_q, s_h, name, stride=1, relu=True, s2d=False,
                subpixel=False, dilated=False):
@@ -336,8 +394,11 @@ class _Int8Runner:
         s_out = self.q["act_scales"][f"{name}.out"]
         padding = None
         if s2d:
-            # space-to-depth stem: the input already arrives s2d-packed (the
-            # serving input contract); the 4x4/s1 form of the 7x7/s2 conv
+            # space-to-depth stem, the 4x4/s1 form of the 7x7/s2 conv. With
+            # s2d="pre" the input already arrives s2d-packed (the serving
+            # input contract); otherwise it is packed here
+            if s2d != "pre":
+                h_q = _s2d(h_q)
             stride, padding = 1, ((2, 1), (2, 1))
         if subpixel:
             # the padded [2, 2, I, 4*O] phase conv; requantize BEFORE the
@@ -360,6 +421,9 @@ class _Int8Runner:
         if relu:
             y = torch.relu(y)
         if f"{name}.out" in self.act4:
+            # intra-block 4-bit boundary: int8 values in either mode (nibble
+            # packing is not plumbed through conv consumers, as in the JAX
+            # package)
             s4 = s_out * (127.0 / 7.0)
             return torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8), s4
         return self._quant(y, s_out), s_out
@@ -369,6 +433,18 @@ class _Int8Runner:
         b = self.q["biases"][name]
         y = _conv_int8(h_q, self.q["weights"][name], stride)
         return y.float() * (s_h * ws) + b
+
+    def final_jns(self, h_q, s_h, dtype=torch.float32):
+        """The 1x1 head in the S-minor layout: h_q [N, H, W, C] int8 ->
+        [J, N, H*W] (row-major pixels). ``dtype=torch.bfloat16`` rounds the
+        f32 result to nearest even, as ``astype(jnp.bfloat16)`` does."""
+        wq = self.q["weights"]["final"]  # [1, 1, C, J]
+        ws = self.q["w_scales"]["final"]
+        b = self.q["biases"]["final"]
+        n, hh, ww, c = h_q.shape
+        y = int_mm(h_q.reshape(-1, c), wq.reshape(c, -1)).reshape(n, hh * ww, -1)
+        y = y.permute(2, 0, 1).float() * (s_h * ws)[:, None, None] + b[:, None, None]
+        return y.to(dtype)
 
     def subpixel_phases(self, h_q, s_h, name):
         """The last k4 deconv as four stride-1 2x2 phase convs, KEEPING the
@@ -413,64 +489,83 @@ class _Int8Runner:
         s = self.q["act_scales"][name]
         if name in self.act4:
             s4 = s * (127.0 / 7.0)
-            return torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8), s4
+            q4 = torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8)
+            return (q4 if self.act4_mode == "s4" else pack_nibbles(q4)), s4
         return self._quant(y, s), s
+
+    def unwrap(self, h_q, s_h):
+        """Undo a nibble-packed boundary at its consumer; int8 passes through."""
+        if h_q.dtype == torch.uint8:
+            return unpack_nibbles(h_q), s_h
+        return h_q, s_h
+
+
+def _run_block(runner, h_q, s_h, info):
+    """One residual block on either executor: (h_q, s_h) -> (h_q, s_h)."""
+    name = info["name"]
+    if info["kind"] == "bottleneck":
+        m, s_m = runner.qchain(h_q, s_h, f"{name}.conv1")
+        m, s_m = runner.qchain(m, s_m, f"{name}.conv2", stride=info["stride"])
+        y = runner.conv_f32(m, s_m, f"{name}.conv3")
+    else:
+        m, s_m = runner.qchain(h_q, s_h, f"{name}.conv1", stride=info["stride"])
+        y = runner.conv_f32(m, s_m, f"{name}.conv2")
+    if info["downsample"]:
+        r_q, r_s = runner.qchain(h_q, s_h, f"{name}.downsample",
+                                 stride=info["stride"], relu=False)
+    else:
+        r_q, r_s = h_q, s_h
+    out = torch.relu(y + runner.dequant(r_q, r_s))
+    return runner.requant(out, f"{name}.out")
 
 
 def _forward(runner, x, num_layers, deconv_kernels, subpixel_deconvs=False,
-             phase_kernel=False):
+             jns_head=False, stem_s2d=False, phase_kernel=False):
     """Shared calibration/int8 forward over the layer plan. The calibration
     recorder runs the 7x7/s2 stem on [N, H, W, 3], every deconv as a float
     ConvTranspose2d and the 1x1 head, returning [N, h, w, J]. The int8
-    runner takes the s2d-packed input and returns f32 phase-packed heatmaps
-    [J, N, h*w]: with ``phase_tail2`` in its params the last two deconvs +
-    head are the B1 kernel (``phase_index_tables(levels=2)`` order);
-    otherwise the last deconv + head are the B5 kernel (``phase_tail`` in
-    the params) or plain PyTorch (levels=1 order). An inner k4 deconv named
-    in ``subpixel_deconvs`` runs the subpixel kernel where the params hold
-    its arguments (B2, or B6 under ``SUBPIX_BATCHED = False``), else the
-    plain subpixel conv; every other deconv is the dilated int8 conv."""
+    runner returns f32 heatmaps [N, h, w, J], or [J, N, h*w] with
+    ``jns_head`` (row-major pixels; phase-packed with ``"phase"``).
+
+    With ``jns_head="phase"`` and ``phase_tail2`` in the params the last two
+    deconvs + head are the B1 kernel (``phase_index_tables(levels=2)``
+    order); otherwise the last deconv + head are the B5 kernel
+    (``phase_tail`` in the params) or plain PyTorch (levels=1 order). Any
+    other k4 deconv named in ``subpixel_deconvs`` runs the subpixel kernel
+    where the params hold its arguments (B2, or B6 under
+    ``SUBPIX_BATCHED = False``), else the plain subpixel conv; every other
+    deconv is the dilated int8 conv."""
     plan = _plan(num_layers, deconv_kernels)
     num_deconvs = len(deconv_kernels)
-    q = getattr(runner, "q", None)
+    q = getattr(runner, "q", None)  # None: the calibration recorder
     h_q, s_h = runner.input(x)
     for kind, info in plan:
         if kind == "stem":
-            if q is None:
-                h_q, s_h = runner.qchain(h_q, s_h, "stem", stride=2)
+            if q is not None and stem_s2d:
+                h_q, s_h = runner.qchain(h_q, s_h, "stem", s2d=stem_s2d)
             else:
-                h_q, s_h = runner.qchain(h_q, s_h, "stem", s2d=True)
+                h_q, s_h = runner.qchain(h_q, s_h, "stem", stride=2)
             # max-pool commutes with the (positive-scale) quantization
             h_q = runner.max_pool(h_q)
         elif kind == "block":
-            name = info["name"]
-            if info["kind"] == "bottleneck":
-                m, s_m = runner.qchain(h_q, s_h, f"{name}.conv1")
-                m, s_m = runner.qchain(m, s_m, f"{name}.conv2", stride=info["stride"])
-                y = runner.conv_f32(m, s_m, f"{name}.conv3")
-            else:
-                m, s_m = runner.qchain(h_q, s_h, f"{name}.conv1", stride=info["stride"])
-                y = runner.conv_f32(m, s_m, f"{name}.conv2")
-            if info["downsample"]:
-                r_q, r_s = runner.qchain(h_q, s_h, f"{name}.downsample",
-                                         stride=info["stride"], relu=False)
-            else:
-                r_q, r_s = h_q, s_h
-            out = torch.relu(y + runner.dequant(r_q, r_s))
-            h_q, s_h = runner.requant(out, f"{name}.out")
+            # a nibble-packed boundary unpacks here, at its consumers
+            h_q, s_h = runner.unwrap(h_q, s_h)
+            h_q, s_h = _run_block(runner, h_q, s_h, info)
         elif kind == "deconv":
+            h_q, s_h = runner.unwrap(h_q, s_h)
             name, k = info["name"], info["kernel"]
             if q is None:
                 h_q, s_h = runner.qchain(h_q, s_h, name, deconv=True)
                 continue
             n, hh, ww, c = h_q.shape
             is_last = name == f"deconv{num_deconvs - 1}"
-            if k == 4 and name == f"deconv{num_deconvs - 2}" and "phase_tail2" in q:
+            if (jns_head == "phase" and k == 4
+                    and name == f"deconv{num_deconvs - 2}" and "phase_tail2" in q):
                 # deconv1 + deconv2 + head: the B1 kernel; heatmaps come out
                 # in the levels=2 packing
                 return _pt.fused_phase_tail2(h_q.reshape(n, hh * ww, c),
                                              q["phase_tail2"], h=hh, w=ww)
-            if is_last and k == 4:
+            if jns_head == "phase" and is_last and k == 4:
                 if phase_kernel:
                     # last deconv + head: the B5 kernel, levels=1 packing
                     return _pt.fused_phase_tail(h_q.reshape(n, hh * ww, c),
@@ -494,10 +589,13 @@ def _forward(runner, x, num_layers, deconv_kernels, subpixel_deconvs=False,
                     h_q, s_h = runner.qchain(h_q, s_h, name, subpixel=True)
             else:
                 h_q, s_h = runner.qchain(h_q, s_h, name, dilated=True)
-        elif q is None:  # final 1x1 head, calibration recorder
+        elif q is None or not jns_head:  # final 1x1 head, row-major [N, h, w, J]
             h_q = runner.conv_f32(h_q, s_h, "final")
-        else:  # phase head over subpixel_phases' groups
+        elif jns_head == "phase":  # over subpixel_phases' groups
             h_q = runner.final_phase(h_q, s_h)
+        else:
+            h_q = runner.final_jns(
+                h_q, s_h, torch.bfloat16 if jns_head == "bf16" else torch.float32)
     return h_q
 
 
@@ -561,48 +659,67 @@ def quantize_weights(folded: dict, act_scales: dict, subpixel_deconvs=False,
 
 
 def quantize_pose_resnet(model, calib_batches, *, subpixel_deconvs=frozenset({"deconv0"}),
-                         phase_kernel=2, act4=(), device=None) -> tuple[dict, Any]:
-    """One-call PTQ of a PoseResNet module (the JAX call with
-    ``jns_head="phase", stem_s2d="pre"``). Returns (qparams, forward) with
-    ``forward(qparams, x)``: x the s2d-packed int8 input [N, H/2, W/2, 12]
-    from :func:`make_u8_quant` -> f32 phase-packed heatmaps [J, N, h*w].
-    ``device``: CUDA unless given.
+                         jns_head="phase", stem_s2d="pre", phase_kernel=2,
+                         act4=(), act4_mode: str = "s4", device=None) -> tuple[dict, Any]:
+    """One-call PTQ of a PoseResNet module. Returns (qparams, forward) with
+    ``forward(qparams, x)`` -> f32 heatmaps. ``device``: CUDA unless given.
+    The defaults are the serving pipeline's (the JAX call with
+    ``jns_head="phase", stem_s2d="pre"``): x the s2d-packed int8 input
+    [N, H/2, W/2, 12] from :func:`make_u8_quant` -> phase-packed [J, N, h*w].
 
-    ``phase_kernel``: ``2`` — the last two deconvs + head as the two-level
-    kernel (B1), heatmaps in the ``phase_index_tables(levels=2)`` order;
-    ``1`` — the last deconv + head as the one-level kernel (B5), levels=1
-    order; ``False`` — the same tail in plain PyTorch, levels=1 order, and no
-    kernel anywhere. ``subpixel_deconvs``: a bool or a collection of deconv
-    names quantized in the per-phase subpixel form (finer per-phase weight
-    scales); an inner one runs the subpixel kernel when ``phase_kernel`` is
-    set, the plain subpixel conv otherwise. The phase tail's own deconvs
-    keep the [4, 4, I, O] form, so they must not be named (``True`` names
-    them and is refused, as in the JAX package). Every other deconv runs the
-    dilated int8 conv.
+    ``stem_s2d``: ``False`` — x is [N, H, W, 3], normalised floats (quantised
+    here) or int8, through the 7x7/s2 stem; ``True`` — the same x, packed
+    space-to-depth here for the 4x4/s1 stem; ``"pre"`` — x arrives packed.
+    All three give the same int8 activations.
 
-    ``act4``: block-output names stored at 4 bits (see _Int8Runner)."""
-    dfs, dks = model.deconv_filters, tuple(int(k) for k in model.deconv_kernels)
+    ``jns_head``: ``False`` — heatmaps [N, h, w, J]; ``True`` / ``"bf16"`` —
+    [J, N, h*w] row-major in f32 / bf16; ``"phase"`` — [J, N, h*w]
+    phase-packed, where ``phase_kernel`` picks the tail: ``2`` — the last two
+    deconvs + head as the two-level kernel (B1), heatmaps in the
+    ``phase_index_tables(levels=2)`` order; ``1`` — the last deconv + head as
+    the one-level kernel (B5), levels=1 order; ``False`` — the same tail in
+    plain PyTorch, levels=1 order, and no kernel anywhere.
+
+    ``subpixel_deconvs``: a bool or a collection of deconv names quantized in
+    the per-phase subpixel form (finer per-phase weight scales); one outside
+    the phase tail runs the subpixel kernel (B2 / B6) when ``phase_kernel``
+    is set and it is not the last deconv, the plain subpixel conv otherwise.
+    The phase tail's own deconvs keep the [4, 4, I, O] form, so they must not
+    be named (``True`` names them and is refused, as in the JAX package).
+    Every other deconv runs the dilated int8 conv.
+
+    ``act4``: boundary names stored at 4 bits, ``act4_mode`` their carrier
+    (see _Int8Runner)."""
+    dks = tuple(int(k) for k in model.deconv_kernels)
     if phase_kernel not in (False, 1, 2):
         raise ValueError(f"phase_kernel must be False, 1 or 2; got {phase_kernel!r}")
-    n_tail = 2 if phase_kernel == 2 else 1
-    if len(dks) < n_tail + (1 if phase_kernel else 0) or any(k != 4 for k in dks[-n_tail:]):
-        raise ValueError(f"phase_kernel={phase_kernel!r} needs at least "
-                         f"{n_tail + (1 if phase_kernel else 0)} deconvs, the last "
-                         f"{n_tail} with kernel 4; got kernels {dks}")
-    tail = [f"deconv{len(dks) - 1 - i}" for i in range(n_tail)]
-    named = [t for t in tail if _subpixel_wants(subpixel_deconvs, t)]
-    if named:
-        raise ValueError(f"subpixel_deconvs names {named}, which the phase tail "
-                         f"runs in the [4, 4, I, O] form (phase_kernel={phase_kernel!r})")
+    if jns_head not in (False, True, "bf16", "phase"):
+        raise ValueError(f"jns_head must be False, True, 'bf16' or 'phase'; got {jns_head!r}")
+    if stem_s2d not in (False, True, "pre"):
+        raise ValueError(f"stem_s2d must be False, True or 'pre'; got {stem_s2d!r}")
+    if act4_mode not in ("s4", "packed"):
+        raise ValueError(f"act4_mode must be 's4' or 'packed'; got {act4_mode!r}")
+    tail = []
+    if jns_head == "phase":
+        n_tail = 2 if phase_kernel == 2 else 1
+        if len(dks) < n_tail + (1 if phase_kernel else 0) or any(k != 4 for k in dks[-n_tail:]):
+            raise ValueError(f"phase_kernel={phase_kernel!r} needs at least "
+                             f"{n_tail + (1 if phase_kernel else 0)} deconvs, the last "
+                             f"{n_tail} with kernel 4; got kernels {dks}")
+        tail = [f"deconv{len(dks) - 1 - i}" for i in range(n_tail)]
+        named = [t for t in tail if _subpixel_wants(subpixel_deconvs, t)]
+        if named:
+            raise ValueError(f"subpixel_deconvs names {named}, which the phase tail "
+                             f"runs in the [4, 4, I, O] form (phase_kernel={phase_kernel!r})")
     dev = resolve_device(device)
     folded, act_scales = calibrate(model, calib_batches, dev)
     qparams = quantize_weights(folded, act_scales, subpixel_deconvs,
-                               stem_s2d=True, device=dev)
-    if phase_kernel == 2:
+                               stem_s2d=bool(stem_s2d), device=dev)
+    if jns_head == "phase" and phase_kernel == 2:
         qparams["phase_tail2"] = _pt.tail2_device_args(_pt.build_phase_tail2_args(
             qparams, tail[1], tail[0],
             float(act_scales[f"deconv{len(dks) - 3}.out"])), dev)
-    elif phase_kernel:
+    elif jns_head == "phase" and phase_kernel:
         qparams["phase_tail"] = _pt.tail_device_args(_pt.build_phase_tail_args(
             qparams, tail[0], float(act_scales[f"deconv{len(dks) - 2}.out"])), dev)
     if phase_kernel:
@@ -626,11 +743,104 @@ def quantize_pose_resnet(model, calib_batches, *, subpixel_deconvs=frozenset({"d
 
     @torch.no_grad()
     def forward(qparams, x):
-        runner = _Int8Runner(qparams, act4=act4)
+        runner = _Int8Runner(qparams, act4=act4, act4_mode=act4_mode)
         return _forward(runner, x, num_layers, dks,
-                        subpixel_deconvs=subpixel_deconvs, phase_kernel=phase_kernel)
+                        subpixel_deconvs=subpixel_deconvs, jns_head=jns_head,
+                        stem_s2d=stem_s2d, phase_kernel=phase_kernel)
 
     return qparams, forward
+
+
+# --------------------------------------------- kernel-fused block forward
+
+
+def make_fused_forward(model, qparams, subpixel_deconvs=False, pallas_deconvs: bool = True,
+                       pallas_blocks: bool = False, device=None):
+    """The row-major int8 forward with its blocks and deconvs as fused
+    kernels: with ``pallas_blocks`` every stride-1 bottleneck runs as ONE
+    kernel (B8a, ops/resblock.py: one read of the block input, one write of
+    its output), and with ``pallas_deconvs`` (all deconvs k4/s2) the
+    upsampling runs as the fused subpixel kernels (B9a) with the 1x1 head
+    folded into the last one (B9b, ops/deconv.py). Stride-2 blocks and the
+    stem stay on the runner's path. The argument names are the JAX
+    package's, whose kernels are Pallas kernels.
+
+    ``qparams``: from ``quantize_pose_resnet(jns_head=False, stem_s2d=False)``
+    (``subpixel_deconvs`` as there, for the deconvs that run on the runner's
+    path). Returns (params, forward) with params = {"q", "fused", "deconv"},
+    the kernels' arguments on ``device`` (CUDA unless given);
+    ``forward(params, x)``: x [N, H, W, 3] normalised floats or int8 -> f32
+    heatmaps [N, h, w, J]. The kernels' folded, once-rounded epilogues are
+    not the runner's, so a heatmap may differ from the runner's forward by
+    the effect of one int8 step on rare elements."""
+    dks = tuple(int(k) for k in model.deconv_kernels)
+    plan = _plan(model.num_layers, dks)
+    dev = resolve_device(device)
+    s_act = {k: float(v) for k, v in qparams["act_scales"].items()}
+
+    # the fused blocks' arguments, tracking each block's input scale
+    fargs = {}
+    s_h = s_act["stem.out"]
+    for kind, info in plan:
+        if kind != "block":
+            continue
+        name = info["name"]
+        if pallas_blocks and info["kind"] == "bottleneck" and info["stride"] == 1:
+            fargs[name] = _rb.bottleneck_device_args(
+                _rb.build_bottleneck_args(qparams, name, s_h), dev)
+        s_h = s_act[f"{name}.out"]
+
+    use_fused_deconvs = pallas_deconvs and all(k == 4 for k in dks)
+    dargs = []
+    if use_fused_deconvs:
+        s_d = s_h  # the scale after the last residual block
+        for i in range(len(dks)):
+            dargs.append(_dc.build_deconv_args(qparams, f"deconv{i}", s_d))
+            s_d = s_act[f"deconv{i}.out"]
+        dargs[-1].update(_dc.build_head_args(qparams, s_d))
+        dargs = [_dc.deconv_device_args(a, dev) for a in dargs]
+
+    params = {"q": qparams, "fused": fargs, "deconv": dargs}
+
+    @torch.no_grad()
+    def forward(params, x):
+        runner = _Int8Runner(params["q"])
+        f = params["fused"]
+        h_q, s_h = runner.input(x)
+        for kind, info in plan:
+            if kind == "stem":
+                h_q, s_h = runner.qchain(h_q, s_h, "stem", stride=2)
+                h_q = runner.max_pool(h_q)
+            elif kind == "block":
+                name = info["name"]
+                if name in f:
+                    n, hh, ww, c = h_q.shape
+                    x3 = _rb.fused_bottleneck(h_q.reshape(n, hh * ww, c), f[name],
+                                              h=hh, w=ww)
+                    h_q = x3.reshape(n, hh, ww, x3.shape[-1])
+                    s_h = params["q"]["act_scales"][f"{name}.out"]
+                else:
+                    h_q, s_h = _run_block(runner, h_q, s_h, info)
+            elif kind == "deconv":
+                if use_fused_deconvs:
+                    # every deconv and the head run here, once
+                    n, hh, ww, c = h_q.shape
+                    x3 = h_q.reshape(n, hh * ww, c)
+                    for da in params["deconv"]:
+                        fused = (_dc.fused_subpixel_deconv_head if "wh" in da
+                                 else _dc.fused_subpixel_deconv)
+                        x3 = fused(x3, da, h=hh, w=ww)
+                        hh, ww = hh * 2, ww * 2
+                    return x3.reshape(n, hh, ww, x3.shape[-1])
+                if info["kernel"] == 4 and subpixel_deconvs:
+                    h_q, s_h = runner.qchain(h_q, s_h, info["name"], subpixel=True)
+                else:
+                    h_q, s_h = runner.qchain(h_q, s_h, info["name"], dilated=True)
+            else:
+                h_q = runner.conv_f32(h_q, s_h, "final")
+        return h_q
+
+    return params, forward
 
 
 # ------------------------------------------------------------ uint8 input

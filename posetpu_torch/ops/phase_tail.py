@@ -62,16 +62,14 @@ def _np(a):
 # ------------------------------------------------------------ plain versions
 
 
-def _phase_conv_plain(x, w, sv, bv, so, interleave: bool):
-    """x [N, H, W, Cin] int8; w [4, 4, Cout, Cin] int8; sv/bv [4, Cout] or
-    [Cout] f32; so [1, 1] f32 -> int8 [4, N, H, W, Cout], or interleaved
-    [N, 2H, 2W, Cout]."""
+def phase_sums(x, w):
+    """The exact int32 sums of a k4/s2/p1 transposed conv in phase form:
+    x [N, H, W, Cin] int8, w [4 phase, 4 tap, Cout, Cin] int8 -> four
+    [N*H*W, Cout] int32, phase (a, b) major."""
     n, h, wd, cin = x.shape
-    cout = w.shape[2]
     xp = x.new_zeros(n, h + 2, wd + 2, cin)
     xp[:, 1:h + 1, 1:wd + 1] = x
-    inv_so = 1.0 / so.reshape(())
-    out = []
+    sums = []
     for g, (a, b) in enumerate(_PHASES):
         acc = None
         for t, (u, v) in enumerate(_PHASES):
@@ -79,6 +77,19 @@ def _phase_conv_plain(x, w, sv, bv, so, interleave: bool):
             xs = xp[:, 1 + sr:1 + sr + h, 1 + sc:1 + sc + wd].reshape(-1, cin)
             y = int_mm(xs, w[g, t].t())
             acc = y if acc is None else acc + y
+        sums.append(acc)
+    return sums
+
+
+def _phase_conv_plain(x, w, sv, bv, so, interleave: bool):
+    """x [N, H, W, Cin] int8; w [4, 4, Cout, Cin] int8; sv/bv [4, Cout] or
+    [Cout] f32; so [1, 1] f32 -> int8 [4, N, H, W, Cout], or interleaved
+    [N, 2H, 2W, Cout]."""
+    n, h, wd, _ = x.shape
+    cout = w.shape[2]
+    inv_so = 1.0 / so.reshape(())
+    out = []
+    for g, acc in enumerate(phase_sums(x, w)):
         s_g = sv[g] if sv.dim() == 2 else sv
         b_g = bv[g] if bv.dim() == 2 else bv
         zf = torch.relu(acc.float() * s_g + b_g)
@@ -142,11 +153,11 @@ def _lib():
     return _build.load("phase_tail", _SIGNATURES)
 
 
-def _stream(t):
+def stream_of(t):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_cuda(name, **tensors):
+def check_cuda(name, **tensors):
     for k, t in tensors.items():
         if not t.is_cuda or not t.is_contiguous():
             raise ValueError(f"{name}: {k} must be a contiguous CUDA tensor")
@@ -160,14 +171,14 @@ def _launch_phase_conv(x4, wk, sv, bv, phase_stride, so, out_mode):
     if wk.shape != (4, 4, cout, cin) or cin % 32 or cout % 8:
         raise ValueError(f"phase_conv: unsupported shapes x {tuple(x4.shape)}, "
                          f"w {tuple(wk.shape)} (Cin % 32 == 0, Cout % 8 == 0)")
-    _check_cuda("phase_conv", x=x4, w=wk, sv=sv, bv=bv, so=so)
+    check_cuda("phase_conv", x=x4, w=wk, sv=sv, bv=bv, so=so)
     shape = {_PHASE_MAJOR: (4, n, h, w, cout), _INTERLEAVED: (n, 2 * h, 2 * w, cout),
              _N_MINOR: (4, h, w, n, cout)}[out_mode]
     out = torch.empty(shape, dtype=torch.int8, device=x4.device)
     _build.check(_lib().phase_conv(
         x4.data_ptr(), wk.data_ptr(), sv.data_ptr(), bv.data_ptr(),
         phase_stride, so.data_ptr(), out.data_ptr(), n, h, w, cin, cout,
-        out_mode, _stream(x4)), "phase_conv")
+        out_mode, stream_of(x4)), "phase_conv")
     return out
 
 
@@ -178,11 +189,11 @@ def _launch_phase_head(z, wh, vh, levels: int = 2):
             or (levels == 2 and (h2 % 2 or w2 % 2)):
         raise ValueError(f"phase_head: unsupported shapes z {tuple(z.shape)}, "
                          f"wh {tuple(wh.shape)}")
-    _check_cuda("phase_head", z=z, wh=wh, vh=vh)
+    check_cuda("phase_head", z=z, wh=wh, vh=vh)
     out = torch.empty((joints, n, 4 * h2 * w2), dtype=torch.float32, device=z.device)
     _build.check(_lib().phase_head(
         z.data_ptr(), wh.data_ptr(), vh.data_ptr(), out.data_ptr(), n, h2, w2,
-        c, joints, levels, _stream(z)), "phase_head")
+        c, joints, levels, stream_of(z)), "phase_head")
     return out
 
 

@@ -9,9 +9,11 @@ import pytest
 import torch
 
 from posetpu_torch.ops import aggregation as tagg
+from posetpu_torch.ops import deconv as tdc
 from posetpu_torch.ops import decode as tdec
 from posetpu_torch.ops import heatmap as thm
 from posetpu_torch.ops import phase_tail as tpt
+from posetpu_torch.ops import resblock as trb
 
 pytestmark = pytest.mark.gpu
 
@@ -224,3 +226,126 @@ def test_kernels_refuse_unsupported_shapes(cuda):
             "x_scale": torch.tensor(0.01, device=cuda)}
     with pytest.raises(ValueError):
         tagg.aggregation_grouped(qagg, torch.zeros(2, 2, 4, 40, device=cuda))
+
+
+def _block_args(gen, cin, cm, cout, with_ds, dev):
+    """Random bottleneck arguments in the kernels' layout, scaled so every
+    stage's int8 range is exercised."""
+    vec = lambda c, k: torch.stack([(torch.rand(c, generator=gen) + 0.5) * 0.6 / k ** 0.5 / 127,
+                                    torch.rand(c, generator=gen) * 8 - 4])
+    args = {"w1": _i8(gen, cm, cin), "w2": _i8(gen, cm, 9 * cm), "w3": _i8(gen, cout, cm),
+            "v1": vec(cm, cin), "v2": vec(cm, 9 * cm), "v3": vec(cout, cm),
+            "vr": torch.stack([torch.full((cout,), 0.7), torch.zeros(cout)])}
+    if with_ds:
+        args["wd"], args["vd"] = _i8(gen, cout, cin), vec(cout, cin)
+    return {k: v.to(dev) for k, v in args.items()}
+
+
+@pytest.mark.parametrize("n,h,w,cin,cm,cout,with_ds", [
+    (2, 8, 8, 64, 32, 64, False), (2, 8, 8, 64, 32, 64, True),
+    (3, 5, 7, 96, 32, 96, False), (3, 7, 5, 32, 64, 72, True),
+    (2, 10, 32, 64, 32, 64, False), (2, 7, 48, 64, 32, 160, True),
+    (2, 64, 64, 64, 64, 256, True), (2, 64, 64, 256, 64, 256, False),
+    (2, 32, 32, 512, 128, 512, False), (3, 16, 16, 1024, 256, 1024, False),
+    (3, 8, 8, 2048, 512, 2048, False)])
+def test_bottleneck_kernel_equals_plain(cuda, n, h, w, cin, cm, cout, with_ds):
+    """B8a: both residual forms, odd H and W, images whose last row tile is
+    ragged (10 rows in tiles of 8, 7 in tiles of 5), and the full-width
+    shapes of layer1_0, layer1_1, layer2-4 (several row tiles per image, a
+    half-filled tile at layer4)."""
+    gen = torch.Generator().manual_seed(8)
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    args = _block_args(gen, cin, cm, cout, with_ds, cuda)
+    before = trb.fused_bottleneck.launches
+    got = trb.fused_bottleneck(x, args, h=h, w=w)
+    assert trb.fused_bottleneck.launches == before + 1
+    ref = trb.bottleneck_plain(x, args, h=h, w=w)
+    torch.cuda.synchronize()
+    assert got.shape == (n, h * w, cout)
+    assert torch.equal(got, ref) and len(torch.unique(ref)) > 50
+
+
+@pytest.mark.parametrize("n,h,w,cin,cm,imgs", [
+    (4, 8, 8, 64, 32, 2), (6, 5, 7, 96, 32, 3), (4, 10, 16, 64, 32, 2),
+    (4, 64, 64, 256, 64, 2),
+    (2, 32, 32, 512, 128, 2), (4, 16, 16, 1024, 256, 2), (4, 8, 8, 2048, 512, 2)])
+def test_bottleneck_v2_kernel_equals_plain_and_v1(cuda, n, h, w, cin, cm, imgs):
+    """B8b at small, odd, ragged (10 rows in tiles of 4) and full-width shapes
+    (at Cm = 512 the im2col depth is cut into chunks): equal to its plain
+    version and to B8a."""
+    gen = torch.Generator().manual_seed(9)
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    args = _block_args(gen, cin, cm, cin, False, cuda)
+    before = trb.fused_bottleneck_v2.launches
+    got = trb.fused_bottleneck_v2(x, args, h=h, w=w, imgs=imgs)
+    assert trb.fused_bottleneck_v2.launches == before + 1
+    ref = trb.bottleneck_v2_plain(x, args, h=h, w=w, imgs=imgs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and len(torch.unique(ref)) > 50
+    assert torch.equal(got, trb.fused_bottleneck(x, args, h=h, w=w))
+
+
+def _deconv_args(gen, cin, cout, joints, dev):
+    args = {"w": _i8(gen, 4, 4, cout, cin),
+            "v": torch.stack([(torch.rand(4 * cout, generator=gen) + 0.5) * 0.3 / cin ** 0.5 / 127,
+                              torch.rand(4 * cout, generator=gen) * 8 - 4]),
+            "wh": _i8(gen, joints, cout),
+            "vh": torch.stack([torch.rand(joints, generator=gen) * 1e-3,
+                               torch.rand(joints, generator=gen) - 0.5])}
+    return {k: v.to(dev) for k, v in args.items()}
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(3, 6, 8, 32, 16), (5, 3, 7, 96, 24),
+                                            (4, 8, 8, 2048, 256), (4, 16, 16, 256, 256)])
+def test_deconv_kernel_equals_plain(cuda, n, h, w, cin, cout):
+    """B9a at small and odd shapes and at deconv0's and deconv1's widths."""
+    gen = torch.Generator().manual_seed(10)
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    args = _deconv_args(gen, cin, cout, 4, cuda)
+    before = tdc.fused_subpixel_deconv.launches
+    got = tdc.fused_subpixel_deconv(x, args, h=h, w=w)
+    assert tdc.fused_subpixel_deconv.launches == before + 1
+    ref = tdc.subpixel_deconv_plain(x, args, h=h, w=w)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 4 * h * w, cout)
+    assert torch.equal(got, ref) and len(torch.unique(ref)) > 50
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,joints", [(3, 6, 8, 32, 16, 16), (5, 3, 7, 96, 24, 7),
+                                                   (4, 32, 32, 256, 256, 16)])
+def test_deconv_head_kernel_equals_plain(cuda, n, h, w, cin, cout, joints):
+    """B9b at small and odd shapes and at deconv2 + head's width."""
+    gen = torch.Generator().manual_seed(11)
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    args = _deconv_args(gen, cin, cout, joints, cuda)
+    before = tdc.fused_subpixel_deconv_head.launches
+    got = tdc.fused_subpixel_deconv_head(x, args, h=h, w=w)
+    assert tdc.fused_subpixel_deconv_head.launches == before + 1
+    ref = tdc.subpixel_deconv_head_plain(x, args, h=h, w=w)
+    torch.cuda.synchronize()
+    assert got.shape == (n, 4 * h * w, joints) and got.dtype == torch.float32
+    assert torch.equal(got, ref) and float(ref.std()) > 0
+
+
+def test_block_and_deconv_kernels_refuse_unsupported_shapes(cuda):
+    gen = torch.Generator().manual_seed(12)
+    z = lambda *s: torch.zeros(*s, dtype=torch.int8, device=cuda)
+    # B8a: Cm % 32 != 0; identity residual with Cin != Cout; pixels != h*w
+    with pytest.raises(ValueError):
+        trb.fused_bottleneck(z(2, 16, 64), _block_args(gen, 64, 48, 64, False, cuda), h=4, w=4)
+    with pytest.raises(ValueError):
+        trb.fused_bottleneck(z(2, 16, 64), _block_args(gen, 64, 32, 96, False, cuda), h=4, w=4)
+    with pytest.raises(ValueError):
+        trb.fused_bottleneck(z(2, 15, 64), _block_args(gen, 64, 32, 64, False, cuda), h=4, w=4)
+    # B8b: a projection residual; a batch that is no multiple of imgs
+    with pytest.raises(ValueError):
+        trb.fused_bottleneck_v2(z(2, 16, 64), _block_args(gen, 64, 32, 64, True, cuda), h=4, w=4)
+    with pytest.raises(ValueError):
+        trb.fused_bottleneck_v2(z(3, 16, 64), _block_args(gen, 64, 32, 64, False, cuda), h=4, w=4)
+    # B9a: Cin % 32 != 0; B9b: a head of the wrong depth
+    with pytest.raises(ValueError):
+        tdc.fused_subpixel_deconv(z(2, 16, 48), _deconv_args(gen, 48, 16, 4, cuda), h=4, w=4)
+    args = _deconv_args(gen, 32, 16, 4, cuda)
+    args["wh"] = z(4, 24)
+    with pytest.raises(ValueError):
+        tdc.fused_subpixel_deconv_head(z(2, 16, 32), args, h=4, w=4)

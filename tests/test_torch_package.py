@@ -34,7 +34,8 @@ def test_every_module_imports_with_jax_blocked():
     assert {"posetpu_torch.serving", "posetpu_torch.models.quant",
             "posetpu_torch.core.inference", "posetpu_torch.ops.heatmap",
             "posetpu_torch.ops.phase_tail", "posetpu_torch.ops.aggregation",
-            "posetpu_torch.ops.decode"} <= set(mods)
+            "posetpu_torch.ops.decode", "posetpu_torch.ops.resblock",
+            "posetpu_torch.ops.deconv"} <= set(mods)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'posetpu'):\n"
             "    sys.modules[m] = None\n"
@@ -59,7 +60,7 @@ def test_no_jax_or_reference_package_reference(path):
 def test_every_kernel_source_has_a_wrapper_module():
     """Each csrc/*.cu is built by the ops module of the same name."""
     sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
-    assert sources == ["aggregation", "decode", "phase_tail"]
+    assert sources == ["aggregation", "decode", "deconv", "phase_tail", "resblock"]
     for name in sources:
         text = (PKG / "ops" / f"{name}.py").read_text()
         assert f'_build.load("{name}"' in text, name
