@@ -42,10 +42,15 @@ Phases, each of which fails the run on its own:
    Timed with CUDA events (3 warm-up calls, median of 20): the kernel, its
    plain version, and where one PyTorch call computes the same function a
    yardstick (B3, B4: 4 ``torch._int_mm`` calls on pre-gathered operands,
-   the 4-bit bank widened to int8; B7: ``torch.max`` over the flat maps).
-   B8a runs on each of the 13 block inputs path 5b gives it (its time is
-   their sum) and each block is also held within one int8 step of the
-   runner's block on the same input; B9a on both its deconvs; B8b on path
+   the 4-bit bank widened to int8; B7: ``torch.max`` over the maps
+   flattened, from the same input). B7 runs at path 4's 512 maps (the
+   numbers of its ``kernels`` entry) and at path 5b's 2,048, with the
+   wrapper's host time per call beside ``torch.max``'s. B8a runs on each of
+   the 13 block inputs path 5b gives it (its time is their sum; each line
+   carries the block shape its planner chose: rows per block, ring stages,
+   staging tiles, shared memory, blocks per SM, registers) and each block is
+   also held within one int8 step of the runner's block on the same input;
+   B9a on both its deconvs; B8b on path
    5c's 12 inputs, equal to its plain version and to B8a's output;
 5. card vs CPU on one group through the same port on ``device="cpu"`` with
    the same params, for path 1 and path 2 (the s4 bank): maxvals equal,
@@ -196,7 +201,7 @@ def profile_request(fn) -> dict:
                 "phase_head (B1, B5)": ("phase_head",),
                 "aggregation (B3, B4)": ("aggregation_kernel", "aggregation_s4_kernel"),
                 "decode (B7)": ("decode_kernel",),
-                "bottleneck (B8a, B8b)": ("bottleneck_kernel",),
+                "bottleneck (B8a, B8b)": ("bottleneck_rows_kernel", "bottleneck_im2col_kernel"),
                 "subpixel deconv + head (B9a, B9b)": ("deconv_kernel", "deconv_head_kernel"),
                 "f32 convolutions and GEMMs (float path)": (
                     "cudnn", "conv", "sgemm", "gemv", "f32f32", "fft",
@@ -240,6 +245,23 @@ def bound(ops: float, nbytes_: float, peak_ops: float = PEAK_INT8_OPS):
     counts a multiply-accumulate as 2."""
     t_ops, t_bytes = ops / peak_ops * 1e3, nbytes_ / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def kernel_registers(build_log: str, kernel: str) -> dict:
+    """Registers per thread of B8a's two instances, from ptxas' report:
+    {"wide": n, "narrow": n} (the template argument: 64-wide conv1/conv2
+    tiles at Cm <= 64)."""
+    import re
+
+    regs, which = {}, None
+    for line in build_log.splitlines():
+        m = re.search(rf"Compiling entry function '(\w*{kernel}\w*)'", line)
+        if m:
+            which = "narrow" if "ILb1E" in m.group(1) else "wide"
+        m = re.search(r"Used (\d+) registers", line)
+        if m and which:
+            regs[which], which = int(m.group(1)), None
+    return regs
 
 
 def main() -> int:
@@ -548,7 +570,8 @@ def main() -> int:
     seen.update(seen3)
     seen.update(seen4)
     with capture_first_calls([(rb, "fused_bottleneck"), (dcv, "fused_subpixel_deconv"),
-                              (dcv, "fused_subpixel_deconv_head")], every=True) as seen5:
+                              (dcv, "fused_subpixel_deconv_head"),
+                              (dec, "decode_heatmaps_kernel")], every=True) as seen5:
         serve5(fwd5b, p5b)(make_x5())
     reached = set(seen) | {"deconv." + k if k == "fused_subpixel_deconv" else k
                            for k in seen5} | {"fused_bottleneck_v2"}
@@ -574,11 +597,14 @@ def main() -> int:
         return out if isinstance(out, tuple) else (out,)
 
     def compare_cases(name, source, replaces, plain, cases, library=None,
-                      peak_ops=PEAK_INT8_OPS, also=None):
+                      peak_ops=PEAK_INT8_OPS, also=None, headline=None, note=None):
         """One kernel on each of ``cases`` [(tag, args, kw, operations,
         bytes)]: equal to its plain version on every one. Its time, the plain
         version's and the bound are sums over the cases (one forward's
-        worth). ``also(tag, out, args, kw)``: a further check of the output."""
+        worth), or those of case number ``headline`` alone. ``library``: one
+        yardstick call, or {tag: call} with one per case.
+        ``also(tag, out, args, kw)``: a further check of the output;
+        ``note(args, kw)``: more to say on a case's line."""
         err, per_case = 0.0, []
         total = {"ms": 0.0, "plain_ms": 0.0, "operations": 0.0, "bytes": 0.0}
         for tag, args, kw, ops, nbytes_ in cases:
@@ -596,15 +622,25 @@ def main() -> int:
             del got, ref
             ms, plain_ms = cuda_ms(kernel), cuda_ms(ref_fn)
             b_ms, b_by = bound(ops, nbytes_, peak_ops)
-            total["ms"] += ms
-            total["plain_ms"] += plain_ms
-            total[b_by] += b_ms
-            per_case.append({"case": tag.strip(), "ms": ms, "plain_ms": plain_ms,
-                             "bound_ms": b_ms, "bound_by": b_by})
+            case = {"case": tag.strip(), "ms": ms, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by}
+            if isinstance(library, dict):
+                case["library_ms"] = cuda_ms(library[tag])
+            if headline is None or headline == len(per_case):
+                total["ms"] += ms
+                total["plain_ms"] += plain_ms
+                total[b_by] += b_ms
+            per_case.append(case)
             if len(cases) > 1:
                 log(f"kernel {name}{tag}: equal to plain, {ms:.4f} ms (plain "
-                    f"{plain_ms:.4f}, bound {b_ms:.4f} by {b_by})")
-        lib_ms = None if library is None else cuda_ms(library)
+                    f"{plain_ms:.4f}, bound {b_ms:.4f} by {b_by}"
+                    + (f", library {case['library_ms']:.4f}" if "library_ms" in case else "")
+                    + ")" + (f"; {note(args, kw)}" if note is not None else ""))
+        if isinstance(library, dict):
+            lib_ms = (sum(c["library_ms"] for c in per_case) if headline is None
+                      else per_case[headline]["library_ms"])
+        else:
+            lib_ms = None if library is None else cuda_ms(library)
         b_ms = total["operations"] + total["bytes"]
         b_by = "operations" if total["operations"] >= total["bytes"] else "bytes"
         results.append({"name": name, "route": "cuda", "source": source,
@@ -683,14 +719,51 @@ def main() -> int:
             (x6, a6), kw6, *subpixel_work(x6, a6))
 
     # B7: one compare and one select per element, outside the tensor cores;
-    # every map read once, 12 bytes written per map
+    # every map read once, 12 bytes written per map. At path 4's 512 maps
+    # (the kernels line's numbers) and at path 5's 2,048, each beside
+    # torch.max over the same maps flattened
+    def decode_case(tag, hm, kw):
+        maps = hm.numel() // (hm.shape[-1] * hm.shape[-2])
+        return (f" {tag}, {maps} maps", (hm,), kw, 2 * hm.numel(), nbytes(hm) + 12 * maps)
+
     (hm7,), kw7 = seen["decode_heatmaps_kernel"]
-    maps = hm7.numel() // (hm7.shape[-1] * hm7.shape[-2])
-    flat7 = hm7.reshape(maps, -1)
-    compare("decode_heatmaps_kernel", "posetpu_torch/csrc/decode.cu",
-            "posetpu/ops/pallas/decode.py:61", decode_heatmaps, (hm7,), kw7,
-            2 * hm7.numel(), nbytes(hm7) + 12 * maps,
-            library=lambda: torch.max(flat7, dim=-1), peak_ops=PEAK_F32_OPS)
+    (hm7b,), kw7b = seen5["decode_heatmaps_kernel"][0]
+    decode_cases = [decode_case("path 4", hm7, kw7), decode_case("path 5b", hm7b, kw7b)]
+    check(decode_cases[0][0].endswith(" 512 maps") and decode_cases[1][0].endswith(" 2048 maps"),
+          f"B7's cases: {[c[0] for c in decode_cases]}")
+    # the yardstick takes what the wrapper takes: path 4 hands over a permuted
+    # view, which either has to copy before it can read a map as one row
+    def flat_max(hm):
+        return lambda: torch.max(hm.reshape(-1, hm.shape[-2] * hm.shape[-1]), dim=-1)
+
+    compare_cases("decode_heatmaps_kernel", "posetpu_torch/csrc/decode.cu",
+                  "posetpu/ops/pallas/decode.py:61", decode_heatmaps, decode_cases,
+                  library={c[0]: flat_max(c[1][0]) for c in decode_cases},
+                  peak_ops=PEAK_F32_OPS, headline=0)
+
+    # B7's wrapper on the host: per call with the launch, with the launch
+    # stubbed out (what the Python around the kernel costs), and torch.max's
+    def host_us(fn, reps=2000):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        us = (time.perf_counter() - t) / reps * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    for (tag, (hm,), kw, _, _) in decode_cases:
+        with_launch = host_us(lambda: dec.decode_heatmaps_kernel(hm, **kw))
+        real_kernel, dec._kernel = dec._kernel, lambda *a: 0
+        try:
+            stubbed = host_us(lambda: dec.decode_heatmaps_kernel(hm, **kw))
+        finally:
+            dec._kernel = real_kernel
+        log(f"B7 wrapper on the host,{tag}: {with_launch:.2f} us a call, {stubbed:.2f} us with "
+            f"the launch stubbed out; torch.max on the same input {host_us(flat_max(hm)):.2f} us; "
+            f"input contiguous f32 (no copy first): "
+            f"{hm.is_contiguous() and hm.dtype == torch.float32} | {card}")
 
     # B8a on each of path 5b's 13 block inputs, and each block within one
     # int8 step of the runner's block on the same input (the folded,
@@ -703,7 +776,9 @@ def main() -> int:
         n, hw, cin = x.shape
         cm, cout = a["w1"].shape[0], a["w3"].shape[0]
         macs = n * hw * (cin * cm + 9 * cm * cm + cm * cout + (cin * cout if "wd" in a else 0))
-        return 2 * macs, nbytes(x, a) + n * hw * cout
+        # each weight counts once: B8a reads the tiled copies (w1t, ...) of the K-minor ones
+        once = {k: v for k, v in a.items() if not k.endswith("t")}
+        return 2 * macs, nbytes(x, once) + n * hw * cout
 
     def within_one_step_of_the_runner(tag, out, args, kw):
         name = tag.strip()
@@ -719,9 +794,22 @@ def main() -> int:
 
     block_cases = [(f" {name}", a, kw, *block_work(a[0], a[1]))
                    for name, (a, kw) in zip(blocks5, seen5["fused_bottleneck"])]
+    regs = kernel_registers(_build.build_log("resblock"), "bottleneck_rows_kernel")
+
+    def block_shape(args, kw):
+        """The block shape B8a's planner gives this layer."""
+        x, a = args
+        cm, cout = a["w1"].shape[0], a["w3"].shape[0]
+        plan = rb.plan_rows(kw["h"], kw["w"], x.shape[2], cm, cout, "wd" in a)
+        return (f"th {plan.th}, {rb.RING_STAGES} stages of {rb.RING_K} bytes, "
+                f"{plan.ns} staging tiles, {plan.smem} bytes of shared memory, "
+                f"{rb.rows_blocks_per_sm(cm, plan.smem)} block(s) per SM, "
+                f"{regs['narrow' if cm <= 64 else 'wide']} registers, grid "
+                f"{-(-kw['h'] // plan.th)} x {x.shape[0]}")
+
     compare_cases("fused_bottleneck", "posetpu_torch/csrc/resblock.cu",
                   "posetpu/ops/pallas/resblock.py:157", rb.bottleneck_plain, block_cases,
-                  also=within_one_step_of_the_runner)
+                  also=within_one_step_of_the_runner, note=block_shape)
 
     # B8b on the 12 identity blocks' inputs, imgs=2: also equal to B8a's output
     compare_cases("fused_bottleneck_v2", "posetpu_torch/csrc/resblock.cu",

@@ -11,7 +11,12 @@ On a CUDA tensor the wrapper launches the kernel (counted in
 ``decode_heatmaps_kernel.launches``); on a CPU tensor it runs the plain
 version. The kernel takes any leading shape of a contiguous float32
 [..., H, W] tensor with H*W >= 1 (a non-contiguous or non-f32 tensor is
-made so first, as the TPU wrapper's reshape + astype does).
+made so first, as the TPU wrapper's reshape + astype does; one that already
+is costs nothing). The kernel is a few microseconds on the card, so the
+wrapper is kept as short as the kernel: one allocation [..., 3] that the
+kernel fills with (x, y, max) and that comes back as two views, the bound C
+function kept after its first use, the raw stream handle read without
+building a stream object.
 """
 
 from __future__ import annotations
@@ -20,36 +25,47 @@ import torch
 
 from posetpu_torch.ops import _build
 from posetpu_torch.ops.heatmap import decode_heatmaps
+from posetpu_torch.ops.phase_tail import stream_of
 
 _P, _I = _build.P, _build.I
-_SIGNATURES = {"decode_heatmaps": [_P, _P, _P, _I, _I, _I, _I, _P]}
+_SIGNATURES = {"decode_heatmaps": [_P, _P, _I, _I, _I, _I, _P]}
+_kernel = None  # the bound C function, fetched at the first launch
+
+
+def split_decoded(out):
+    """The kernel's one output [..., 3] (x, y, max per map) as the wrapper's
+    two results: coords [..., 2] and maxvals [...], views of ``out`` (each
+    keeps the storage alive on its own)."""
+    return out.narrow(-1, 0, 2), out.select(-1, 2)
 
 
 def decode_heatmaps_kernel(heatmaps, post_process: bool = True):
     """heatmaps [..., H, W] -> (coords [..., 2] f32, maxvals [...] f32)."""
-    if heatmaps.dim() < 2 or heatmaps.shape[-1] * heatmaps.shape[-2] == 0:
+    global _kernel
+    shape = heatmaps.shape
+    if len(shape) < 2 or shape[-1] * shape[-2] == 0:
         raise ValueError(f"decode_heatmaps_kernel: needs [..., H, W] maps with "
-                         f"H*W >= 1, got {tuple(heatmaps.shape)}")
+                         f"H*W >= 1, got {tuple(shape)}")
     if not heatmaps.is_cuda:
         return decode_heatmaps(heatmaps.float(), post_process=post_process)
-    lead = heatmaps.shape[:-2]
-    h, w = heatmaps.shape[-2:]
-    flat = heatmaps.float().contiguous()
+    h, w = shape[-2], shape[-1]
+    flat = heatmaps
+    if flat.dtype is not torch.float32 or not flat.is_contiguous():
+        flat = flat.float().contiguous()
     maps = flat.numel() // (h * w)
-    if maps >= 2 ** 31 or h * w >= 2 ** 29:
+    if maps >= 2 ** 31 // 3 or h * w >= 2 ** 29:
         raise ValueError(f"decode_heatmaps_kernel: {maps} maps of {h}x{w} "
                          f"exceed the kernel's 32-bit indices")
-    coords = torch.empty(lead + (2,), dtype=torch.float32, device=flat.device)
-    maxvals = torch.empty(lead, dtype=torch.float32, device=flat.device)
-    if maps == 0:  # an empty leading shape: nothing to launch
-        return coords, maxvals
-    lib = _build.load("decode", _SIGNATURES)
-    _build.check(lib.decode_heatmaps(
-        flat.data_ptr(), coords.data_ptr(), maxvals.data_ptr(), maps, h, w,
-        int(post_process), torch.cuda.current_stream(flat.device).cuda_stream),
-        "decode_heatmaps")
-    decode_heatmaps_kernel.launches += 1
-    return coords, maxvals
+    out = torch.empty(shape[:-2] + (3,), dtype=torch.float32, device=flat.device)
+    if maps:  # an empty leading shape: nothing to launch
+        if _kernel is None:
+            _kernel = _build.load("decode", _SIGNATURES).decode_heatmaps
+        rc = _kernel(flat.data_ptr(), out.data_ptr(), maps, h, w, int(post_process),
+                     stream_of(flat))
+        if rc:
+            _build.check(rc, "decode_heatmaps")
+        decode_heatmaps_kernel.launches += 1
+    return split_decoded(out)
 
 
 decode_heatmaps_kernel.launches = 0

@@ -172,6 +172,62 @@ def test_decode_kernel_equals_plain(cuda, shape, post):
     assert torch.equal(got_c.cpu(), cpu_c) and torch.equal(got_m.cpu(), cpu_m)
 
 
+@pytest.mark.parametrize("case", ["7 maps", "H*W % 4 != 0", "unaligned view", "ties",
+                                  "all negative", "all NaN", "one map", "large map"])
+def test_decode_kernel_edge_cases(cuda, case):
+    """B7: a map count that is no multiple of the maps per block, a map size
+    that is no multiple of 4 (scalar loads), a view whose base is not 16-byte
+    aligned (scalar loads), exact ties (the first row-major index wins), maps
+    of negatives (coords zeroed) and of NaNs, one map, and a map that takes
+    more than one round of loads."""
+    gen = torch.Generator().manual_seed(16)
+    if case == "7 maps":
+        x = torch.randn(7, 64, 64, generator=gen).to(cuda)
+    elif case == "H*W % 4 != 0":
+        x = torch.randn(5, 7, 9, generator=gen).to(cuda)
+    elif case == "unaligned view":
+        x = torch.randn(4 * 64 * 64 + 1, generator=gen).to(cuda)[1:].reshape(4, 64, 64)
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    elif case == "ties":
+        x = torch.zeros(6, 8, 8)
+        x[:, 3, 5] = x[:, 3, 2] = x[:, 6, 1] = 1.0
+        x[1] = 2.0                                   # every element ties: index 0
+        x = x.to(cuda)
+    elif case == "all negative":
+        x = (-torch.rand(3, 16, 16, generator=gen) - 0.1).to(cuda)
+    elif case == "all NaN":
+        x = torch.full((2, 8, 8), float("nan"), device=cuda)
+    elif case == "one map":
+        x = torch.randn(64, 64, generator=gen).to(cuda)
+    else:
+        x = torch.randn(3, 160, 192, generator=gen).to(cuda)
+    got_c, got_m = tdec.decode_heatmaps_kernel(x)
+    ref_c, ref_m = thm.decode_heatmaps(x)
+    torch.cuda.synchronize()
+    assert got_c.shape == ref_c.shape and got_m.shape == ref_m.shape
+    if case == "all NaN":  # no element compares: the kernel's own convention
+        assert bool(torch.isfinite(got_c).all())
+        return
+    assert torch.equal(got_c, ref_c) and torch.equal(got_m, ref_m)
+    if case == "ties":
+        assert got_c[0].tolist() == [2.0, 3.0] and got_c[1].tolist() == [0.0, 0.0]
+    if case == "all negative":
+        assert float(got_c.abs().max()) == 0.0 and bool((got_m < 0).all())
+
+
+def test_decode_kernel_results_are_views_of_one_allocation(cuda):
+    """coords and maxvals share the kernel's one output and outlive each other."""
+    x = torch.randn(2, 4, 16, 16, generator=torch.Generator().manual_seed(17)).to(cuda)
+    coords, maxvals = tdec.decode_heatmaps_kernel(x)
+    ref_c, ref_m = thm.decode_heatmaps(x)
+    assert coords.untyped_storage().data_ptr() == maxvals.untyped_storage().data_ptr()
+    del maxvals
+    assert torch.equal(coords, ref_c)
+    coords, maxvals = tdec.decode_heatmaps_kernel(x)
+    del coords
+    assert torch.equal(maxvals, ref_m)
+
+
 def test_decode_kernel_takes_views(cuda):
     """A non-contiguous or offset view is made contiguous first."""
     x = torch.randn(4, 6, 9, 9, generator=torch.Generator().manual_seed(7)).to(cuda)
@@ -238,7 +294,7 @@ def _block_args(gen, cin, cm, cout, with_ds, dev):
             "vr": torch.stack([torch.full((cout,), 0.7), torch.zeros(cout)])}
     if with_ds:
         args["wd"], args["vd"] = _i8(gen, cout, cin), vec(cout, cin)
-    return {k: v.to(dev) for k, v in args.items()}
+    return trb.with_tiled_weights({k: v.to(dev) for k, v in args.items()})
 
 
 @pytest.mark.parametrize("n,h,w,cin,cm,cout,with_ds", [
@@ -263,6 +319,47 @@ def test_bottleneck_kernel_equals_plain(cuda, n, h, w, cin, cm, cout, with_ds):
     torch.cuda.synchronize()
     assert got.shape == (n, h * w, cout)
     assert torch.equal(got, ref) and len(torch.unique(ref)) > 50
+
+
+@pytest.mark.parametrize("n,h,w,cin,cm,cout,with_ds", [
+    (1, 6, 6, 64, 64, 256, True), (5, 9, 7, 256, 64, 256, False),      # layer1's widths
+    (1, 7, 10, 512, 128, 512, False), (7, 3, 8, 1024, 256, 1024, False),  # layer2, layer3
+    (5, 5, 6, 2048, 512, 2048, False),                                 # layer4
+    (3, 6, 9, 1024, 256, 1024, True), (2, 33, 5, 64, 32, 72, True),    # projections, odd N
+    (1, 1, 1, 32, 32, 32, False), (13, 2, 130, 64, 64, 64, False)])    # one pixel; a wide row
+def test_bottleneck_kernel_layer_widths_ragged_shapes(cuda, n, h, w, cin, cm, cout, with_ds):
+    """B8a at each layer's (Cin, Cm, Cout) with few images, at ragged h and w,
+    with the projection at deep widths too, with image counts that are
+    multiples of nothing, and a row wider than a 128-row tile."""
+    gen = torch.Generator().manual_seed(13)
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    args = _block_args(gen, cin, cm, cout, with_ds, cuda)
+    got = trb.fused_bottleneck(x, args, h=h, w=w)
+    ref = trb.bottleneck_plain(x, args, h=h, w=w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and (n * h * w < 4 or len(torch.unique(ref)) > 20)
+
+
+@pytest.mark.parametrize("h,w,cin,cm,cout,with_ds", [(10, 7, 64, 32, 64, False),
+                                                     (9, 6, 96, 64, 40, True),
+                                                     (16, 16, 256, 128, 256, False)])
+def test_bottleneck_kernel_every_tile_height(cuda, h, w, cin, cm, cout, with_ds):
+    """B8a with the row-tile height forced to every value that fits: the
+    output does not depend on the block shape."""
+    gen = torch.Generator().manual_seed(14)
+    x = _i8(gen, 3, h * w, cin, lo=0).to(cuda)
+    args = _block_args(gen, cin, cm, cout, with_ds, cuda)
+    ref = trb.bottleneck_plain(x, args, h=h, w=w)
+    for th in range(1, h + 1):
+        assert torch.equal(trb._launch_rows(x, args, h, w, th), ref), th
+
+
+def test_bottleneck_kernel_needs_tiled_weights(cuda):
+    gen = torch.Generator().manual_seed(15)
+    args = _block_args(gen, 64, 32, 64, False, cuda)
+    del args["w2t"]
+    with pytest.raises(ValueError, match="tiled"):
+        trb.fused_bottleneck(torch.zeros(2, 16, 64, dtype=torch.int8, device=cuda), args, h=4, w=4)
 
 
 @pytest.mark.parametrize("n,h,w,cin,cm,imgs", [

@@ -18,7 +18,7 @@ from posetpu.ops import heatmap as jhm  # noqa: E402
 from posetpu.ops.pallas.decode import decode_heatmaps_pallas  # noqa: E402
 from posetpu_torch.core import inference as tinf  # noqa: E402
 from posetpu_torch.ops import heatmap as thm  # noqa: E402
-from posetpu_torch.ops.decode import decode_heatmaps_kernel  # noqa: E402
+from posetpu_torch.ops.decode import decode_heatmaps_kernel, split_decoded  # noqa: E402
 
 H, W = 16, 16
 
@@ -113,3 +113,42 @@ def test_final_preds_matches_jax(rng):
     assert tuple(got_p.shape) == (3, 4, 8, 2)
     np.testing.assert_array_equal(got_m.numpy(), np.asarray(ref_m))
     np.testing.assert_allclose(got_p.numpy(), np.asarray(ref_p), atol=1e-4)
+
+
+@pytest.mark.parametrize("lead", [(), (3,), (2, 4, 16)])
+def test_decode_wrapper_shapes_dtypes_values(rng, lead):
+    """The wrapper's two results for any leading shape: coords [..., 2] and
+    maxvals [...] f32, equal to the JAX decode's."""
+    x = rng.randn(*lead, H, W).astype(np.float32)
+    x.reshape(-1, H, W)[0, 4, 5] = 7.0
+    coords, maxvals = decode_heatmaps_kernel(torch.from_numpy(x))
+    ref_c, ref_m = jhm.decode_heatmaps(jnp.asarray(x))
+    assert coords.shape == lead + (2,) and maxvals.shape == lead
+    assert coords.dtype == maxvals.dtype == torch.float32
+    np.testing.assert_array_equal(coords.numpy(), np.asarray(ref_c))
+    np.testing.assert_array_equal(maxvals.numpy(), np.asarray(ref_m))
+
+
+@pytest.mark.parametrize("lead", [(), (3,), (2, 4, 16)])
+def test_split_decoded_views_outlive_each_other(rng, lead):
+    """The kernel's one [..., 3] output (x, y, max) comes back as two views:
+    today's shapes, dtypes and values, each usable after the other (and the
+    output's own name) is dropped."""
+    import gc
+
+    rows = rng.randn(*lead, 3).astype(np.float32)
+    out = torch.from_numpy(rows.copy())
+    coords, maxvals = split_decoded(out)
+    assert coords.shape == lead + (2,) and maxvals.shape == lead
+    assert coords.dtype == maxvals.dtype == torch.float32
+    assert coords.untyped_storage().data_ptr() == maxvals.untyped_storage().data_ptr()
+    del out, maxvals
+    gc.collect()
+    np.testing.assert_array_equal(coords.numpy(), rows[..., :2])
+    assert (coords + 1.0).shape == lead + (2,)        # usable in further ops
+    coords, maxvals = split_decoded(torch.from_numpy(rows.copy()))
+    del coords
+    gc.collect()
+    np.testing.assert_array_equal(maxvals.numpy(), rows[..., 2])
+    np.testing.assert_array_equal((maxvals > 0.0).float().numpy(),
+                                  (rows[..., 2] > 0).astype(np.float32))
