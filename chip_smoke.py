@@ -16,7 +16,9 @@ Phases, each of which fails the run on its own:
    is over the rest. Every kernel's launch count is set to 0 just before a
    path and read just after: each kernel of the path must have launched.
    - path 1, the defaults: ``build_serving_pipeline``, 32 four-view groups
-     (128 images) per request: B2, B1, B3;
+     (128 images) per request: B2, B1, B3 (and B3's quantize pass); its
+     profiled request must show B1 as two ``tail2_kernel`` launches and no
+     ``phase_head_kernel`` (z2 stays on chip), one ``phase_conv_kernel`` (B2);
    - path 2: ``build_serving_pipeline(flip_test="premirrored",
      agg_w4=True)``, 32 groups, so 256 images through the trunk: B2, B1, B4;
      one request is profiled (device time by kernel family, idle share) and
@@ -42,6 +44,8 @@ Phases, each of which fails the run on its own:
    Timed with CUDA events (3 warm-up calls, median of 20): the kernel, its
    plain version, and where one PyTorch call computes the same function a
    yardstick (B3, B4: 4 ``torch._int_mm`` calls on pre-gathered operands,
+   B3 also its GEMM kernel alone; B1 also the parent design's launches
+   ``phase_conv`` x2 + ``phase_head`` on the same input;
    the 4-bit bank widened to int8; B7: ``torch.max`` over the maps
    flattened, from the same input). B7 runs at path 4's 512 maps (the
    numbers of its ``kernels`` entry) and at path 5b's 2,048, with the
@@ -197,9 +201,12 @@ def profile_request(fn) -> dict:
         wall_us = (time.perf_counter() - t) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(dev, "torch.profiler recorded no device activity")
-    families = {"phase_conv (B1, B2, B5, B6)": ("phase_conv",),
-                "phase_head (B1, B5)": ("phase_head",),
-                "aggregation (B3, B4)": ("aggregation_kernel", "aggregation_s4_kernel"),
+    families = {"deconv1 + deconv2 + head (B1)": ("tail2_kernel",),
+                "phase_conv (B2, B5, B6)": ("phase_conv",),
+                "phase_head (B5)": ("phase_head",),
+                "aggregation (B3, B4, B3's quantize)": ("aggregation_kernel",
+                                                        "aggregation_s4_kernel",
+                                                        "quantize_kernel"),
                 "decode (B7)": ("decode_kernel",),
                 "bottleneck (B8a, B8b)": ("bottleneck_rows_kernel", "bottleneck_im2col_kernel"),
                 "subpixel deconv + head (B9a, B9b)": ("deconv_kernel", "deconv_head_kernel"),
@@ -208,7 +215,7 @@ def profile_request(fn) -> dict:
                     "pointwise_mult_and_sum"),
                 "int8 GEMM (trunk, torch._int_mm)": ("gemm", "Gemm", "cutlass", "xmma"),
                 "memcpy/memset": ("Memcpy", "Memset")}
-    by_family, by_name = {}, {}
+    by_family, by_name, hand = {}, {}, {}
     spans = []
     for e in dev:
         us = e.time_range.end - e.time_range.start
@@ -217,6 +224,9 @@ def profile_request(fn) -> dict:
                    "other PyTorch kernels (im2col, epilogues, decode)")
         by_family[fam] = by_family.get(fam, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
+        if "posetpu::" in e.name:  # the hand kernels, launches by name
+            short = e.name.split("posetpu::")[1].split("(")[0].split("<")[0]
+            hand[short] = hand.get(short, 0) + 1
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):  # union of device intervals
         if b > end:
@@ -227,7 +237,8 @@ def profile_request(fn) -> dict:
             "idle_share": 1.0 - busy / wall_us,
             "by_family_ms": {k: v / 1e3 for k, v in sorted(by_family.items(),
                                                            key=lambda kv: -kv[1])},
-            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top]}
+            "top_kernels_ms": [[k[:80], v / 1e3] for k, v in top],
+            "hand_kernel_launches": hand}
 
 
 def nbytes(*tensors) -> int:
@@ -375,7 +386,8 @@ def main() -> int:
 
     # every kernel wrapper, by the module attribute its callers look up
     wrappers = {"fused_subpixel_deconv_batched": pt, "fused_phase_tail2": pt,
-                "aggregation_grouped": agg, "aggregation_grouped_s4": agg,
+                "aggregation_grouped": agg, "quantize_heatmaps": agg,
+                "aggregation_grouped_s4": agg,
                 "fused_phase_tail": pt, "fused_subpixel_deconv": pt,
                 "decode_heatmaps_kernel": dec, "fused_bottleneck": rb,
                 "fused_bottleneck_v2": rb, "deconv.fused_subpixel_deconv": dcv,
@@ -468,7 +480,8 @@ def main() -> int:
         return preds, maxvals
 
     drive("path 1 (defaults)", serve_with(pipe), lambda: pipe.prepare(images), GROUPS, 3,
-          ["fused_subpixel_deconv_batched", "fused_phase_tail2", "aggregation_grouped"])
+          ["fused_subpixel_deconv_batched", "fused_phase_tail2", "aggregation_grouped",
+           "quantize_heatmaps"])
     p_pre, m_pre = drive(
         "path 2 (premirrored flip, s4 bank)", serve_with(pipe_pre),
         lambda: pipe_pre.prepare(images), GROUPS, 4,
@@ -555,12 +568,18 @@ def main() -> int:
         finally:
             pt.SUBPIX_BATCHED = True
         log(f"profile {label}: " + json.dumps({"prepare_ms": prepare_ms, **prof}))
+        if label == "path 1":  # B1 keeps z2 on chip: no phase_head, B2 alone on phase_conv
+            hand = prof["hand_kernel_launches"]
+            check(hand.get("tail2_kernel") == 2 and "phase_head_kernel" not in hand
+                  and hand.get("phase_conv_kernel") == 1 and hand.get("quantize_kernel") == 1,
+                  f"path 1: hand kernel launches {hand}")
 
     # one more request per path to take each kernel's inputs for phase 4 (the
     # callers look the kernels up on their modules at call time)
     with capture_first_calls([(pt, "fused_subpixel_deconv_batched"),
                               (pt, "fused_phase_tail2"),
-                              (agg, "aggregation_grouped")]) as seen:
+                              (agg, "aggregation_grouped"),
+                              (agg, "quantize_heatmaps")]) as seen:
         serve_with(pipe)(pipe.prepare(images))
     with capture_first_calls([(agg, "aggregation_grouped_s4")]) as seen2:
         serve_with(pipe_pre)(pipe_pre.prepare(images))
@@ -586,6 +605,7 @@ def main() -> int:
     home = {"fused_subpixel_deconv_batched": "path 1 (defaults)",
             "fused_phase_tail2": "path 1 (defaults)",
             "aggregation_grouped": "path 1 (defaults)",
+            "quantize_heatmaps": "path 1 (defaults)",
             "aggregation_grouped_s4": "path 2 (premirrored flip, s4 bank)",
             "fused_phase_tail": "path 3 (one-level tail, per-pair deconv0)",
             "fused_subpixel_deconv": "path 3 (one-level tail, per-pair deconv0)",
@@ -597,7 +617,8 @@ def main() -> int:
         return out if isinstance(out, tuple) else (out,)
 
     def compare_cases(name, source, replaces, plain, cases, library=None,
-                      peak_ops=PEAK_INT8_OPS, also=None, headline=None, note=None):
+                      peak_ops=PEAK_INT8_OPS, also=None, headline=None, note=None,
+                      extra=None):
         """One kernel on each of ``cases`` [(tag, args, kw, operations,
         bytes)]: equal to its plain version on every one. Its time, the plain
         version's and the bound are sums over the cases (one forward's
@@ -649,14 +670,16 @@ def main() -> int:
                         "path": home[name], "max_abs_err": err, "ms": total["ms"],
                         "plain_ms": total["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
                         "library_ms": lib_ms,
-                        **({"cases": per_case} if len(cases) > 1 else {})})
+                        **({"cases": per_case} if len(cases) > 1 else {}),
+                        **(extra or {})})
         log(f"kernel {name}: equal to plain, {total['ms']:.4f} ms (plain "
-            f"{total['plain_ms']:.4f}, library {lib_ms}, bound {b_ms:.4f} by {b_by}) | {card}")
+            f"{total['plain_ms']:.4f}, library {lib_ms}, bound {b_ms:.4f} by {b_by}"
+            + "".join(f", {k} {v:.4f}" for k, v in (extra or {}).items()) + f") | {card}")
 
     def compare(name, source, replaces, plain, args, kw, ops, nbytes_, library=None,
-                peak_ops=PEAK_INT8_OPS):
+                peak_ops=PEAK_INT8_OPS, extra=None):
         compare_cases(name, source, replaces, plain, [("", args, kw, ops, nbytes_)],
-                      library, peak_ops)
+                      library, peak_ops, extra=extra)
 
     def subpixel_work(x0, a0):
         n, hw, cin = x0.shape
@@ -673,16 +696,31 @@ def main() -> int:
     cmid, cout, joints = a1["w1"].shape[2], a1["w2"].shape[2], a1["wh"].shape[0]
     macs1 = (16 * n * hw * cmid * cin + 16 * n * 4 * hw * cout * cmid
              + n * 16 * hw * joints * cout)
-    compare("fused_phase_tail2", "posetpu_torch/csrc/phase_tail.cu",
+
+    def b1_parent_design():
+        """The parent's B1 on the same input: phase_conv x2 (z1 and z2 through
+        device memory) + phase_head, the launches B2 and B5 still make."""
+        s1, s2 = a1["s1"], a1["s2"]
+        z1 = pt._launch_phase_conv(x1.reshape(n, kw1["h"], kw1["w"], cin), a1["w1"], s1[0],
+                                   s1[1], 0, a1["so1"], pt._INTERLEAVED)
+        z2 = pt._launch_phase_conv(z1, a1["w2"], s2[0], s2[1], 0, a1["so2"], pt._PHASE_MAJOR)
+        return pt._launch_phase_head(z2, a1["wh"], a1["vh"])
+
+    check(torch.equal(b1_parent_design(), pt.phase_tail2_plain(x1, a1, **kw1)),
+          "B1's parent design != plain")
+    # each weight counts once: the kernel reads the stage images (w1t, w2t, wht)
+    once1 = {k: v for k, v in a1.items() if not k.endswith("t")}
+    compare("fused_phase_tail2", "posetpu_torch/csrc/tail2.cu",
             "posetpu/ops/pallas/phase_tail.py:384", pt.phase_tail2_plain,
-            (x1, a1), kw1, 2 * macs1, nbytes(x1, a1) + 4 * joints * n * 16 * hw)
+            (x1, a1), kw1, 2 * macs1, nbytes(x1, once1) + 4 * joints * n * 16 * hw,
+            extra={"parent_design_ms": cuda_ms(b1_parent_design)})
 
     def gathered_operands(qagg, hm, bank_ok):
         """The library yardstick's operands: per target one int8 GEMM
         [JN, 3S] x [3S, S], gathered beforehand (not timed); ``bank_ok``
         [4, 3, S_out, S_in] int8."""
         s = hm.shape[-1]
-        xq, _ = agg._quantize(qagg, hm)
+        xq = agg._quantize(qagg, hm)
         gathered = [torch.cat([xq[p] for p in range(4) if p != t], dim=1) for t in range(4)]
         bank_kn = [bank_ok[t].transpose(-1, -2).reshape(3 * s, s).contiguous()
                    for t in range(4)]
@@ -690,10 +728,27 @@ def main() -> int:
 
     (qagg, hm), kw3 = seen["aggregation_grouped"]
     j, ng, v, s = hm.shape
+    xq3 = agg.quantize_heatmaps(qagg, hm)
+    out3 = torch.empty((4, j * ng, s), dtype=torch.float32, device=dev)
+    lib3 = _build.load("aggregation", agg._SIGNATURES)
+
+    def b3_gemm_alone():  # the GEMM kernel on the quantised planes, no wrapper
+        _build.check(lib3.aggregation_grouped(xq3.data_ptr(), qagg["wq"].data_ptr(),
+                                              qagg["sv"].data_ptr(), out3.data_ptr(), j * ng,
+                                              s, pt.stream_of(hm)), "aggregation_grouped")
     compare("aggregation_grouped", "posetpu_torch/csrc/aggregation.cu",
             "posetpu/ops/pallas/aggregation.py:148", agg.aggregation_grouped_plain,
             (qagg, hm), kw3, 2 * 4 * j * ng * 3 * s * s, nbytes(hm, qagg) + hm.numel() * 4,
-            library=gathered_operands(qagg, hm, qagg["wq"]))
+            library=gathered_operands(qagg, hm, qagg["wq"]),
+            extra={"kernel_ms": cuda_ms(b3_gemm_alone)})
+    del xq3, out3
+
+    # B3's quantize pass: f32 in, int8 out, a multiply, a round and a clip
+    # per value outside the tensor cores
+    (qaggq, hmq), kwq = seen["quantize_heatmaps"]
+    compare("quantize_heatmaps", "posetpu_torch/csrc/aggregation.cu",
+            "posetpu/ops/pallas/aggregation.py:184", agg._quantize, (qaggq, hmq), kwq,
+            3 * hmq.numel(), hmq.numel() * 5 + 4, peak_ops=PEAK_F32_OPS)
 
     # B4: the bank counts at half a byte per weight (its tensor is uint8
     # [4, 3, S, S/2]); the diagonal term adds 3 multiply-adds per output

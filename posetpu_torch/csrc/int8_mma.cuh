@@ -22,11 +22,12 @@
 // m16n8k32 s8 reaches 1,270 of the card's 1,979 TOP/s, tools/imma_rate.cu)
 // and not memory bandwidth, but the step: 32 bytes of K behind a
 // cp.async.wait_group and two __syncthreads is an exposed L2 round trip,
-// and 24 four-byte ld.shared feed 16 mma. The kernels built on them (B1-B6,
-// B8b, B9a, B9b) sit 7-22x above their bounds for that reason. B8a
+// and 24 four-byte ld.shared feed 16 mma. The kernels built on them (B2, B4,
+// B5, B6, B8b, B9a, B9b) sit 7-22x above their bounds for that reason. B8a
 // (resblock.cu) left these loops for a three-stage ring 64 bytes deep that
-// runs across tiles, ldmatrix fragments and bulk-copied weight stages, and
-// measured what each step bought (PERF.md); the same is queued for the rest.
+// runs across tiles, ldmatrix fragments and bulk-copied weight stages, B1
+// (tail2.cu) and B3 (aggregation.cu) for wgmma fed from rings of bulk copies,
+// and PERF.md has what each step bought; the same is queued for the rest.
 #pragma once
 
 #include <cstdint>

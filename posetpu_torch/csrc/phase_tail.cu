@@ -1,48 +1,38 @@
 // Phase-domain deconvolution kernels for the serving tail (sm_90a).
 //
-// Replaces four Pallas TPU kernels of posetpu/ops/pallas/phase_tail.py:
+// Replaces three Pallas TPU kernels of posetpu/ops/pallas/phase_tail.py:
 //   B2 fused_subpixel_deconv_batched (_subpixel_deconv_kernel_batched) —
 //      deconv0 as 4 phases x 4 taps of int8 dots + per-phase requant;
-//   B1 fused_phase_tail2 (_phase_tail2_kernel) — deconv1 + deconv2 + the
-//      1x1 head, heatmaps in the phase_index_tables(levels=2) order;
 //   B5 fused_phase_tail (_phase_tail_kernel) — the last deconv + the 1x1
 //      head, heatmaps in the phase_index_tables(levels=1) order: phase_conv
 //      (phase-major output) then phase_head(levels=1);
 //   B6 fused_subpixel_deconv (_subpixel_deconv_kernel) — B2's arithmetic
 //      with the per-pair kernel's N-minor output [4, H, W, N, Cout]
 //      (phase_conv output mode 2).
+// B1 (fused_phase_tail2) has its own kernel, tail2.cu; the launches here are
+// the design it left (PERF.md), kept for B2, B5, B6 until they move onto it.
 //
 // phase_conv: one k4/s2/p1 transposed conv in phase form. Output element
 // (g=(a,b), n, i, j, o) = requant(sum_t sum_c x[n, i+sr, j+sc, c] * w[g,t,o,c])
 // with tap t=(u,v), sr = u-(1-a), sc = v-(1-b), x zero outside the image:
 // per phase an implicit GEMM, M = N*H*W pixels, N = Cout, K = 4 taps * Cin,
-// whose A rows are gathered (shifted, zero-padded) straight from x. deconv0
-// (B2) is one launch; B1 is two launches — deconv1 writing its output
-// already interleaved to the 2H x 2W image, then deconv2 over that image —
-// followed by phase_head. The int32 sums are exact, so running deconv2 over
-// the interleaved image equals the TPU kernel's parity decomposition
-// (phase_tail.py:258-263).
+// whose A rows are gathered (shifted, zero-padded) straight from x. Output
+// modes: phase-major [4, N, H, W, Cout], interleaved into the 2H x 2W image,
+// or N-minor.
 //
-// phase_head: the [C -> J] int8 head over deconv2's phase maps, writing f32
-// [J, N, 16*h*w] directly in the levels=2 packed order (ops/heatmap.py:
-// phase_index_tables): packed p = ((g2*4 + 2al+be) * bh*bw) + i*bw + j reads
-// deconv2 phase g2 at pixel (2i+al, 2j+be). No separate gather pass. With
-// levels=1 it writes the one-level order instead: p = g*h*w + r reads phase
-// g at row-major pixel r.
+// phase_head: the [C -> J] int8 head over phase maps, writing f32 [J, N,
+// 4*h*w] directly in a packed order (ops/heatmap.py: phase_index_tables):
+// levels=2, p = ((g2*4 + 2al+be) * bh*bw) + i*bw + j reads phase g2 at pixel
+// (2i+al, 2j+be); levels=1, p = g*h*w + r reads phase g at row-major pixel r.
 //
 // Bound on the H100 (1,979 TOP/s int8 dense, 3.35 TB/s), at the serving
 // shapes (128 images, 256^2 input): B2 6.87e10 MAC over 33.6 MB, ~0.069 ms,
-// compute-bound; B1 1.74e11 MAC over ~42 MB, ~0.176 ms, compute-bound. The
-// design answers the compute bound with int8 tensor-core mma.sync (exact
-// int32 sums) on 128x128 tiles; it is not yet at the bound: it uses mma.sync
-// rather than wgmma/TMA, and B1 round-trips its deconv1 output z1 (33.5 MB)
-// and deconv2 output z2 (134 MB) through device memory and L2. The TPU
-// kernel keeps both in VMEM; here one image's z1 plane (32x32x256 = 256 KB)
-// does not fit in the 227 KB of shared memory a block can use, so fusing
-// the three stages needs a tiled redesign (queued in ROADMAP.md).
-// B5 at the serving shapes (128 images, 32x32 -> 64x64, C 256): 1.36e11 MAC,
-// ~0.137 ms, compute-bound; it round-trips its deconv output (134 MB int8)
-// through device memory as B1 does. B6 is B2's work: ~0.069 ms.
+// compute-bound. B5 at the serving shapes (128 images, 32x32 -> 64x64, C
+// 256): 1.36e11 MAC, ~0.137 ms, compute-bound; it round-trips its deconv
+// output (134 MB int8) through device memory. B6 is B2's work: ~0.069 ms.
+// The design answers the compute bound with int8 tensor-core mma.sync (exact
+// int32 sums) on 128x128 tiles on int8_mma.cuh's two-stage loop; it is 7-12x
+// above the bound (PERF.md).
 //
 // Exactness: every epilogue rounds multiply and add separately
 // (__fmul_rn/__fadd_rn; the library is also built with --fmad=false), the

@@ -78,6 +78,7 @@
 #include <type_traits>
 
 #include "gather.cuh"
+#include "ring.cuh"
 
 namespace posetpu {
 
@@ -122,49 +123,9 @@ __device__ __forceinline__ int swz(int row, int chunk) {
   return row * KB + ((chunk ^ ((row >> 1) & 3)) << 4);
 }
 
-__device__ __forceinline__ void cp_async_wait0() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// ---- mbarriers and the bulk copy engine (TMA), by shared-space addresses
-__device__ __forceinline__ void mbar_init(unsigned bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(unsigned bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(unsigned bar, int parity) {
-  unsigned done;
-  do {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  } while (!done);
-}
-
-// ``bytes`` (a multiple of 16, both ends 16-aligned) from device memory to
-// shared memory; their arrival counts on ``bar``
-__device__ __forceinline__ void bulk_copy(unsigned dst, const void* src, int bytes, unsigned bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
 struct Cursor {
   int phase, mt, nt, ks;  // phase 0 conv1, 1 conv2, 2 projection + conv3
 };
-
-// four 8 x 16-byte matrices, one row address a lane: lanes 8m..8m+7 give matrix m
-__device__ __forceinline__ void ldsm4(unsigned& r0, unsigned& r1, unsigned& r2, unsigned& r3,
-                                      unsigned addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r0), "=r"(r1), "=r"(r2), "=r"(r3) : "r"(addr) : "memory");
-}
 
 // clip(round_half_even(v), lo, 127) as int8; cvt.rni saturates where rintf
 // and the float clip would have clipped
@@ -207,8 +168,7 @@ bottleneck_rows_kernel(BottleneckArgs p, RowsLayout lay) {
 
   if (tid == 0) {
     for (int s = 0; s < STAGES; ++s) mbar_init(full0 + s * 8, 1);  // thread 0's arrive, and the bytes
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 

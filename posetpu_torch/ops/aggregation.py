@@ -10,16 +10,19 @@ Ports posetpu/ops/pallas/aggregation.py's ``aggregation_grouped_pallas``
     fused[t] = (sum_p xq[src(t, p)] @ wq[t, p]) * ((x_scale / 3) * w_scale[t])
 
 over its 3 source views, int8 products with an exact int32 sum and one f32
-multiply. The f32 -> int8 quantize of ``hm`` is plain PyTorch on both
-routes (it is XLA-side in the JAX package too).
+multiply. The f32 -> int8 quantize and permute of ``hm`` (an XLA fusion in
+the JAX package) is a kernel of its own on the card
+(:func:`quantize_heatmaps`, plain version :func:`_quantize`), and
+``sv = (x_scale / 3) * w_scale`` is folded once, when the bank goes on the
+device (:func:`aggregation_device_params`).
 
 On a CUDA tensor the wrapper launches the kernel (counted in
 ``aggregation_grouped.launches``) and raises on a shape it does not take:
 there is no fallback. On a CPU tensor it runs the plain version.
 
 ``qagg`` holds the bank K-minor, wq [4, 3, S_out, S_in] int8 (see
-:func:`aggregation_device_params`), w_scale [4, 1, S] f32 and the 0-d f32
-x_scale.
+:func:`aggregation_device_params`), w_scale [4, 1, S] f32, the 0-d f32
+x_scale and the folded sv [4, S] f32.
 
 B4 ports ``aggregation_grouped_pallas_s4`` (plain version:
 ``aggregation_int4_apply_jns_grouped``): the bank is split w = diag(d) + R
@@ -41,10 +44,12 @@ import torch
 
 from posetpu_torch.ops import _build
 from posetpu_torch.ops.int_mm import int_mm
+from posetpu_torch.ops.phase_tail import check_cuda, stream_of
 
 _SIGNATURES = {
     "aggregation_grouped": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
     "aggregation_grouped_s4": [_build.P] * 5 + [_build.I] * 2 + [_build.P],
+    "quantize_heatmaps": [_build.P] * 3 + [_build.I] * 2 + [_build.P],
 }
 
 # source views of target t, in order: {0..3} \ {t}
@@ -52,13 +57,42 @@ _SRC = [[s for s in range(4) if s != t] for t in range(4)]
 
 
 def _quantize(qagg, hm):
-    """hm [J, N, V, S] f32 -> (xq [V, J*N, S] int8, sv [4, S] f32)."""
+    """hm [J, N, V, S] f32 -> xq [V, J*N, S] int8: the plain version of
+    :func:`quantize_heatmaps`."""
     j, n, v, s = hm.shape
     xq8 = torch.clamp(torch.round(hm * (1.0 / qagg["x_scale"])), -127, 127
                       ).to(torch.int8)
-    xq = xq8.permute(2, 0, 1, 3).reshape(v, j * n, s)
-    sv = ((qagg["x_scale"] / 3.0) * qagg["w_scale"]).reshape(4, s)
-    return xq, sv
+    return xq8.permute(2, 0, 1, 3).reshape(v, j * n, s)
+
+
+def fold_sv(qagg):
+    """The epilogue scale sv [4, S] = (x_scale / 3) * w_scale, single-rounded
+    as the JAX package folds it."""
+    return ((qagg["x_scale"] / 3.0) * qagg["w_scale"]).reshape(4, -1)
+
+
+def quantize_heatmaps(qagg, hm):
+    """hm [J, N, 4, S] f32 -> xq [4, J*N, S] int8, ``clip(round(hm *
+    (1 / x_scale)), -127, 127)`` permuted view-major, in one pass on the
+    card (S % 16 == 0); the plain version :func:`_quantize` on the CPU."""
+    j, n, v, s = hm.shape
+    if not hm.is_cuda:
+        return _quantize(qagg, hm)
+    if v != 4 or s % 16 or hm.dtype != torch.float32:
+        raise ValueError(f"quantize_heatmaps: unsupported hm {tuple(hm.shape)} {hm.dtype} "
+                         f"(4 views, S % 16 == 0, f32)")
+    hm = hm.contiguous()
+    x_scale = qagg["x_scale"]
+    check_cuda("quantize_heatmaps", hm=hm, x_scale=x_scale)
+    xq = torch.empty((4, j * n, s), dtype=torch.int8, device=hm.device)
+    _build.check(_build.load("aggregation", _SIGNATURES).quantize_heatmaps(
+        hm.data_ptr(), x_scale.data_ptr(), xq.data_ptr(), j * n, s, stream_of(hm)),
+        "quantize_heatmaps")
+    quantize_heatmaps.launches += 1
+    return xq
+
+
+quantize_heatmaps.launches = 0
 
 
 def _unpack(y, hm):
@@ -70,8 +104,7 @@ def _unpack(y, hm):
 def aggregation_grouped_plain(qagg, hm):
     """Plain version: the same int8 products and int32 pair sums through
     ``ops/int_mm.py``, then the same single f32 multiply."""
-    j, n, v, s = hm.shape
-    xq, sv = _quantize(qagg, hm)
+    xq, sv = _quantize(qagg, hm), qagg["sv"]
     ys = []
     for t in range(4):
         acc = None
@@ -85,25 +118,26 @@ def aggregation_grouped_plain(qagg, hm):
 
 def aggregation_grouped(qagg, hm):
     """hm [J, N, V=4, S] f32 -> fused [J, N, V, S] f32 (the grouped int8
-    aggregation; see the module docstring)."""
+    aggregation; see the module docstring). On the card: the quantize
+    kernel, then the GEMM kernel; S % 32 == 0, any J*N."""
     j, n, v, s = hm.shape
     if v != 4:
         raise ValueError(f"the aggregation bank is built for 4 views, got {v}")
     if not hm.is_cuda:
         return aggregation_grouped_plain(qagg, hm)
-    wq = qagg["wq"]
+    wq, sv = qagg["wq"], qagg.get("sv")
     if s % 32 or wq.shape != (4, 3, s, s) or wq.dtype != torch.int8 \
-            or not wq.is_cuda or not wq.is_contiguous():
+            or not wq.is_cuda or not wq.is_contiguous() or sv is None or sv.shape != (4, s):
         raise ValueError(f"aggregation_grouped: unsupported shapes hm "
                          f"{tuple(hm.shape)}, wq {tuple(wq.shape)} {wq.dtype} "
-                         f"(S % 32 == 0, contiguous int8 CUDA bank)")
-    xq, sv = _quantize(qagg, hm)
-    xq, sv = xq.contiguous(), sv.contiguous()
+                         f"(S % 32 == 0, contiguous int8 CUDA bank, sv [4, S] from "
+                         f"aggregation_device_params)")
+    check_cuda("aggregation_grouped", sv=sv)
+    xq = quantize_heatmaps(qagg, hm)
     out = torch.empty((4, j * n, s), dtype=torch.float32, device=hm.device)
-    lib = _build.load("aggregation", _SIGNATURES)
-    _build.check(lib.aggregation_grouped(
+    _build.check(_build.load("aggregation", _SIGNATURES).aggregation_grouped(
         xq.data_ptr(), wq.data_ptr(), sv.data_ptr(), out.data_ptr(), j * n, s,
-        torch.cuda.current_stream(hm.device).cuda_stream), "aggregation_grouped")
+        stream_of(hm)), "aggregation_grouped")
     aggregation_grouped.launches += 1
     return _unpack(out, hm)
 
@@ -141,7 +175,7 @@ def aggregation_grouped_s4_plain(qagg, hm):
     """Plain version of :func:`aggregation_grouped_s4`: the residual's int8
     products and int32 pair sums through ``ops/int_mm.py`` on the unpacked
     bank, then res = acc * sv, dia over the pairs in order, res + dia."""
-    xq, sv = _quantize(qagg, hm)
+    xq, sv = _quantize(qagg, hm), fold_sv(qagg)
     wq = unpack_nibbles_k(qagg["wq4"])  # [4, 3, S_out, S_in] int8
     ys = []
     for t in range(4):
@@ -175,14 +209,13 @@ def aggregation_grouped_s4(qagg, hm):
                          f"{tuple(hm.shape)}, wq4 {tuple(wq4.shape)} {wq4.dtype}, "
                          f"dv {tuple(dv.shape)} (S % 32 == 0, contiguous "
                          f"nibble-packed uint8 CUDA bank [4, 3, S, S/2])")
-    xq, sv = _quantize(qagg, hm)
+    xq, sv = _quantize(qagg, hm), fold_sv(qagg)
     xq, sv, dv = xq.contiguous(), sv.contiguous(), dv.contiguous()
     out = torch.empty((4, j * n, s), dtype=torch.float32, device=hm.device)
     lib = _build.load("aggregation", _SIGNATURES)
     _build.check(lib.aggregation_grouped_s4(
         xq.data_ptr(), wq4.data_ptr(), sv.data_ptr(), dv.data_ptr(),
-        out.data_ptr(), j * n, s,
-        torch.cuda.current_stream(hm.device).cuda_stream), "aggregation_grouped_s4")
+        out.data_ptr(), j * n, s, stream_of(hm)), "aggregation_grouped_s4")
     aggregation_grouped_s4.launches += 1
     return _unpack(out, hm)
 
@@ -217,11 +250,14 @@ def aggregation_device_params_s4(qagg: dict, device) -> dict:
 
 def aggregation_device_params(qagg: dict, device) -> dict:
     """A JAX-layout grouped bank (wq [4, 3, S_in, S_out], as numpy or arrays)
-    -> the kernel's tensors on ``device``: wq K-minor [4, 3, S_out, S_in]."""
+    -> the kernel's tensors on ``device``: wq K-minor [4, 3, S_out, S_in],
+    w_scale, x_scale, and sv [4, S] folded once (:func:`fold_sv`)."""
     wq = torch.from_numpy(np.array(_as_np(qagg["wq"]))).to(device)
-    return {
+    out = {
         "wq": wq.transpose(-1, -2).contiguous(),
         "w_scale": torch.from_numpy(_as_np(qagg["w_scale"]).astype(np.float32)).to(device),
         "x_scale": torch.tensor(float(_as_np(qagg["x_scale"])), dtype=torch.float32,
                                 device=device),
     }
+    out["sv"] = fold_sv(out).contiguous()
+    return out

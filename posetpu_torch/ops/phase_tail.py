@@ -1,7 +1,7 @@
 """The phase-domain deconvolution tail: an inner deconv (B2, B6), the last
 deconv + the 1x1 head (B5) and the last two deconvs + head (B1), each a
-hand-written CUDA kernel (``csrc/phase_tail.cu``) with its plain PyTorch
-version beside it.
+hand-written CUDA kernel (``csrc/phase_tail.cu``; B1: ``csrc/tail2.cu``)
+with its plain PyTorch version beside it.
 
 Ports posetpu/ops/pallas/phase_tail.py's kernels with the same contracts:
 
@@ -17,6 +17,15 @@ Ports posetpu/ops/pallas/phase_tail.py's kernels with the same contracts:
 
 A k4/s2/p1 transposed conv in phase form: output phase g = (a, b), tap
 t = (u, v) reads x[i + u - (1-a), j + v - (1-b)] (zero outside the image).
+
+B1 has a kernel of its own (``csrc/tail2.cu``): two launches, deconv1 into
+an interleaved z1, then deconv2 with the head, z2 kept in shared memory. A
+block takes a 16 x 8 tile of the input grid and its halo once and runs
+wgmma with A read from the halo; its shared memory is planned per shape by
+the pure :func:`plan_tail2`, and the weights arrive as the stage images
+:func:`tile_phase_weight` makes (``tail2_device_args``). B2, B5 and B6 run
+``phase_conv`` (+ ``phase_head``).
+
 On a CUDA tensor the wrapper launches the kernel (and counts the launch in
 its ``launches`` attribute); on a CPU tensor it runs the plain version,
 which repeats the arithmetic with exact int8 x int8 -> int32 products
@@ -29,10 +38,14 @@ functions' JAX-layout numpy args into that form on a device.
 
 Shapes the kernels take: Cin % 32 == 0 and Cout % 8 == 0 for the phase
 convs, C % 4 == 0 for the head (and even H, W of its input at levels=2);
-any batch and image size. A wrapper raises ``ValueError`` on anything else.
+B1 also at most 32 joints and a 16 x 8 tile that fits a block; any
+batch and image size. A wrapper raises ``ValueError`` on anything else.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -51,6 +64,8 @@ _SIGNATURES = {
     "phase_conv": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "phase_head": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
+_TAIL2_SIGNATURES = {"tail2": [_P] * 7 + [_I] * 14 + [_P],
+                     "tail2_blocks_per_sm": [_I] * 2}
 # phase_conv output modes (csrc/phase_tail.cu)
 _PHASE_MAJOR, _INTERLEAVED, _N_MINOR = 0, 1, 2
 
@@ -204,6 +219,124 @@ def _launch_phase_head(z, wh, vh, levels: int = 2):
     return out
 
 
+# ------------------------------------------------------------ B1's block shape
+
+# csrc/tail2.cu: the input tile (two warpgroups of 8 rows of 8 pixels), bytes
+# of K a weight stage image, channels an n-half, a row of the requantised half
+TAIL2_TILE = (16, 8)
+_T2_KB, _T2_BN = 64, 128
+_T2_LDZ = _T2_BN + 16
+_SMEM_PER_BLOCK = 232448  # bytes a block can use on sm_90
+# the ring, measured on the H100 at the serving shapes (tools/torch_kernel_sweep.py
+# tail2): two stages of two stage images (128 bytes of K a step) keep two
+# blocks on an SM and beat deeper or shallower rings by 3-25 %
+TAIL2_STAGES, _T2_IPS = 2, 2
+
+
+class Tail2Plan(NamedTuple):
+    """One launch of B1's kernel: the 16 x 8 tiles across and down the input
+    grid, the ring's stages (two weight stage images, 128 bytes of K, each),
+    and where the regions of the block's dynamic shared memory start
+    (csrc/tail2.cu, Tail2Layout)."""
+    tiles_x: int
+    tiles_y: int
+    stages: int
+    off_ring: int
+    off_z: int
+    off_wh: int
+    off_sc: int
+    off_bar: int
+    smem: int
+
+
+def _up(nbytes: int, to: int = 128) -> int:
+    return -(-nbytes // to) * to
+
+
+@functools.lru_cache(maxsize=None)
+def plan_tail2(h: int, w: int, cin: int, cout: int, jt: int,
+               stages: int | None = None) -> Tail2Plan:
+    """B1's block shape for one launch over an h x w input grid (``jt`` 0:
+    deconv1; 2 or 4: deconv2 with a head of <= 8 jt joints), a pure function
+    of the shapes (cached: a launch looks it up): 16 x 8 tiles of the grid,
+    the last row and column of tiles overhanging it, and the regions of
+    shared memory in order: the halo tile (16-channel planes), the ring, the
+    requantised half, the head, the scales, the ring's mbarriers. ``stages``
+    defaults to :data:`TAIL2_STAGES`; a shape that does not fit a block is an
+    error."""
+    th, tw = TAIL2_TILE
+    stages = TAIL2_STAGES if stages is None else stages
+    if stages < 2 or jt not in (0, 2, 4):
+        raise ValueError(f"plan_tail2: {stages} ring stages, jt {jt}")
+    cpad = -(-cout // _T2_BN) * _T2_BN
+    off_ring = _up((th + 2) * (tw + 2) * cin, 1024)
+    off_z = off_ring + stages * _T2_IPS * _T2_BN * _T2_KB
+    off_wh = off_z + th * tw * _T2_LDZ
+    off_sc = off_wh + jt * 8 * (cpad + 16)
+    off_bar = _up(off_sc + 4 * (2 * cpad + 2 * jt * 8), 16)
+    plan = Tail2Plan(-(-w // tw), -(-h // th), stages, off_ring, off_z, off_wh, off_sc,
+                     off_bar, off_bar + 8 * stages)
+    if plan.smem > _SMEM_PER_BLOCK:
+        raise ValueError(f"fused_phase_tail2: a 16 x 8 tile at Cin {cin}, Cout {cout} and "
+                         f"{stages} ring stages need {plan.smem} bytes of shared memory, more "
+                         f"than a block has")
+    return plan
+
+
+def tail2_tiles(plan: Tail2Plan):
+    """The (y0, x0) corner of every block's tile, in the grid's order."""
+    th, tw = TAIL2_TILE
+    return [((t // plan.tiles_x) * th, (t % plan.tiles_x) * tw)
+            for t in range(plan.tiles_x * plan.tiles_y)]
+
+
+@functools.lru_cache(maxsize=None)
+def _tail2_lib():
+    return _build.load("tail2", _TAIL2_SIGNATURES)
+
+
+def tail2_blocks_per_sm(plan: Tail2Plan, jt: int) -> int:
+    """Blocks of B1's kernel the card puts on one SM for ``plan``."""
+    blocks = _tail2_lib().tail2_blocks_per_sm(jt, plan.smem)
+    if blocks < 0:
+        raise RuntimeError(f"tail2_blocks_per_sm: CUDA error {-blocks}")
+    return blocks
+
+
+def launch_tail2(x4, wt, sc, so, wh=None, vh=None, *, stages=None):
+    """One launch of B1's kernel over x4 [N, H, W, Cin] int8 with the stage
+    images ``wt`` [4, NH, 4 Cin / 64, 128, 64] (:func:`tile_phase_weight`):
+    without a head, int8 z1 [N, 2H, 2W, Cout] (interleaved); with the padded
+    head ``wh`` [8 jt, NH * 128] and ``vh`` [2, J], f32 [J, N, 4 H W] in the
+    levels=2 order of the 2H x 2W output."""
+    n, h, w, cin = x4.shape
+    nh, cout = wt.shape[1], sc.shape[-1]
+    joints = 0 if wh is None else vh.shape[-1]
+    jt = 0 if wh is None else (2 if joints <= 16 else 4)
+    if (x4.dtype != torch.int8 or wt.dtype != torch.int8 or cin % 32 or cout % 8
+            or tuple(wt.shape) != (4, -(-cout // _T2_BN), 4 * cin // _T2_KB, _T2_BN, _T2_KB)
+            or joints > 32 or (wh is not None and tuple(wh.shape) != (8 * jt, nh * _T2_BN))):
+        raise ValueError(f"fused_phase_tail2: unsupported shapes x {tuple(x4.shape)}, "
+                         f"w {tuple(wt.shape)}, Cout {cout}, {joints} joints (Cin % 32 == 0, "
+                         f"Cout % 8 == 0, J <= 32, tiled weights from tail2_device_args)")
+    tensors = {"x": x4, "w": wt, "s": sc, "so": so}
+    if wh is not None:
+        tensors.update(wh=wh, vh=vh)
+    check_cuda("fused_phase_tail2", **tensors)
+    plan = plan_tail2(h, w, cin, cout, jt, stages)
+    if wh is None:
+        out = torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.int8, device=x4.device)
+    else:
+        out = torch.empty((joints, n, 4 * h * w), dtype=torch.float32, device=x4.device)
+    _build.check(_tail2_lib().tail2(
+        x4.data_ptr(), wt.data_ptr(), sc.data_ptr(), so.data_ptr(),
+        0 if wh is None else wh.data_ptr(), 0 if vh is None else vh.data_ptr(),
+        out.data_ptr(), n, h, w, cin, cout, joints, jt, plan.stages, plan.off_ring,
+        plan.off_z, plan.off_wh, plan.off_sc, plan.off_bar, plan.smem, stream_of(x4)),
+        "fused_phase_tail2")
+    return out
+
+
 # ------------------------------------------------------------ the wrappers
 
 
@@ -271,18 +404,15 @@ fused_phase_tail.launches = 0
 def fused_phase_tail2(x, args, *, h: int, w: int):
     """x: [N, H*W, Cin] int8 (deconv1's input = deconv0's interleaved output)
     -> f32 two-level phase-packed heatmaps [J, N, 16*H*W]. ``args`` from
-    :func:`tail2_device_args`."""
+    :func:`tail2_device_args`. On the card: deconv1 into z1, then deconv2 +
+    the head (``csrc/tail2.cu``)."""
     n, hw, cin = x.shape
     if hw != h * w or h % 2 or w % 2:
         raise ValueError(f"x has {hw} pixels per image, not an even {h}x{w}")
     if not x.is_cuda:
         return phase_tail2_plain(x, args, h=h, w=w)
-    s1, s2 = args["s1"], args["s2"]
-    z1 = _launch_phase_conv(x.reshape(n, h, w, cin), args["w1"], s1[0], s1[1],
-                            0, args["so1"], _INTERLEAVED)
-    z2 = _launch_phase_conv(z1, args["w2"], s2[0], s2[1], 0, args["so2"],
-                            _PHASE_MAJOR)
-    out = _launch_phase_head(z2, args["wh"], args["vh"])
+    z1 = launch_tail2(x.reshape(n, h, w, cin), args["w1t"], args["s1"], args["so1"])
+    out = launch_tail2(z1, args["w2t"], args["s2"], args["so2"], args["wht"], args["vh"])
     fused_phase_tail2.launches += 1
     return out
 
@@ -422,9 +552,42 @@ def tail_device_args(args: dict, device) -> dict:
             **{k: _to(args[k], device) for k in ("sv", "so", "vh")}}
 
 
+def tile_phase_weight(wk):
+    """Phase weights [4 phase, 4 tap, Cout, Cin] int8 (K-minor) -> B1's stage
+    images [4, ceil(Cout / 128), 4 Cin / 64, 128, 64]: phase g's [Cout,
+    4 Cin] matrix (depth k = tap * Cin + c) tiled as B8a tiles a weight
+    (ops/resblock.tile_weight), so the kernel's flat list of k-steps (phase,
+    n-half, k) reads the images in their own order."""
+    from posetpu_torch.ops.resblock import tile_weight
+
+    _, _, cout, cin = wk.shape
+    return torch.stack([tile_weight(wk[g].permute(1, 0, 2).reshape(cout, 4 * cin), _T2_BN)
+                        for g in range(4)]).contiguous()
+
+
+def pad_head(wh):
+    """Head [J, C] int8 (K-minor) -> [8 jt, ceil(C / 128) * 128] zero padded,
+    jt = 2 for J <= 16, else 4: the rows and columns B1's head reads."""
+    joints, c = wh.shape
+    rows = 16 if joints <= 16 else 32
+    out = wh.new_zeros((rows, -(-c // _T2_BN) * _T2_BN))
+    out[:joints, :c] = wh
+    return out
+
+
 def tail2_device_args(args: dict, device) -> dict:
     """JAX-layout phase-tail2 args -> the kernels' tensors: w1/w2
-    [4, 4, Cout, Cin] and wh [J, C] int8 (K-minor), the rest f32 as given."""
+    [4, 4, Cout, Cin] and wh [J, C] int8 (K-minor, what the plain version
+    reads), w1t/w2t their stage images (:func:`tile_phase_weight`) and wht
+    the padded head (:func:`pad_head`) for B1's kernel, the rest f32 as
+    given."""
     out = {k: _k_minor(args[k], device) for k in ("w1", "w2", "wh")}
     out.update({k: _to(args[k], device) for k in ("s1", "so1", "s2", "so2", "vh")})
-    return out
+    return with_tail2_weights(out)
+
+
+def with_tail2_weights(args: dict) -> dict:
+    """``args`` (the K-minor tensors) with B1's stage images and padded head
+    beside them."""
+    return dict(args, w1t=tile_phase_weight(args["w1"]), w2t=tile_phase_weight(args["w2"]),
+                wht=pad_head(args["wh"]))

@@ -46,24 +46,55 @@ def test_subpixel_deconv_kernel_equals_plain(cuda, n, h, cin, cout):
     assert torch.equal(got, ref) and len(torch.unique(ref)) > 50
 
 
-@pytest.mark.parametrize("n,h,c,joints", [(2, 4, 32, 4), (3, 8, 64, 16)])
-def test_phase_tail2_kernel_equals_plain(cuda, n, h, c, joints):
-    gen = torch.Generator().manual_seed(1)
-    x = _i8(gen, n, h * h, c, lo=0)
-    sv = lambda: torch.rand(c, generator=gen) * 8e-3 / c ** 0.5 + 1e-4
-    args = {"w1": _i8(gen, 4, 4, c, c), "w2": _i8(gen, 4, 4, c, c),
-            "s1": torch.stack([sv(), torch.rand(c, generator=gen) * 4 - 2]),
-            "s2": torch.stack([sv(), torch.rand(c, generator=gen) * 4 - 2]),
+def _tail2_args(gen, cin, c1, c2, joints, dev):
+    """Random B1 arguments in the kernels' layout (stage images included)."""
+    sv = lambda c, k: torch.rand(c, generator=gen) * 8e-3 / k ** 0.5 + 1e-4
+    args = {"w1": _i8(gen, 4, 4, c1, cin), "w2": _i8(gen, 4, 4, c2, c1),
+            "s1": torch.stack([sv(c1, cin), torch.rand(c1, generator=gen) * 4 - 2]),
+            "s2": torch.stack([sv(c2, c1), torch.rand(c2, generator=gen) * 4 - 2]),
             "so1": torch.tensor([[0.3]]), "so2": torch.tensor([[0.3]]),
-            "wh": _i8(gen, joints, c),
+            "wh": _i8(gen, joints, c2),
             "vh": torch.stack([torch.rand(joints, generator=gen) * 1e-3,
                                torch.rand(joints, generator=gen) - 0.5])}
-    dev = {k: v.to(cuda) for k, v in args.items()}
-    got = tpt.fused_phase_tail2(x.to(cuda), dev, h=h, w=h)
-    ref = tpt.phase_tail2_plain(x.to(cuda), dev, h=h, w=h)
+    return tpt.with_tail2_weights({k: v.to(dev) for k, v in args.items()})
+
+
+@pytest.mark.parametrize("n,h,w,cin,c1,c2,joints", [
+    (2, 4, 4, 32, 32, 32, 4), (3, 8, 8, 64, 64, 64, 16),   # small widths
+    (3, 16, 16, 256, 256, 256, 16),                        # serving width, 3 images
+    (5, 6, 10, 32, 64, 136, 17),                           # ragged: overhanging tiles, a
+    (1, 2, 26, 96, 32, 40, 9)])                            # partial n-half, 17 joints
+def test_phase_tail2_kernel_equals_plain(cuda, n, h, w, cin, c1, c2, joints):
+    gen = torch.Generator().manual_seed(1)
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    dev = _tail2_args(gen, cin, c1, c2, joints, cuda)
+    before = tpt.fused_phase_tail2.launches
+    got = tpt.fused_phase_tail2(x, dev, h=h, w=w)
+    assert tpt.fused_phase_tail2.launches == before + 1
+    ref = tpt.phase_tail2_plain(x, dev, h=h, w=w)
     torch.cuda.synchronize()
-    assert got.shape == (joints, n, 16 * h * h)
+    assert got.shape == (joints, n, 16 * h * w)
     assert torch.equal(got, ref) and float(ref.std()) > 0
+
+
+@pytest.mark.parametrize("stages", [2, 3, 4])
+def test_phase_tail2_kernel_every_ring(cuda, stages):
+    """Each ring depth, on a grid the 16 x 8 tiles overhang:
+    deconv1's z1 and the head's heatmaps equal their plain versions."""
+    gen = torch.Generator().manual_seed(7)
+    n, h, w, cin, c1, c2, joints = 2, 6, 10, 64, 64, 160, 16
+    x4 = _i8(gen, n, h, w, cin, lo=0).to(cuda)
+    dev = _tail2_args(gen, cin, c1, c2, joints, cuda)
+    z1 = tpt.launch_tail2(x4, dev["w1t"], dev["s1"], dev["so1"], stages=stages)
+    z1_ref = tpt._phase_conv_plain(x4, dev["w1"], dev["s1"][0], dev["s1"][1], dev["so1"],
+                                   interleave=True)
+    out = tpt.launch_tail2(z1_ref, dev["w2t"], dev["s2"], dev["so2"], dev["wht"], dev["vh"],
+                           stages=stages)
+    z2 = tpt._phase_conv_plain(z1_ref, dev["w2"], dev["s2"][0], dev["s2"][1], dev["so2"],
+                               interleave=False)
+    ref = tpt._phase_head_plain(z2, dev["wh"], dev["vh"])
+    torch.cuda.synchronize()
+    assert torch.equal(z1, z1_ref) and torch.equal(out, ref)
 
 
 @pytest.mark.parametrize("j,n,s", [(4, 2, 256), (16, 3, 1024)])
@@ -74,10 +105,54 @@ def test_aggregation_kernel_equals_plain(cuda, j, n, s):
 
     qagg = tagg.aggregation_device_params(quantize_aggregation_grouped(bank), cuda)
     hm = torch.rand(j, n, 4, s, generator=gen).to(cuda)
+    before = (tagg.aggregation_grouped.launches, tagg.quantize_heatmaps.launches)
     got = tagg.aggregation_grouped(qagg, hm)
+    assert (tagg.aggregation_grouped.launches, tagg.quantize_heatmaps.launches) == \
+        (before[0] + 1, before[1] + 1)
     ref = tagg.aggregation_grouped_plain(qagg, hm)
     torch.cuda.synchronize()
     assert torch.equal(got, ref)
+
+
+def _int8_bank(gen, s, dev):
+    """A random int8 bank in the kernel's layout, made on the card (an f32
+    bank at S = 4096 would be 805 MB to quantise on the host)."""
+    g = torch.Generator(device=dev).manual_seed(int(torch.randint(1 << 30, (1,), generator=gen)))
+    q = {"wq": torch.randint(-127, 128, (4, 3, s, s), generator=g, device=dev, dtype=torch.int8),
+         "w_scale": torch.rand(4, 1, s, generator=g, device=dev) * 1e-3 + 1e-4,
+         "x_scale": torch.tensor(1.2 / 127, device=dev)}
+    q["sv"] = tagg.fold_sv(q).contiguous()
+    return q
+
+
+@pytest.mark.parametrize("j,n,s", [(16, 32, 4096), (5, 7, 4096), (3, 5, 256), (2, 9, 96),
+                                   (1, 3, 160)])
+def test_aggregation_kernel_serving_and_ragged_shapes(cuda, j, n, s):
+    """S = 4096 at the serving J*N (512) and at J*N = 35; S = 256; S not a
+    multiple of the 128-byte k-step (the tensor maps read zeros past S)."""
+    gen = torch.Generator().manual_seed(3)
+    qagg = _int8_bank(gen, s, cuda)
+    hm = (torch.randn(j, n, 4, s, generator=gen) * 0.5).to(cuda)
+    got = tagg.aggregation_grouped(qagg, hm)
+    ref = tagg.aggregation_grouped_plain(qagg, hm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and float(ref.std()) > 0
+
+
+@pytest.mark.parametrize("shape", [(16, 32, 4, 4096), (5, 7, 4, 96), (1, 1, 4, 16)])
+def test_quantize_kernel_equals_plain(cuda, shape):
+    gen = torch.Generator().manual_seed(4)
+    qagg = {"x_scale": torch.tensor(1.2 / 127, device=cuda)}
+    hm = torch.randn(*shape, generator=gen).to(cuda)
+    hm.view(-1)[:64] = (torch.arange(64, device=cuda) - 32 + 0.5) * qagg["x_scale"]  # ties
+    before = tagg.quantize_heatmaps.launches
+    got = tagg.quantize_heatmaps(qagg, hm)
+    assert tagg.quantize_heatmaps.launches == before + 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, tagg._quantize(qagg, hm))
+    # a permuted view is copied first, then quantised the same
+    view = hm.permute(1, 0, 2, 3).contiguous().permute(1, 0, 2, 3)
+    assert torch.equal(tagg.quantize_heatmaps(qagg, view), tagg._quantize(qagg, hm))
 
 
 @pytest.mark.parametrize("j,n,s", [(4, 2, 256), (16, 3, 1024), (5, 7, 96)])

@@ -17,6 +17,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from posetpu.ops.pallas import phase_tail as jpt  # noqa: E402
 from posetpu_torch.ops import phase_tail as tpt  # noqa: E402
+from posetpu_torch.ops import resblock as trb  # noqa: E402
 
 
 def _i8(rng, *shape):
@@ -129,10 +130,176 @@ def test_args_builders_match_jax(rng, which):
         got = tpt.build_phase_tail2_args(q, "deconv1", "deconv2", 0.0123)
         dev = tpt.tail2_device_args(got, "cpu")
         k_minor = ("w1", "w2", "wh")
-    assert set(got) == set(ref) == set(dev)
+    # the device args also carry B1's stage images and padded head
+    assert set(got) == set(ref) == set(dev) - {"w1t", "w2t", "wht"}
     for k in ref:
         assert got[k].dtype == np.asarray(ref[k]).dtype, k
         np.testing.assert_array_equal(got[k], np.asarray(ref[k]), err_msg=k)
         d = dev[k].numpy()
         np.testing.assert_array_equal(np.swapaxes(d, -1, -2) if k in k_minor else d,
                                       np.asarray(ref[k]), err_msg=k)
+
+
+# ------------------------------------------------------------ B1's kernel design
+
+
+@pytest.mark.parametrize("cin,cout", [(32, 32), (64, 136), (256, 256)])
+def test_tail2_stage_images_untile_to_the_weights(rng, cin, cout):
+    """tail2_device_args' stage images hold w1 and w2 exactly: phase g's
+    [Cout, 4 Cin] matrix, zero past Cout, and the padded head holds wh."""
+    args = {"w1": _i8(rng, 4, 4, cin, cin), "w2": _i8(rng, 4, 4, cin, cout),
+            "s1": np.zeros((2, cin), np.float32), "s2": np.zeros((2, cout), np.float32),
+            "so1": np.ones((1, 1), np.float32), "so2": np.ones((1, 1), np.float32),
+            "wh": _i8(rng, cout, 17), "vh": np.zeros((2, 17), np.float32)}
+    dev = tpt.tail2_device_args(args, "cpu")
+    for key, n_out in (("w1", cin), ("w2", cout)):
+        img = dev[f"{key}t"]
+        nh = -(-n_out // 128)
+        assert tuple(img.shape) == (4, nh, 4 * cin // 64, 128, 64) and img.dtype == torch.int8
+        for g in range(4):
+            full = trb.untile_weight(img[g], nh * 128, 4 * cin)
+            assert not full[n_out:].any()
+            np.testing.assert_array_equal(
+                full[:n_out].reshape(n_out, 4, cin).permute(1, 0, 2).numpy(),
+                dev[key][g].numpy())
+    assert tuple(dev["wht"].shape) == (32, -(-cout // 128) * 128)
+    np.testing.assert_array_equal(dev["wht"][:17, :cout].numpy(), dev["wh"].numpy())
+    assert not dev["wht"][17:].any() and not dev["wht"][:, cout:].any()
+
+
+@pytest.mark.parametrize("h,w,cin,jt", [(16, 16, 256, 0), (32, 32, 256, 2), (4, 4, 32, 0),
+                                        (8, 8, 32, 2), (6, 10, 64, 2), (12, 20, 64, 4),
+                                        (2, 26, 32, 0)])
+def test_plan_tail2_covers_every_pixel_once(h, w, cin, jt):
+    """The planner's 16 x 8 tiles cover the h x w grid, every pixel exactly
+    once and no tile wholly outside it, and the regions fit a block without
+    overlapping."""
+    plan = tpt.plan_tail2(h, w, cin, 256, jt)
+    th, tw = tpt.TAIL2_TILE
+    assert plan.smem <= 232448
+    assert 0 < plan.off_ring < plan.off_z < plan.off_wh <= plan.off_sc < plan.off_bar < plan.smem
+    count = np.zeros((plan.tiles_y * th, plan.tiles_x * tw), np.int32)
+    for y0, x0 in tpt.tail2_tiles(plan):
+        count[y0:y0 + th, x0:x0 + tw] += 1
+    assert (count == 1).all()
+    assert plan.tiles_y * th - th < h and plan.tiles_x * tw - tw < w
+
+
+def test_plan_tail2_serving_shapes():
+    """At the serving shapes both launches take the measured ring (two
+    stages of 128 bytes of K) and leave room for two blocks on an SM;
+    deconv2 is 8 blocks an image (1 GB of weight reads over 128 images)."""
+    for h, jt, blocks in ((16, 0, 2), (32, 2, 8)):
+        plan = tpt.plan_tail2(h, h, 256, 256, jt)
+        assert plan.stages == 2
+        assert plan.tiles_x * plan.tiles_y == blocks and plan.smem <= 113 * 1024
+    with pytest.raises(ValueError):
+        tpt.plan_tail2(16, 16, 2048, 256, 2)   # the halo does not fit
+    with pytest.raises(ValueError):
+        tpt.plan_tail2(16, 16, 256, 256, 2, stages=1)
+
+
+def _requant(acc, s, b, inv_so):
+    return torch.clamp(torch.round(torch.relu(acc.float() * s + b) * inv_so), -127, 127
+                       ).to(torch.int8)
+
+
+def tail2_kernel_emulation(x4, wt, sc, so, wh=None, vh=None):
+    """One launch of csrc/tail2.cu on the CPU, block by block as the kernel
+    walks it: the planned tile and its zero-padded halo, the flat k-steps
+    (phase, n-half, 64-byte stage) with each 32-byte step's A rows at the
+    tap's constant offset into the halo and its B rows read through the
+    stage images' swizzle, the half requantised (zeros past Cout), then
+    z1 stored interleaved, or the head summed half by half and stored in
+    the levels=2 packed order."""
+    n, h, w, cin = x4.shape
+    nh, cout = wt.shape[1], sc.shape[-1]
+    joints = 0 if wh is None else vh.shape[-1]
+    jt = 0 if wh is None else (2 if joints <= 16 else 4)
+    plan = tpt.plan_tail2(h, w, cin, cout, jt)
+    th, tw = tpt.TAIL2_TILE
+    rows = th * tw
+    ty, tx = np.arange(rows) // tw, np.arange(rows) % tw
+    inv_so = 1.0 / so.reshape(())
+    sv = torch.zeros(2, nh * 128)
+    sv[:, :cout] = sc
+    # stage image row r keeps its logical 16-byte chunk c at c ^ ((r >> 1) & 3)
+    swz = np.arange(4)[None, :] ^ ((np.arange(128)[:, None] >> 1) & 3)
+    phys = torch.from_numpy((swz[:, :, None] * 16 + np.arange(16)).reshape(128, 64))
+    if wh is None:
+        out = torch.zeros(n, 2 * h, 2 * w, cout, dtype=torch.int8)
+    else:
+        out = torch.full((joints, n, 4 * h * w), float("nan"))
+    for img in range(n):
+        for y0, x0 in tpt.tail2_tiles(plan):
+            halo = torch.zeros(th + 2, tw + 2, cin, dtype=torch.int8)
+            ys, xs = slice(max(y0 - 1, 0), min(y0 + th + 1, h)), \
+                slice(max(x0 - 1, 0), min(x0 + tw + 1, w))
+            halo[ys.start - y0 + 1:ys.stop - y0 + 1, xs.start - x0 + 1:xs.stop - x0 + 1] = \
+                x4[img, ys, xs]
+            y, x = y0 + ty, x0 + tx
+            inside = (y < h) & (x < w)
+            q = 0
+            for g in range(4):
+                a, b = g >> 1, g & 1
+                hacc = torch.zeros(rows, 8 * jt, dtype=torch.float64)
+                for half in range(nh):
+                    acc = torch.zeros(rows, 128, dtype=torch.float64)
+                    tap, c = 0, 0
+                    for _ in range(4 * cin // 64):
+                        img_b = wt.reshape(-1, 128, 64)[q]
+                        for s in range(2):
+                            sr, sc_ = (tap >> 1) - 1 + a, (tap & 1) - 1 + b
+                            arows = halo[ty + 1 + sr, tx + 1 + sc_, c:c + 32]
+                            brows = torch.gather(img_b, 1, phys[:, 32 * s:32 * s + 32].long())
+                            acc += arows.double() @ brows.double().t()
+                            c += 32
+                            if c == cin:
+                                c, tap = 0, tap + 1
+                        q += 1
+                    cols = slice(half * 128, half * 128 + 128)
+                    z = _requant(acc.round().to(torch.int32), sv[0, cols], sv[1, cols], inv_so)
+                    z[:, max(0, min(128, cout - half * 128)):] = 0
+                    if wh is None:
+                        keep = inside.nonzero()[0]
+                        o = slice(half * 128, min(cout, half * 128 + 128))
+                        out[img, 2 * y[keep] + a, 2 * x[keep] + b, o] = \
+                            z[keep, :o.stop - o.start]
+                    else:
+                        hacc += z.double() @ wh[:, cols].double().t()
+                if wh is not None:
+                    keep = inside.nonzero()[0]
+                    yk, xk = y[keep], x[keep]
+                    pk = ((4 * g + 2 * (yk & 1) + (xk & 1)) * (h // 2) * (w // 2)
+                          + (yk >> 1) * (w // 2) + (xk >> 1))
+                    acc_h = hacc[keep, :joints].round().to(torch.int32)
+                    out[:, img, pk] = (acc_h.float() * vh[0] + vh[1]).t()
+    return out
+
+
+@pytest.mark.parametrize("n,h,w,cin,c1,c2,joints", [(2, 4, 4, 32, 32, 32, 4),
+                                                     (1, 6, 10, 32, 64, 136, 17)])
+def test_tail2_tile_emulation_equals_plain(rng, n, h, w, cin, c1, c2, joints):
+    """B1's decomposition (halo tiles overhanging the image, the 16 (phase,
+    tap) offsets, the swizzled stage images, two n-halves with the head
+    split over them, the packed store) gives phase_tail2_plain's heatmaps
+    exactly: the only check of the kernel's index arithmetic on the CPU."""
+    args = {"w1": _i8(rng, 4, 4, cin, c1), "w2": _i8(rng, 4, 4, c1, c2),
+            "s1": np.stack([_scales(rng, c1, lo=2e-3, hi=8e-3),
+                            rng.uniform(-20, 20, c1).astype(np.float32)]),
+            "s2": np.stack([_scales(rng, c2, lo=2e-3, hi=8e-3),
+                            rng.uniform(-20, 20, c2).astype(np.float32)]),
+            "so1": np.asarray([[0.91 * cin / 32]], np.float32),
+            "so2": np.asarray([[1.13 * c1 / 32]], np.float32),
+            "wh": _i8(rng, c2, joints),
+            "vh": np.stack([_scales(rng, joints, lo=1e-4, hi=1e-3),
+                            rng.uniform(-1, 1, joints).astype(np.float32)])}
+    dev = tpt.tail2_device_args(args, "cpu")
+    x = torch.from_numpy(_i8(rng, n, h * w, cin))
+    ref = tpt.phase_tail2_plain(x, dev, h=h, w=w)
+    z1 = tail2_kernel_emulation(x.reshape(n, h, w, cin), dev["w1t"], dev["s1"], dev["so1"])
+    z1_ref = tpt._phase_conv_plain(x.reshape(n, h, w, cin), dev["w1"], dev["s1"][0],
+                                   dev["s1"][1], dev["so1"], interleave=True)
+    assert torch.equal(z1, z1_ref) and len(torch.unique(z1)) > 20
+    got = tail2_kernel_emulation(z1, dev["w2t"], dev["s2"], dev["so2"], dev["wht"], dev["vh"])
+    assert got.shape == ref.shape and torch.equal(got, ref) and float(ref.std()) > 0

@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
-"""Check and time the port's two redesigned kernels on one NVIDIA GPU.
+"""Check and time the port's redesigned kernels on one NVIDIA GPU.
 
     python3 tools/torch_kernel_sweep.py check        # build, ptxas, kernel == plain
     python3 tools/torch_kernel_sweep.py sweep        # B8a: ms per layer and per th
     python3 tools/torch_kernel_sweep.py decode       # B7: device, wrapper, host split
     python3 tools/torch_kernel_sweep.py imma         # mma.sync and wgmma int8 rates
+    python3 tools/torch_kernel_sweep.py tail2        # B1: per launch and ring shape
+    python3 tools/torch_kernel_sweep.py agg          # B3: quantize, GEMM, wrapper
 
 ``check`` builds ``csrc/resblock.cu`` and ``csrc/decode.cu``, prints ptxas'
 register report and holds B8a (``ops/resblock.fused_bottleneck``) equal to
@@ -20,6 +22,13 @@ over the same maps, and the wrapper's host time term by term
 ``imma`` builds ``tools/imma_rate.cu`` with nvcc into ``build/`` and runs it:
 the TOP/s the card reaches with ``mma.sync.m16n8k32.s8`` and with
 ``wgmma.m64n128k32.s8`` when nothing but the instruction is in the loop.
+``tail2`` times B1 at 128 images of 16x16 at C = 256, J = 16: deconv1 and
+deconv2 + head alone for each ring depth (each held equal to its plain
+version), the wrapper, and the parent's design on the same inputs
+(``phase_conv`` x2 + ``phase_head``, which B2 and B5 still run), with the
+device time by kernel from torch.profiler. ``agg`` times B3 at J*N = 512, S = 4096: the quantize
+pass and the GEMM alone, the wrapper, the plain quantize, ``torch._int_mm``
+on pre-gathered operands, and the kernels' device time by torch.profiler.
 Inputs are random from a seed; nothing is read from disk. Every line of
 numbers ends with the card's name and power limit.
 """
@@ -38,6 +47,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from posetpu_torch.ops import _build  # noqa: E402
+from posetpu_torch.ops import aggregation as agg  # noqa: E402
 from posetpu_torch.ops import decode as dec  # noqa: E402
 from posetpu_torch.ops import phase_tail as pt  # noqa: E402
 from posetpu_torch.ops import resblock as rb  # noqa: E402
@@ -237,6 +247,134 @@ def imma(dev):
         print(f"{line} | {card()}")
 
 
+def tail2_inputs(rs, n, h, c, joints, dev):
+    """B1's serving-shaped inputs: x int8 [n, h*h, c], args whose requants
+    neither saturate nor vanish."""
+    def vec(k):
+        return np.stack([rs.uniform(0.5, 1.5, c) * 40.0 / (127.0 * np.sqrt(4 * k) * 60.0),
+                         rs.uniform(-2, 2, c)]).astype(np.float32)
+    args = {"w1": rs.randint(-127, 128, (4, 4, c, c)).astype(np.int8),
+            "w2": rs.randint(-127, 128, (4, 4, c, c)).astype(np.int8),
+            "s1": vec(c), "s2": vec(c),
+            "so1": np.asarray([[0.5]], np.float32), "so2": np.asarray([[0.5]], np.float32),
+            "wh": rs.randint(-127, 128, (c, joints)).astype(np.int8),
+            "vh": np.stack([rs.uniform(1e-4, 1e-3, joints),
+                            rs.uniform(-1, 1, joints)]).astype(np.float32)}
+    x = torch.from_numpy(rs.randint(0, 128, (n, h * h, c)).astype(np.int8)).to(dev)
+    return x, pt.tail2_device_args(args, dev)
+
+
+def tail2(dev, n=128, h=16, c=256, joints=16):
+    ptxas(["tail2", "phase_tail"])
+    rs = np.random.RandomState(0)
+    x, a = tail2_inputs(rs, n, h, c, joints, dev)
+    x4 = x.reshape(n, h, h, c)
+    ref = pt.phase_tail2_plain(x, a, h=h, w=h)
+    z1_ref = pt._phase_conv_plain(x4, a["w1"], a["s1"][0], a["s1"][1], a["so1"], interleave=True)
+    print(f"B1 inputs: z1 nonzero share {float((z1_ref != 0).float().mean()):.2f}, "
+          f"{len(torch.unique(z1_ref))} values; heatmap std {float(ref.std()):.4f}", flush=True)
+    macs1 = 16 * n * h * h * c * c
+    macs2 = 16 * n * 4 * h * h * c * c + n * 16 * h * h * joints * c
+    for label, run, macs, jt, hh in (
+            ("deconv1", lambda st: pt.launch_tail2(
+                x4, a["w1t"], a["s1"], a["so1"], stages=st), macs1, 0, h),
+            ("deconv2 + head", lambda st: pt.launch_tail2(
+                z1_ref, a["w2t"], a["s2"], a["so2"], a["wht"], a["vh"], stages=st),
+             macs2, 2, 2 * h)):
+        want = z1_ref if jt == 0 else ref
+        chosen = pt.plan_tail2(hh, hh, c, c, jt)
+        for stages in (2, 3, 4):
+            plan = pt.plan_tail2(hh, hh, c, c, jt, stages)
+            ok = torch.equal(run(stages), want)
+            ms = cuda_ms(lambda: run(stages))
+            mark = " (planned)" if plan == chosen else ""
+            print(f"B1 {label} ring {stages} x 128 B{mark}: {ms:.4f} ms, "
+                  f"{2 * macs / ms / 1e9:.1f} TOP/s, {'equal' if ok else 'DIFFERS'}, smem "
+                  f"{plan.smem}, blocks/SM {pt.tail2_blocks_per_sm(plan, jt)}, grid "
+                  f"{plan.tiles_x * plan.tiles_y * n} | {card()}", flush=True)
+    ok = torch.equal(pt.fused_phase_tail2(x, a, h=h, w=h), ref)
+    wrapper_ms = cuda_ms(lambda: pt.fused_phase_tail2(x, a, h=h, w=h))
+
+    def parent():  # the parent's B1: phase_conv x2 + phase_head, z2 through device memory
+        z1 = pt._launch_phase_conv(x4, a["w1"], a["s1"][0], a["s1"][1], 0, a["so1"],
+                                   pt._INTERLEAVED)
+        z2 = pt._launch_phase_conv(z1, a["w2"], a["s2"][0], a["s2"][1], 0, a["so2"],
+                                   pt._PHASE_MAJOR)
+        return pt._launch_phase_head(z2, a["wh"], a["vh"])
+    ok_parent = torch.equal(parent(), ref)
+    parent_ms = cuda_ms(parent)
+    print(f"B1 wrapper: {wrapper_ms:.4f} ms ({'equal' if ok else 'DIFFERS'}); the parent's "
+          f"design on the same inputs {parent_ms:.4f} ms ({'equal' if ok_parent else 'DIFFERS'}); "
+          f"bound {2 * (macs1 + macs2) / 1.979e15 * 1e3:.4f} ms | {card()}", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+    for label, fn in (("change", lambda: pt.fused_phase_tail2(x, a, h=h, w=h)),
+                      ("parent", parent)):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(5):
+                fn()
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                by[e.name[:40]] = by.get(e.name[:40], 0.0) + (e.time_range.end - e.time_range.start) / 5e3
+        print(f"B1 {label} device ms a call by kernel: "
+              f"{ {k: round(v, 4) for k, v in sorted(by.items(), key=lambda kv: -kv[1])} } | {card()}",
+              flush=True)
+
+
+def aggregation(dev, j=16, ng=32, s=4096):
+    ptxas(["aggregation"])
+    g = torch.Generator(device=dev).manual_seed(0)
+    qagg = {"wq": torch.randint(-127, 128, (4, 3, s, s), generator=g, device=dev,
+                                dtype=torch.int8),
+            "w_scale": torch.rand(4, 1, s, generator=g, device=dev) * 1e-3 + 1e-4,
+            "x_scale": torch.tensor(1.2 / 127, device=dev)}
+    qagg["sv"] = agg.fold_sv(qagg).contiguous()
+    hm = torch.randn(j, ng, 4, s, generator=g, device=dev) * 0.5
+    jn = j * ng
+    ref = agg.aggregation_grouped_plain(qagg, hm)
+    ok = torch.equal(agg.aggregation_grouped(qagg, hm), ref)
+    xq = agg.quantize_heatmaps(qagg, hm)
+    out = torch.empty((4, jn, s), dtype=torch.float32, device=dev)
+    lib = _build.load("aggregation", agg._SIGNATURES)
+    stream = pt.stream_of(hm)
+
+    def gemm():
+        lib.aggregation_grouped(xq.data_ptr(), qagg["wq"].data_ptr(), qagg["sv"].data_ptr(),
+                                out.data_ptr(), jn, s, stream)
+    gathered = [torch.cat([xq[p] for p in range(4) if p != t], dim=1) for t in range(4)]
+    bank_kn = [qagg["wq"][t].transpose(-1, -2).reshape(3 * s, s).contiguous() for t in range(4)]
+    macs = 4 * jn * 3 * s * s
+    times = {"quantize pass": cuda_ms(lambda: agg.quantize_heatmaps(qagg, hm)),
+             "plain quantize (PyTorch passes)": cuda_ms(lambda: agg._quantize(qagg, hm)),
+             "GEMM kernel": cuda_ms(gemm),
+             "wrapper": cuda_ms(lambda: agg.aggregation_grouped(qagg, hm)),
+             "4 x torch._int_mm, pre-gathered": cuda_ms(
+                 lambda: [torch._int_mm(gathered[t], bank_kn[t]) for t in range(4)])}
+    for k, v in times.items():
+        extra = f", {2 * macs / v / 1e9:.1f} TOP/s" if k in ("GEMM kernel", "wrapper") else ""
+        print(f"B3 {k}: {v:.4f} ms{extra}", flush=True)
+    print(f"B3 wrapper equal to plain: {ok}; bound {2 * macs / 1.979e15 * 1e3:.4f} ms by "
+          f"operations, bank {4 * 3 * s * s / 1e6:.1f} MB at 3.35 TB/s "
+          f"{4 * 3 * s * s / 3.35e12 * 1e3:.4f} ms | {card()}", flush=True)
+    from torch.profiler import ProfilerActivity, profile
+    agg.aggregation_grouped(qagg, hm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            agg.aggregation_grouped(qagg, hm)
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            by[e.name[:40]] = by.get(e.name[:40], 0.0) + (e.time_range.end - e.time_range.start) / 10e3
+    print(f"B3 device ms a call by kernel: "
+          f"{ {k: round(v, 4) for k, v in sorted(by.items(), key=lambda kv: -kv[1])} } | {card()}",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -244,7 +382,8 @@ def main() -> int:
     dev = torch.device("cuda")
     print(f"card: {card()} | torch {torch.__version__}")
     for mode in sys.argv[1:] or ["check"]:
-        {"check": check, "sweep": sweep, "decode": decode, "imma": imma}[mode](dev)
+        {"check": check, "sweep": sweep, "decode": decode, "imma": imma, "tail2": tail2,
+         "agg": aggregation}[mode](dev)
     return 0
 
 
