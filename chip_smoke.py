@@ -17,23 +17,30 @@ Phases, each of which fails the run on its own:
    path and read just after: each kernel of the path must have launched.
    - path 1, the defaults: ``build_serving_pipeline``, 32 four-view groups
      (128 images) per request: B2, B1, B3 (and B3's quantize pass); its
-     profiled request must show B1 as two ``tail2_kernel`` launches and no
-     ``phase_head_kernel`` (z2 stays on chip), one ``phase_conv_kernel`` (B2);
+     profiled request must show B1 as two launches of ``tail2_kernel``'s B1
+     instances and no ``phase_head_kernel`` (z2 stays on chip), one
+     ``phase_conv_kernel`` (B2);
    - path 2: ``build_serving_pipeline(flip_test="premirrored",
      agg_w4=True)``, 32 groups, so 256 images through the trunk: B2, B1, B4;
      one request is profiled (device time by kernel family, idle share) and
      one request with ``flip_test=True`` must give equal preds and maxvals;
-   - path 3: ``quantize_pose_resnet(phase_kernel=1)`` with
+   - path 3: ``quantize_pose_resnet(jns_head="phase", phase_kernel=1,
+     stem_s2d="pre", act4_mode="s4", subpixel_deconvs={"deconv0"})`` with
      ``SUBPIX_BATCHED = False``, the levels=1 tables, the int8 bank, decode
      and triangulation, 8 groups: B6, B5 (and B3); deconv1 runs the dilated
      int8 conv;
    - path 4: ``build_float_pipeline(flip_test=True)``, 8 groups: B7;
-   - path 5a: ``quantize_pose_resnet(jns_head=False, stem_s2d=False)`` then
-     ``make_fused_forward(model, qparams)``: float normalised [N, 256, 256, 3]
-     input, 32 groups, heatmaps [G, V, J, h, w] -> ``final_preds`` (B7) ->
-     ``triangulate_points``: B9a x2 and B9b x1 per forward;
+   - path 5a: ``quantize_pose_resnet(model, calib)`` at its defaults (the
+     JAX package's) then ``make_fused_forward(model, qparams)``: float
+     normalised [N, 256, 256, 3] input, pinned on the host once and uploaded
+     with ``non_blocking`` each request, 32 groups, heatmaps [G, V, J, h, w]
+     -> ``final_preds`` (B7) -> ``triangulate_points``: B9a x2 and B9b x1 per
+     forward (``tail2_kernel``'s B9 instances: deconv0 on the streamed halo,
+     deconv1 and deconv2 + head on the resident one); 8 timed requests,
+     frames/s as the median and the min-max over them;
    - path 5b: ``make_fused_forward(model, qparams, pallas_blocks=True)``:
-     B8a x13, B9a x2, B9b x1 per forward; one request is profiled;
+     B8a x13, B9a x2, B9b x1 per forward, 8 timed requests; one request is
+     profiled, and must show each B9 launch under its instance's name;
    - path 5c: path 5b with the 12 identity blocks sent to B8b (``imgs=2``)
      by this script (no entry point of the package routes there): the A/B of
      the two bottleneck kernels end to end;
@@ -42,20 +49,23 @@ Phases, each of which fails the run on its own:
 4. each kernel against its plain PyTorch version on the card, on the inputs
    its path gives it (taken from one more request): outputs must be equal.
    Timed with CUDA events (3 warm-up calls, median of 20): the kernel, its
-   plain version, and where one PyTorch call computes the same function a
+   plain version, and where PyTorch computes the same products a
    yardstick (B3, B4: 4 ``torch._int_mm`` calls on pre-gathered operands,
-   B3 also its GEMM kernel alone; B1 also the parent design's launches
-   ``phase_conv`` x2 + ``phase_head`` on the same input;
-   the 4-bit bank widened to int8; B7: ``torch.max`` over the maps
-   flattened, from the same input). B7 runs at path 4's 512 maps (the
-   numbers of its ``kernels`` entry) and at path 5b's 2,048, with the
-   wrapper's host time per call beside ``torch.max``'s. B8a runs on each of
-   the 13 block inputs path 5b gives it (its time is their sum; each line
-   carries the block shape its planner chose: rows per block, ring stages,
-   staging tiles, shared memory, blocks per SM, registers) and each block is
-   also held within one int8 step of the runner's block on the same input;
-   B9a on both its deconvs; B8b on path
-   5c's 12 inputs, equal to its plain version and to B8a's output;
+   the 4-bit bank widened to int8, B3 also its GEMM kernel alone; the
+   phase-form deconvs B2, B5, B6, B9a and B9b: per phase one
+   ``torch._int_mm`` on the four shifted taps gathered beforehand, and for
+   a head one more on its int8 input: the GEMMs alone; B1 also the parent
+   design's launches ``phase_conv`` x2 + ``phase_head`` on the same input;
+   B7: ``torch.max`` over the maps flattened, from the same input). B7 runs
+   at path 4's 512 maps (the numbers of its ``kernels`` entry) and at path
+   5b's 2,048, with the wrapper's host time per call beside ``torch.max``'s.
+   B8a runs on each of the 13 block inputs path 5b gives it (its time is
+   their sum; each line carries the block shape its planner chose: rows per
+   block, ring stages, staging tiles, shared memory, blocks per SM,
+   registers) and each block is also held within one int8 step of the
+   runner's block on the same input; B9a on both its deconvs (the kernels
+   line carries each call's case, with its design, and their sum); B8b on
+   path 5c's 12 inputs, equal to its plain version and to B8a's output;
 5. card vs CPU on one group through the same port on ``device="cpu"`` with
    the same params, for path 1 and path 2 (the s4 bank): maxvals equal,
    preds within atol 1e-4 (the inverse affine's tiny matmul may round
@@ -201,7 +211,10 @@ def profile_request(fn) -> dict:
         wall_us = (time.perf_counter() - t) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(dev, "torch.profiler recorded no device activity")
-    families = {"deconv1 + deconv2 + head (B1)": ("tail2_kernel",),
+    families = {"deconv1 + deconv2 + head (B1)": ("tail2_kernel<0, 0,", "tail2_kernel<2, 0,",
+                                                   "tail2_kernel<4, 0,"),
+                "subpixel deconv + head (B9a, B9b)": ("tail2_kernel<0, 1,", "tail2_kernel<2, 1,",
+                                                      "tail2_kernel<4, 1,"),
                 "phase_conv (B2, B5, B6)": ("phase_conv",),
                 "phase_head (B5)": ("phase_head",),
                 "aggregation (B3, B4, B3's quantize)": ("aggregation_kernel",
@@ -209,7 +222,6 @@ def profile_request(fn) -> dict:
                                                         "quantize_kernel"),
                 "decode (B7)": ("decode_kernel",),
                 "bottleneck (B8a, B8b)": ("bottleneck_rows_kernel", "bottleneck_im2col_kernel"),
-                "subpixel deconv + head (B9a, B9b)": ("deconv_kernel", "deconv_head_kernel"),
                 "f32 convolutions and GEMMs (float path)": (
                     "cudnn", "conv", "sgemm", "gemv", "f32f32", "fft",
                     "pointwise_mult_and_sum"),
@@ -224,8 +236,8 @@ def profile_request(fn) -> dict:
                    "other PyTorch kernels (im2col, epilogues, decode)")
         by_family[fam] = by_family.get(fam, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
-        if "posetpu::" in e.name:  # the hand kernels, launches by name
-            short = e.name.split("posetpu::")[1].split("(")[0].split("<")[0]
+        if "posetpu::" in e.name:  # the hand kernels, launches by name and instance
+            short = e.name.split("posetpu::")[1].split("(")[0].replace(" ", "")
             hand[short] = hand.get(short, 0) + 1
     busy, end = 0.0, float("-inf")
     for a, b in sorted(spans):  # union of device intervals
@@ -256,6 +268,34 @@ def bound(ops: float, nbytes_: float, peak_ops: float = PEAK_INT8_OPS):
     counts a multiply-accumulate as 2."""
     t_ops, t_bytes = ops / peak_ops * 1e3, nbytes_ / PEAK_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+
+
+def phase_gemms(x4, wk, z=None, wh=None):
+    """The library yardstick of a phase-form deconv (+ head) on x4 [N, H, W,
+    Cin] int8 with K-minor weights wk [4 phase, 4 tap, Cout, Cin]: per phase
+    one ``torch._int_mm`` [N H W, 4 Cin] x [4 Cin, Cout] on operands gathered
+    beforehand (the four shifted taps side by side, zeros outside the image;
+    not timed), and for a head wh [J, Cout] one more on its int8 input ``z``
+    [..., Cout]: the GEMMs alone, as B3's yardstick."""
+    import torch
+    import torch.nn.functional as F
+
+    n, h, w, cin = x4.shape
+    xp = F.pad(x4, (0, 0, 1, 1, 1, 1))
+    a_ops, b_ops = [], []
+    for g in range(4):
+        a, b = g >> 1, g & 1
+        taps = [xp[:, (t >> 1) + a:(t >> 1) + a + h, (t & 1) + b:(t & 1) + b + w].reshape(-1, cin)
+                for t in range(4)]
+        a_ops.append(torch.cat(taps, dim=1).contiguous())
+        b_ops.append(wk[g].permute(0, 2, 1).reshape(4 * cin, -1).contiguous())
+    calls = [lambda g=g: torch._int_mm(a_ops[g], b_ops[g]) for g in range(4)]
+    if z is not None:
+        zz = z.reshape(-1, z.shape[-1]).contiguous()
+        # cuBLASLt's int8 GEMM refuses some shapes: N padded to 32, as ops/int_mm
+        wk_h = F.pad(wh.t(), (0, -wh.shape[0] % 32)).contiguous()
+        calls.append(lambda: torch._int_mm(zz, wk_h))
+    return lambda: [c() for c in calls]
 
 
 def kernel_registers(build_log: str, kernel: str) -> dict:
@@ -353,18 +393,17 @@ def main() -> int:
           f"the s4 bank is not nibble-packed on the card: {bank4.dtype} {tuple(bank4.shape)}")
     act4 = tuple(f"layer1_{i}.out" for i in range(3)) + tuple(
         f"layer2_{i}.out" for i in range(4))
-    q3, fwd3 = quant.quantize_pose_resnet(model.resnet, calib, phase_kernel=1,
+    q3, fwd3 = quant.quantize_pose_resnet(model.resnet, calib, jns_head="phase",
+                                          phase_kernel=1, stem_s2d="pre",
                                           subpixel_deconvs={"deconv0"}, act4=act4,
-                                          device=dev)
+                                          act4_mode="s4", device=dev)
     tables3 = phase_index_tables((64, 64), levels=1)
     qagg3 = agg.aggregation_device_params(quant.permute_aggregation_packed(
         quant.quantize_aggregation_grouped(model.aggre_layer.weight), tables3), dev)
     torch.cuda.synchronize()
     log(f"paths 2 and 3 calibration + quantization: {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    q5, fwd5 = quant.quantize_pose_resnet(model.resnet, calib, jns_head=False,
-                                          stem_s2d=False, subpixel_deconvs=False,
-                                          phase_kernel=False, device=dev)
+    q5, fwd5 = quant.quantize_pose_resnet(model.resnet, calib, device=dev)  # JAX's defaults
     p5a, fwd5a = quant.make_fused_forward(model.resnet, q5, device=dev)
     p5b, fwd5b = quant.make_fused_forward(model.resnet, q5, pallas_blocks=True, device=dev)
     blocks5 = list(p5b["fused"])
@@ -426,7 +465,8 @@ def main() -> int:
         return lambda x: triangulated(*final_preds(heatmaps5(fwd, params, x), center, scale),
                                       cams)
 
-    make_x5 = lambda: torch.from_numpy(frames5).to(dev)
+    frames5_pinned = torch.from_numpy(frames5).pin_memory()
+    make_x5 = lambda: frames5_pinned.to(dev, non_blocking=True)
 
     @contextmanager
     def identity_blocks_through_v2():
@@ -473,9 +513,11 @@ def main() -> int:
             check(bool(torch.isfinite(t).all()), f"{label}: non-finite {name}")
         check(float(maxvals.std()) > 0, f"{label}: maxvals are constant")
         fps = (requests - 1) * n_groups * VIEWS / sum(times[1:])
+        per = sorted(n_groups * VIEWS / t for t in times[1:])
         log(f"{label}: {requests} requests x {n_groups * VIEWS} frames, request s "
             f"{[round(t, 4) for t in times]}, {fps:.1f} frames/s over the last "
-            f"{requests - 1}, peak {peak_gib:.2f} GiB, launches "
+            f"{requests - 1} (a request: median {statistics.median(per):.1f}, min-max "
+            f"{per[0]:.1f}-{per[-1]:.1f}), peak {peak_gib:.2f} GiB, launches "
             f"{ {k: v for k, v in counts.items() if v} } | {card}")
         return preds, maxvals
 
@@ -500,9 +542,9 @@ def main() -> int:
           lambda: pipe4.prepare(views_f32), g, 3, ["decode_heatmaps_kernel"])
     tail5 = ["deconv.fused_subpixel_deconv", "fused_subpixel_deconv_head",
              "decode_heatmaps_kernel"]
-    drive(PATH5A, serve5(fwd5a, p5a), make_x5, GROUPS, 3, tail5)
-    drive(PATH5B, serve5(fwd5b, p5b), make_x5, GROUPS, 3, ["fused_bottleneck"] + tail5)
-    per_forward = {k: v / 3 for k, v in launches_by_path[PATH5B].items() if v}
+    drive(PATH5A, serve5(fwd5a, p5a), make_x5, GROUPS, 9, tail5)
+    drive(PATH5B, serve5(fwd5b, p5b), make_x5, GROUPS, 9, ["fused_bottleneck"] + tail5)
+    per_forward = {k: v / 9 for k, v in launches_by_path[PATH5B].items() if v}
     check(per_forward == {"fused_bottleneck": 13, "deconv.fused_subpixel_deconv": 2,
                           "fused_subpixel_deconv_head": 1, "decode_heatmaps_kernel": 1},
           f"{PATH5B}: launches per forward {per_forward}")
@@ -568,11 +610,18 @@ def main() -> int:
         finally:
             pt.SUBPIX_BATCHED = True
         log(f"profile {label}: " + json.dumps({"prepare_ms": prepare_ms, **prof}))
+        hand = prof["hand_kernel_launches"]
         if label == "path 1":  # B1 keeps z2 on chip: no phase_head, B2 alone on phase_conv
-            hand = prof["hand_kernel_launches"]
-            check(hand.get("tail2_kernel") == 2 and "phase_head_kernel" not in hand
-                  and hand.get("phase_conv_kernel") == 1 and hand.get("quantize_kernel") == 1,
-                  f"path 1: hand kernel launches {hand}")
+            check(hand.get("tail2_kernel<0,0,0>") == 1 and hand.get("tail2_kernel<2,0,0>") == 1
+                  and "phase_head_kernel" not in hand and hand.get("phase_conv_kernel") == 1
+                  and hand.get("quantize_kernel") == 1, f"path 1: hand kernel launches {hand}")
+        if label == "path 5b":  # B9a: deconv0 streamed, deconv1 on the halo; B9b on the halo
+            stream = pt.DESIGNS.index(dcv.STREAM_DESIGN)
+            b9 = {k: v for k, v in hand.items() if k.startswith("tail2_kernel")}
+            rows = sum(v for k, v in hand.items() if k.startswith("bottleneck_rows_kernel"))
+            check(b9 == {f"tail2_kernel<0,1,{stream}>": 1, "tail2_kernel<0,1,0>": 1,
+                         "tail2_kernel<2,1,0>": 1} and rows == 13
+                  and hand.get("decode_kernel") == 1, f"path 5b: hand kernel launches {hand}")
 
     # one more request per path to take each kernel's inputs for phase 4 (the
     # callers look the kernels up on their modules at call time)
@@ -686,10 +735,14 @@ def main() -> int:
         cout = a0["w"].shape[2]
         return 2 * 16 * n * hw * cout * cin, nbytes(x0, a0) + 4 * n * hw * cout
 
+    def x4_of(x, kw):
+        return x.reshape(x.shape[0], kw["h"], kw["w"], x.shape[-1])
+
     (x0, a0), kw0 = seen["fused_subpixel_deconv_batched"]
     compare("fused_subpixel_deconv_batched", "posetpu_torch/csrc/phase_tail.cu",
             "posetpu/ops/pallas/phase_tail.py:609", pt.subpixel_deconv_plain,
-            (x0, a0), kw0, *subpixel_work(x0, a0))
+            (x0, a0), kw0, *subpixel_work(x0, a0),
+            library=phase_gemms(x4_of(x0, kw0), a0["w"]))
 
     (x1, a1), kw1 = seen["fused_phase_tail2"]
     n, hw, cin = x1.shape
@@ -763,15 +816,20 @@ def main() -> int:
     (x5, a5), kw5 = seen["fused_phase_tail"]
     n, hw, cin = x5.shape
     cout, joints = a5["w"].shape[2], a5["wh"].shape[0]
+    z5 = pt._phase_conv_plain(x4_of(x5, kw5), a5["w"], a5["sv"][0], a5["sv"][1], a5["so"],
+                              interleave=False)
     compare("fused_phase_tail", "posetpu_torch/csrc/phase_tail.cu",
             "posetpu/ops/pallas/phase_tail.py:184", pt.phase_tail_plain, (x5, a5), kw5,
             2 * (16 * n * hw * cout * cin + n * 4 * hw * joints * cout),
-            nbytes(x5, a5) + 4 * joints * n * 4 * hw)
+            nbytes(x5, a5) + 4 * joints * n * 4 * hw,
+            library=phase_gemms(x4_of(x5, kw5), a5["w"], z5, a5["wh"]))
+    del z5
 
     (x6, a6), kw6 = seen["fused_subpixel_deconv"]
     compare("fused_subpixel_deconv", "posetpu_torch/csrc/phase_tail.cu",
             "posetpu/ops/pallas/phase_tail.py:527", pt.subpixel_deconv_pairs_plain,
-            (x6, a6), kw6, *subpixel_work(x6, a6))
+            (x6, a6), kw6, *subpixel_work(x6, a6),
+            library=phase_gemms(x4_of(x6, kw6), a6["w"]))
 
     # B7: one compare and one select per element, outside the tensor cores;
     # every map read once, 12 bytes written per map. At path 4's 512 maps
@@ -879,17 +937,37 @@ def main() -> int:
         n, hw, cin = x.shape
         cout = a["w"].shape[2]
         out_bytes = 4 * n * hw * (4 * joints if joints else cout)
+        # each weight counts once: the kernel reads the stage images (wt, wht)
+        once = {k: v for k, v in a.items() if k not in ("wt", "wht")}
         return (2 * n * hw * (16 * cin * cout + 4 * joints * cout),
-                nbytes(x, a) + out_bytes)
+                nbytes(x, once) + out_bytes)
 
-    compare_cases("deconv.fused_subpixel_deconv", "posetpu_torch/csrc/deconv.cu",
-                  "posetpu/ops/pallas/deconv.py:122", dcv.subpixel_deconv_plain,
-                  [(f" deconv{i}", a, kw, *deconv_work(a[0], a[1]))
-                   for i, (a, kw) in enumerate(seen5["fused_subpixel_deconv"])])
+    def deconv_design(args, kw):
+        x, a = args
+        _, _, cout, cin = a["w"].shape
+        d = dcv.deconv_design(cin, cout, a["wh"].shape[0] if "wh" in a else 0)
+        stream = d != "halo"
+        plan = pt.plan_tail2(kw["h"], kw["w"], cin, cout, 2 if "wh" in a else 0,
+                             dcv.STREAM_STAGES if stream else None, design=d, folded=True,
+                             sets=dcv.STREAM_SETS if stream else None)
+        return (f"design {d}, {plan.stages} ring stages, {plan.sets} (phase, n-half) pairs a "
+                f"block, {plan.smem} bytes of shared memory")
+
+    cases9a = [(f" deconv{i}", a, kw, *deconv_work(a[0], a[1]))
+               for i, (a, kw) in enumerate(seen5["fused_subpixel_deconv"])]
+    compare_cases("deconv.fused_subpixel_deconv", "posetpu_torch/csrc/tail2.cu",
+                  "posetpu/ops/pallas/deconv.py:122", dcv.subpixel_deconv_plain, cases9a,
+                  library={tag: phase_gemms(x4_of(a[0], kw), a[1]["w"])
+                           for tag, a, kw, _, _ in cases9a},
+                  note=deconv_design)
     (x9, a9), kw9 = seen5["fused_subpixel_deconv_head"][0]
-    compare("fused_subpixel_deconv_head", "posetpu_torch/csrc/deconv.cu",
+    z9 = dcv.subpixel_deconv_plain(x9, a9, **kw9)
+    compare("fused_subpixel_deconv_head", "posetpu_torch/csrc/tail2.cu",
             "posetpu/ops/pallas/deconv.py:151", dcv.subpixel_deconv_head_plain,
-            (x9, a9), kw9, *deconv_work(x9, a9, joints=a9["wh"].shape[0]))
+            (x9, a9), kw9, *deconv_work(x9, a9, joints=a9["wh"].shape[0]),
+            library=phase_gemms(x4_of(x9, kw9), a9["w"], z9, a9["wh"]))
+    log(f"kernel fused_subpixel_deconv_head: {deconv_design((x9, a9), kw9)}")
+    del z9, cases9a
     del seen5, block_cases
 
     # ------------------------------------------------------------ 5. card vs CPU

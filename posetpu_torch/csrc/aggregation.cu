@@ -51,8 +51,6 @@
 // ~0.104 ms by operations; all inputs and outputs (~152 MB) are 0.045 ms.
 // B4 keeps its first design (int8_mma.cuh's two-stage loop).
 
-#include <cuda.h>  // CUtensorMap and its enums (types only: nothing links -lcuda)
-
 #include "ring.cuh"
 
 namespace posetpu {
@@ -294,43 +292,6 @@ extern "C" int aggregation_grouped_s4(const void* xq, const void* wq4,
   return static_cast<int>(cudaGetLastError());
 }
 
-// cuTensorMapEncodeTiled, looked up through the runtime's entry-point query
-// (nothing links -lcuda)
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    if (cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault,
-                                         &q) == cudaSuccess && q == cudaDriverEntryPointSuccess)
-#else
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q) ==
-            cudaSuccess && q == cudaDriverEntryPointSuccess)
-#endif
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// an int8 tensor of ``rank`` dims (innermost first, ``pitch`` bytes between
-// the entries of each outer dim) cut into ``box`` tiles, 128-byte swizzle
-static bool uint8_map(CUtensorMap* map, const void* base, int rank, const cuuint64_t* dims,
-                      const cuuint64_t* pitch, const cuuint32_t* box) {
-  EncodeTiled fn = encode_tiled();
-  const cuuint32_t ones[3] = {1, 1, 1};
-  return fn != nullptr &&
-         fn(map, CU_TENSOR_MAP_DATA_TYPE_UINT8, rank, const_cast<void*>(base), dims, pitch, box,
-            ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-             CUDA_SUCCESS;
-}
-
 // B3. S % 16 == 0 (a tensor map's row pitch), any J*N.
 extern "C" int aggregation_grouped(const void* xq, const void* wq,
                                    const void* sv, void* out, int jn, int s,
@@ -349,7 +310,8 @@ extern "C" int aggregation_grouped(const void* xq, const void* wq,
   const cuuint64_t wd[2] = {static_cast<cuuint64_t>(s), 12ull * s};
   const cuuint64_t wp[1] = {static_cast<cuuint64_t>(s)};
   const cuuint32_t wb[2] = {G_BK, G_BN};
-  if (!uint8_map(&tm_x, xq, 3, xd, xp, xb) || !uint8_map(&tm_w, wq, 2, wd, wp, wb))
+  if (!uint8_map(&tm_x, xq, 3, xd, xp, xb, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !uint8_map(&tm_w, wq, 2, wd, wp, wb, CU_TENSOR_MAP_SWIZZLE_128B))
     return static_cast<int>(cudaErrorInvalidValue);
   dim3 grid((jn + G_BM - 1) / G_BM, (s + G_BN - 1) / G_BN, 4);
   aggregation_kernel<<<grid, G_THREADS, G_SMEM, static_cast<cudaStream_t>(stream)>>>(

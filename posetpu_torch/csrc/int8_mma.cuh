@@ -23,11 +23,12 @@
 // and not memory bandwidth, but the step: 32 bytes of K behind a
 // cp.async.wait_group and two __syncthreads is an exposed L2 round trip,
 // and 24 four-byte ld.shared feed 16 mma. The kernels built on them (B2, B4,
-// B5, B6, B8b, B9a, B9b) sit 7-22x above their bounds for that reason. B8a
+// B5, B6, B8b) sit 7-22x above their bounds for that reason. B8a
 // (resblock.cu) left these loops for a three-stage ring 64 bytes deep that
-// runs across tiles, ldmatrix fragments and bulk-copied weight stages, B1
-// (tail2.cu) and B3 (aggregation.cu) for wgmma fed from rings of bulk copies,
-// and PERF.md has what each step bought; the same is queued for the rest.
+// runs across tiles, ldmatrix fragments and bulk-copied weight stages, B1,
+// B9a and B9b (tail2.cu) and B3 (aggregation.cu) for wgmma fed from rings of
+// bulk copies, and PERF.md has what each step bought; the same is queued for
+// the rest.
 #pragma once
 
 #include <cstdint>

@@ -658,14 +658,17 @@ def quantize_weights(folded: dict, act_scales: dict, subpixel_deconvs=False,
     }
 
 
-def quantize_pose_resnet(model, calib_batches, *, subpixel_deconvs=frozenset({"deconv0"}),
-                         jns_head="phase", stem_s2d="pre", phase_kernel=2,
-                         act4=(), act4_mode: str = "s4", device=None) -> tuple[dict, Any]:
+def quantize_pose_resnet(model, calib_batches, *, subpixel_deconvs=False, jns_head=False,
+                         stem_s2d=False, phase_kernel=False, act4=(),
+                         act4_mode: str = "packed", device=None) -> tuple[dict, Any]:
     """One-call PTQ of a PoseResNet module. Returns (qparams, forward) with
     ``forward(qparams, x)`` -> f32 heatmaps. ``device``: CUDA unless given.
-    The defaults are the serving pipeline's (the JAX call with
-    ``jns_head="phase", stem_s2d="pre"``): x the s2d-packed int8 input
-    [N, H/2, W/2, 12] from :func:`make_u8_quant` -> phase-packed [J, N, h*w].
+    The defaults are the JAX package's: x [N, H, W, 3] -> heatmaps
+    [N, h, w, J], every deconv the dilated int8 conv, no kernel. The serving
+    pipeline passes ``subpixel_deconvs={"deconv0"}, jns_head="phase",
+    stem_s2d="pre", phase_kernel=2, act4_mode="s4"``: x the s2d-packed int8
+    input [N, H/2, W/2, 12] from :func:`make_u8_quant` -> phase-packed
+    [J, N, h*w].
 
     ``stem_s2d``: ``False`` — x is [N, H, W, 3], normalised floats (quantised
     here) or int8, through the 7x7/s2 stem; ``True`` — the same x, packed
@@ -765,7 +768,7 @@ def make_fused_forward(model, qparams, subpixel_deconvs=False, pallas_deconvs: b
     stem stay on the runner's path. The argument names are the JAX
     package's, whose kernels are Pallas kernels.
 
-    ``qparams``: from ``quantize_pose_resnet(jns_head=False, stem_s2d=False)``
+    ``qparams``: from ``quantize_pose_resnet(model, calib)`` at its defaults
     (``subpixel_deconvs`` as there, for the deconvs that run on the runner's
     path). Returns (params, forward) with params = {"q", "fused", "deconv"},
     the kernels' arguments on ``device`` (CUDA unless given);

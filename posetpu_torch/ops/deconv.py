@@ -1,6 +1,7 @@
 """The fused int8 subpixel transposed conv with row-major output (B9a) and
-the same with the 1x1 head (B9b): hand-written CUDA kernels
-(``csrc/deconv.cu``) with their plain PyTorch versions beside them.
+the same with the 1x1 head (B9b): hand-written CUDA kernels, instances of
+the phase-form kernel of ``csrc/tail2.cu`` (B1's), with their plain
+PyTorch versions beside them.
 
 Ports posetpu/ops/pallas/deconv.py with the same contracts:
 
@@ -19,9 +20,19 @@ Scale and bias arrive pre-divided by the output scale
 (:func:`build_deconv_args`, numpy, the JAX package's order of operations) and
 the sum is rounded once; multiply and add round separately. On a CUDA tensor
 a wrapper launches its kernel (counted in ``launches``) or raises; on a CPU
-tensor it runs the plain version. Weights feed the kernels K-minor
-(:func:`deconv_device_args`). Shapes the kernels take: Cin % 32 == 0,
-Cout % 8 == 0, any batch, image size and joint count.
+tensor it runs the plain version.
+
+The design, picked by shape (:func:`deconv_design`): where the input tile's
+halo fits a block's shared memory with the folded epilogue (Cin up to about
+960, deconv1 and deconv2 + head at serving), the resident halo of B1's
+kernel; otherwise (deconv0, Cin 2048) the input streamed through the ring,
+:data:`STREAM_DESIGN` with :data:`STREAM_SETS` (phase, n-half) pairs a block
+and :data:`STREAM_STAGES` ring stages. :func:`deconv_device_args` tiles the
+weights into that design's stage images (``wt``) beside the K-minor
+[phase, tap, Cout, Cin] ``w`` the plain version reads, and pads the head
+(``wht``). Shapes the kernels take: Cin % 32 == 0, Cout % 8 == 0, J <= 32, a head only after a deconv whose halo
+fits; any batch and image size. A wrapper raises ``ValueError`` on anything
+else.
 """
 
 from __future__ import annotations
@@ -29,20 +40,24 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from posetpu_torch.ops import _build
 from posetpu_torch.ops.int_mm import int_mm
 from posetpu_torch.ops.phase_tail import (
     _k_minor,
     _np,
     _to,
-    check_cuda,
+    halo_fits,
+    launch_tail2,
+    pad_head,
     phase_sums,
-    stream_of,
     subpixel_interleave_packed_nmajor,
+    tile_phase_weight,
 )
 
-_P, _I = _build.P, _build.I
-_SIGNATURES = {"subpixel_deconv": [_P] * 6 + [_I] * 6 + [_P]}
+# deconv0's design (Cin 2048: the halo does not fit), measured on the H100 at
+# 128 images of 8x8 (tools/torch_kernel_sweep.py deconv): the streamed halo,
+# four (phase, n-half) pairs a block (128 blocks: one wave, one an SM) and a
+# ring of 7 stages beat 1, 2 or 8 pairs and shallower rings by 5-15 %
+STREAM_DESIGN, STREAM_SETS, STREAM_STAGES = "stream", 4, 7
 
 
 # ------------------------------------------------------------ plain versions
@@ -71,6 +86,14 @@ def subpixel_deconv_head_plain(x, args, *, h: int, w: int):
 # ------------------------------------------------------------ the wrappers
 
 
+def deconv_design(cin: int, cout: int, joints: int = 0) -> str:
+    """The design the kernels take at these widths: ``"halo"`` where the
+    resident halo fits with the folded epilogue (and the head's J), else
+    :data:`STREAM_DESIGN`."""
+    jt = 0 if not joints else (2 if joints <= 16 else 4)
+    return "halo" if halo_fits(cin, cout, jt, folded=True) else STREAM_DESIGN
+
+
 def _launch(x, args, h, w, head: bool, what):
     n, hw, cin = x.shape
     wk = args["w"]
@@ -78,26 +101,23 @@ def _launch(x, args, h, w, head: bool, what):
     if hw != h * w:
         raise ValueError(f"{what}: x has {hw} pixels per image, not {h}x{w}")
     if (x.dtype != torch.int8 or wk.dtype != torch.int8 or wk.shape != (4, 4, cout, cin)
-            or args["v"].shape != (2, 4 * cout) or cin % 32 or cout % 8):
-        raise ValueError(f"{what}: unsupported shapes x {tuple(x.shape)}, "
-                         f"w {tuple(wk.shape)} (Cin % 32 == 0, Cout % 8 == 0)")
-    tensors = {"x": x, "w": wk, "v": args["v"]}
-    joints, wh, vh = 0, None, None
-    if head:
-        wh, vh = args["wh"], args["vh"]
-        joints = wh.shape[0]
-        if wh.dtype != torch.int8 or wh.shape != (joints, cout) or vh.shape != (2, joints):
-            raise ValueError(f"{what}: unsupported head wh {tuple(wh.shape)}, "
-                             f"vh {tuple(vh.shape)}")
-        tensors.update(wh=wh, vh=vh)
-    check_cuda(what, **tensors)
-    out = torch.empty((n, 4 * hw, joints if head else cout),
-                      dtype=torch.float32 if head else torch.int8, device=x.device)
-    _build.check(_build.load("deconv", _SIGNATURES).subpixel_deconv(
-        x.data_ptr(), wk.data_ptr(), args["v"].data_ptr(),
-        wh.data_ptr() if head else 0, vh.data_ptr() if head else 0, out.data_ptr(),
-        n, h, w, cin, cout, joints, stream_of(x)), what)
-    return out
+            or (head and args["wh"].dtype != torch.int8)):
+        raise ValueError(f"{what}: unsupported x {x.dtype} {tuple(x.shape)}, "
+                         f"w {wk.dtype} {tuple(wk.shape)}")
+    joints = args["wh"].shape[0] if head else 0
+    design = deconv_design(cin, cout, joints)
+    if head and design != "halo":
+        raise ValueError(f"{what}: a head follows only a deconv whose input tile fits the "
+                         f"resident halo; Cin {cin}, Cout {cout} does not")
+    if head and (args["wh"].shape != (joints, cout) or args["vh"].shape != (2, joints)):
+        raise ValueError(f"{what}: unsupported head wh {tuple(args['wh'].shape)}, "
+                         f"vh {tuple(args['vh'].shape)}")
+    stream = design != "halo"
+    out = launch_tail2(x.reshape(n, h, w, cin), args["wt"], args["v"], None,
+                       args["wht"] if head else None, args["vh"] if head else None,
+                       folded=True, design=design, sets=STREAM_SETS if stream else None,
+                       stages=STREAM_STAGES if stream else None)
+    return out if head else out.reshape(n, 4 * hw, cout)
 
 
 def fused_subpixel_deconv(x, args, *, h: int, w: int):
@@ -172,8 +192,10 @@ def build_head_args(qparams, s_in: float) -> dict:
 
 def deconv_device_args(args: dict, device) -> dict:
     """JAX-layout deconv (+ head) args (numpy or arrays) -> the kernels'
-    tensors: w [4 phase, 4 tap, Cout, Cin] and wh [J, C] int8 (K-minor), v
-    [2, 4*Cout] and vh [2, J] f32."""
+    tensors: w [4 phase, 4 tap, Cout, Cin] and wh [J, C] int8 (K-minor, what
+    the plain versions read), v [2, 4*Cout] and vh [2, J] f32, and the
+    kernel's stage images ``wt`` and padded head ``wht``
+    (:func:`with_deconv_weights`)."""
     w = np.asarray(_np(args["w"]))  # [4 tap, I, 4*O]
     taps, cin, o4 = w.shape
     wk = w.reshape(taps, cin, 4, o4 // 4).transpose(2, 0, 3, 1)  # [phase, tap, O, I]
@@ -181,4 +203,18 @@ def deconv_device_args(args: dict, device) -> dict:
     if "wh" in args:
         out["wh"] = _k_minor(args["wh"], device)
         out["vh"] = _to(args["vh"], device)
+    return with_deconv_weights(out)
+
+
+def with_deconv_weights(args: dict) -> dict:
+    """``args`` (the K-minor tensors) with the kernel's weights beside them:
+    ``wt`` the stage images in the order of the design :func:`deconv_design`
+    picks for these widths (the streamed halo's chunked K order, or the
+    taps'), and for a head ``wht`` (:func:`ops.phase_tail.pad_head`)."""
+    _, _, cout, cin = args["w"].shape
+    joints = args["wh"].shape[0] if "wh" in args else 0
+    out = dict(args, wt=tile_phase_weight(
+        args["w"], chunked=deconv_design(cin, cout, joints) == "stream"))
+    if "wh" in args:
+        out["wht"] = pad_head(args["wh"])
     return out

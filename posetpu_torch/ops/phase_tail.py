@@ -23,7 +23,10 @@ an interleaved z1, then deconv2 with the head, z2 kept in shared memory. A
 block takes a 16 x 8 tile of the input grid and its halo once and runs
 wgmma with A read from the halo; its shared memory is planned per shape by
 the pure :func:`plan_tail2`, and the weights arrive as the stage images
-:func:`tile_phase_weight` makes (``tail2_device_args``). B2, B5 and B6 run
+:func:`tile_phase_weight` makes (``tail2_device_args``). The same kernel,
+with B9's folded per-phase epilogue and row-major head, and with the input
+streamed where its halo does not fit, is B9a and B9b (ops/deconv.py);
+:func:`launch_tail2` launches every instance. B2, B5 and B6 run
 ``phase_conv`` (+ ``phase_head``).
 
 On a CUDA tensor the wrapper launches the kernel (and counts the launch in
@@ -64,8 +67,8 @@ _SIGNATURES = {
     "phase_conv": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     "phase_head": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
 }
-_TAIL2_SIGNATURES = {"tail2": [_P] * 7 + [_I] * 14 + [_P],
-                     "tail2_blocks_per_sm": [_I] * 2}
+_TAIL2_SIGNATURES = {"tail2": [_P] * 7 + [_I] * 17 + [_P],
+                     "tail2_blocks_per_sm": [_I] * 4}
 # phase_conv output modes (csrc/phase_tail.cu)
 _PHASE_MAJOR, _INTERLEAVED, _N_MINOR = 0, 1, 2
 
@@ -221,23 +224,38 @@ def _launch_phase_head(z, wh, vh, levels: int = 2):
 
 # ------------------------------------------------------------ B1's block shape
 
-# csrc/tail2.cu: the input tile (two warpgroups of 8 rows of 8 pixels), bytes
-# of K a weight stage image, channels an n-half, a row of the requantised half
+# csrc/tail2.cu: the resident halo's input tile (two warpgroups of 8 rows of 8
+# pixels), bytes of K a weight stage image, channels an n-half, a row of the
+# requantised half
 TAIL2_TILE = (16, 8)
 _T2_KB, _T2_BN = 64, 128
 _T2_LDZ = _T2_BN + 16
 _SMEM_PER_BLOCK = 232448  # bytes a block can use on sm_90
 # the ring, measured on the H100 at the serving shapes (tools/torch_kernel_sweep.py
-# tail2): two stages of two stage images (128 bytes of K a step) keep two
-# blocks on an SM and beat deeper or shallower rings by 3-25 %
+# tail2): two stages of two stage images (128 bytes of K) keep two blocks on
+# an SM and beat deeper or shallower rings by 3-25 %
 TAIL2_STAGES, _T2_IPS = 2, 2
+# the A operand's designs (csrc/tail2.cu, ASource): the halo tile resident in
+# shared memory; its planes streamed through the ring by TMA, an 8 x 8 tile
+# of one image a warpgroup (two planes of two images' halos a ring stage)
+DESIGNS = ("halo", "stream")
+_ASRC = {d: i for i, d in enumerate(DESIGNS)}
+_A_BYTES = {"halo": 0, "stream": 2 * 2 * 10 * 10 * 16}
+
+
+def tail2_tile(design: str) -> tuple:
+    """A block's tile of the input grid: 16 x 8 of one image (the resident
+    halo), 8 x 8 of two images, one a warpgroup (the streamed halo)."""
+    return TAIL2_TILE if design == "halo" else (8, 8)
 
 
 class Tail2Plan(NamedTuple):
-    """One launch of B1's kernel: the 16 x 8 tiles across and down the input
-    grid, the ring's stages (two weight stage images, 128 bytes of K, each),
-    and where the regions of the block's dynamic shared memory start
-    (csrc/tail2.cu, Tail2Layout)."""
+    """One launch of the phase-form kernel (csrc/tail2.cu): the tiles across
+    and down the input grid (:func:`tail2_tile`), the ring's stages (two
+    weight stage images, 128 bytes of K, each, and in the streamed design the
+    step's two halo planes), where the regions of the block's dynamic shared
+    memory start (Tail2Layout), the design and the (phase, n-half) pairs a
+    block takes."""
     tiles_x: int
     tiles_y: int
     stages: int
@@ -247,45 +265,72 @@ class Tail2Plan(NamedTuple):
     off_sc: int
     off_bar: int
     smem: int
+    design: str
+    sets: int
 
 
 def _up(nbytes: int, to: int = 128) -> int:
     return -(-nbytes // to) * to
 
 
-@functools.lru_cache(maxsize=None)
-def plan_tail2(h: int, w: int, cin: int, cout: int, jt: int,
-               stages: int | None = None) -> Tail2Plan:
-    """B1's block shape for one launch over an h x w input grid (``jt`` 0:
-    deconv1; 2 or 4: deconv2 with a head of <= 8 jt joints), a pure function
-    of the shapes (cached: a launch looks it up): 16 x 8 tiles of the grid,
-    the last row and column of tiles overhanging it, and the regions of
-    shared memory in order: the halo tile (16-channel planes), the ring, the
-    requantised half, the head, the scales, the ring's mbarriers. ``stages``
-    defaults to :data:`TAIL2_STAGES`; a shape that does not fit a block is an
-    error."""
-    th, tw = TAIL2_TILE
-    stages = TAIL2_STAGES if stages is None else stages
-    if stages < 2 or jt not in (0, 2, 4):
-        raise ValueError(f"plan_tail2: {stages} ring stages, jt {jt}")
+def _regions(cin: int, cout: int, jt: int, stages: int, design: str, folded: bool):
+    """(off_ring, off_z, off_wh, off_sc, off_bar, smem) in bytes."""
     cpad = -(-cout // _T2_BN) * _T2_BN
-    off_ring = _up((th + 2) * (tw + 2) * cin, 1024)
-    off_z = off_ring + stages * _T2_IPS * _T2_BN * _T2_KB
+    th, tw = TAIL2_TILE
+    off_ring = _up((th + 2) * (tw + 2) * cin, 1024) if design == "halo" else 0
+    stage = _T2_IPS * _T2_BN * _T2_KB + _up(_A_BYTES[design], 1024)
+    off_z = off_ring + stages * stage
     off_wh = off_z + th * tw * _T2_LDZ
     off_sc = off_wh + jt * 8 * (cpad + 16)
-    off_bar = _up(off_sc + 4 * (2 * cpad + 2 * jt * 8), 16)
-    plan = Tail2Plan(-(-w // tw), -(-h // th), stages, off_ring, off_z, off_wh, off_sc,
-                     off_bar, off_bar + 8 * stages)
+    nvec = 8 if folded else 2  # (scale, bias), per phase when folded
+    off_bar = _up(off_sc + 4 * (nvec * cpad + 2 * jt * 8), 16)
+    return off_ring, off_z, off_wh, off_sc, off_bar, off_bar + 8 * stages
+
+
+def halo_fits(cin: int, cout: int, jt: int, folded: bool = False,
+              stages: int | None = None) -> bool:
+    """Whether the resident halo's block fits an SM's shared memory."""
+    stages = TAIL2_STAGES if stages is None else stages
+    return _regions(cin, cout, jt, stages, "halo", folded)[-1] <= _SMEM_PER_BLOCK
+
+
+@functools.lru_cache(maxsize=None)
+def plan_tail2(h: int, w: int, cin: int, cout: int, jt: int,
+               stages: int | None = None, *, design: str = "halo", folded: bool = False,
+               sets: int | None = None) -> Tail2Plan:
+    """The block shape for one launch over an h x w input grid (``jt`` 0: a
+    deconv alone; 2 or 4: a deconv with a head of <= 8 jt joints; ``folded``:
+    B9's per-phase vectors), a pure function of the shapes (cached: a launch
+    looks it up): the design's tiles, the last row and column of them
+    overhanging the grid, and the regions of shared memory in order: the halo
+    tile (16-channel planes; none when streamed), the ring, the requantised
+    half, the head, the scales, the ring's mbarriers. ``stages`` defaults to
+    :data:`TAIL2_STAGES`, ``sets`` (the (phase, n-half) pairs a block takes,
+    a divisor of their 4 NH) to all of them; a shape that does not fit a
+    block is an error."""
+    th, tw = tail2_tile(design)
+    stages = TAIL2_STAGES if stages is None else stages
+    pairs = 4 * -(-cout // _T2_BN)
+    sets = pairs if sets is None else sets
+    if stages < 2 or jt not in (0, 2, 4) or design not in DESIGNS:
+        raise ValueError(f"plan_tail2: {stages} ring stages, jt {jt}, design {design!r}")
+    if sets < 1 or pairs % sets or (jt and sets % (pairs // 4)):
+        raise ValueError(f"plan_tail2: {sets} (phase, n-half) pairs a block of {pairs}"
+                         + (", whole phases with a head" if jt else ""))
+    if design != "halo" and jt:
+        raise ValueError("plan_tail2: a head follows only the resident halo")
+    plan = Tail2Plan(-(-w // tw), -(-h // th), stages,
+                     *_regions(cin, cout, jt, stages, design, folded), design, sets)
     if plan.smem > _SMEM_PER_BLOCK:
-        raise ValueError(f"fused_phase_tail2: a 16 x 8 tile at Cin {cin}, Cout {cout} and "
-                         f"{stages} ring stages need {plan.smem} bytes of shared memory, more "
-                         f"than a block has")
+        raise ValueError(f"plan_tail2: a {th} x {tw} tile ({design}) at Cin {cin}, Cout {cout} "
+                         f"and {stages} ring stages needs {plan.smem} bytes of shared memory, "
+                         f"more than a block has")
     return plan
 
 
 def tail2_tiles(plan: Tail2Plan):
     """The (y0, x0) corner of every block's tile, in the grid's order."""
-    th, tw = TAIL2_TILE
+    th, tw = tail2_tile(plan.design)
     return [((t // plan.tiles_x) * th, (t % plan.tiles_x) * tw)
             for t in range(plan.tiles_x * plan.tiles_y)]
 
@@ -295,45 +340,56 @@ def _tail2_lib():
     return _build.load("tail2", _TAIL2_SIGNATURES)
 
 
-def tail2_blocks_per_sm(plan: Tail2Plan, jt: int) -> int:
-    """Blocks of B1's kernel the card puts on one SM for ``plan``."""
-    blocks = _tail2_lib().tail2_blocks_per_sm(jt, plan.smem)
+def tail2_blocks_per_sm(plan: Tail2Plan, jt: int, folded: bool = False) -> int:
+    """Blocks of the kernel the card puts on one SM for ``plan``."""
+    blocks = _tail2_lib().tail2_blocks_per_sm(jt, int(folded), _ASRC[plan.design], plan.smem)
     if blocks < 0:
         raise RuntimeError(f"tail2_blocks_per_sm: CUDA error {-blocks}")
     return blocks
 
 
-def launch_tail2(x4, wt, sc, so, wh=None, vh=None, *, stages=None):
-    """One launch of B1's kernel over x4 [N, H, W, Cin] int8 with the stage
-    images ``wt`` [4, NH, 4 Cin / 64, 128, 64] (:func:`tile_phase_weight`):
-    without a head, int8 z1 [N, 2H, 2W, Cout] (interleaved); with the padded
-    head ``wh`` [8 jt, NH * 128] and ``vh`` [2, J], f32 [J, N, 4 H W] in the
-    levels=2 order of the 2H x 2W output."""
+def launch_tail2(x4, wt, sc, so, wh=None, vh=None, *, stages=None, folded=False,
+                 design="halo", sets=None):
+    """One launch of the phase-form kernel over x4 [N, H, W, Cin] int8 with
+    the stage images ``wt`` [4, NH, 4 Cin / 64, 128, 64]
+    (:func:`tile_phase_weight`, ``chunked`` for the ``"stream"`` design).
+    B1's epilogue: ``sc`` [2, Cout], ``so`` [1, 1]; ``folded`` (B9's): ``sc``
+    the per-phase v [2, 4 Cout], no ``so``. Without a head, int8
+    [N, 2H, 2W, Cout] (interleaved); with the padded head ``wh``
+    [8 jt, NH * 128] and ``vh`` [2, J], f32 [J, N, 4 H W] in the levels=2
+    order of the 2H x 2W output (B1), or [N, 4 H W, J] row-major (folded)."""
     n, h, w, cin = x4.shape
-    nh, cout = wt.shape[1], sc.shape[-1]
+    nh = wt.shape[1]
+    cout = sc.shape[-1] // 4 if folded else sc.shape[-1]
     joints = 0 if wh is None else vh.shape[-1]
     jt = 0 if wh is None else (2 if joints <= 16 else 4)
+    what = "fused_subpixel_deconv" if folded else "fused_phase_tail2"
     if (x4.dtype != torch.int8 or wt.dtype != torch.int8 or cin % 32 or cout % 8
             or tuple(wt.shape) != (4, -(-cout // _T2_BN), 4 * cin // _T2_KB, _T2_BN, _T2_KB)
-            or joints > 32 or (wh is not None and tuple(wh.shape) != (8 * jt, nh * _T2_BN))):
-        raise ValueError(f"fused_phase_tail2: unsupported shapes x {tuple(x4.shape)}, "
+            or joints > 32 or (wh is not None and tuple(wh.shape) != (8 * jt, nh * _T2_BN))
+            or (folded and tuple(sc.shape) != (2, 4 * cout))):
+        raise ValueError(f"{what}: unsupported shapes x {tuple(x4.shape)}, "
                          f"w {tuple(wt.shape)}, Cout {cout}, {joints} joints (Cin % 32 == 0, "
-                         f"Cout % 8 == 0, J <= 32, tiled weights from tail2_device_args)")
-    tensors = {"x": x4, "w": wt, "s": sc, "so": so}
+                         f"Cout % 8 == 0, J <= 32, tiled weights)")
+    tensors = {"x": x4, "w": wt, "s": sc}
+    if not folded:
+        tensors["so"] = so
     if wh is not None:
         tensors.update(wh=wh, vh=vh)
-    check_cuda("fused_phase_tail2", **tensors)
-    plan = plan_tail2(h, w, cin, cout, jt, stages)
+    check_cuda(what, **tensors)
+    plan = plan_tail2(h, w, cin, cout, jt, stages, design=design, folded=folded, sets=sets)
     if wh is None:
         out = torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.int8, device=x4.device)
+    elif folded:
+        out = torch.empty((n, 4 * h * w, joints), dtype=torch.float32, device=x4.device)
     else:
         out = torch.empty((joints, n, 4 * h * w), dtype=torch.float32, device=x4.device)
     _build.check(_tail2_lib().tail2(
-        x4.data_ptr(), wt.data_ptr(), sc.data_ptr(), so.data_ptr(),
+        x4.data_ptr(), wt.data_ptr(), sc.data_ptr(), 0 if folded else so.data_ptr(),
         0 if wh is None else wh.data_ptr(), 0 if vh is None else vh.data_ptr(),
-        out.data_ptr(), n, h, w, cin, cout, joints, jt, plan.stages, plan.off_ring,
-        plan.off_z, plan.off_wh, plan.off_sc, plan.off_bar, plan.smem, stream_of(x4)),
-        "fused_phase_tail2")
+        out.data_ptr(), n, h, w, cin, cout, joints, jt, int(folded), _ASRC[design], plan.sets,
+        plan.stages, plan.off_ring, plan.off_z, plan.off_wh, plan.off_sc, plan.off_bar,
+        plan.smem, stream_of(x4)), what)
     return out
 
 
@@ -552,23 +608,33 @@ def tail_device_args(args: dict, device) -> dict:
             **{k: _to(args[k], device) for k in ("sv", "so", "vh")}}
 
 
-def tile_phase_weight(wk):
-    """Phase weights [4 phase, 4 tap, Cout, Cin] int8 (K-minor) -> B1's stage
-    images [4, ceil(Cout / 128), 4 Cin / 64, 128, 64]: phase g's [Cout,
-    4 Cin] matrix (depth k = tap * Cin + c) tiled as B8a tiles a weight
+def tile_phase_weight(wk, chunked: bool = False):
+    """Phase weights [4 phase, 4 tap, Cout, Cin] int8 (K-minor) -> the stage
+    images [4, ceil(Cout / 128), 4 Cin / 64, 128, 64] of csrc/tail2.cu: phase
+    g's [Cout, 4 Cin] matrix tiled as B8a tiles a weight
     (ops/resblock.tile_weight), so the kernel's flat list of k-steps (phase,
-    n-half, k) reads the images in their own order."""
+    n-half, k) reads the images in their own order. Depth k = tap * Cin + c;
+    ``chunked`` (the streamed halo's order): k = (c // 32) * 128 + tap * 32 +
+    c % 32, so each 128-byte step is one 32-channel chunk under all four
+    taps."""
     from posetpu_torch.ops.resblock import tile_weight
 
     _, _, cout, cin = wk.shape
-    return torch.stack([tile_weight(wk[g].permute(1, 0, 2).reshape(cout, 4 * cin), _T2_BN)
-                        for g in range(4)]).contiguous()
+    mats = []
+    for g in range(4):
+        m = wk[g].permute(1, 0, 2)  # [Cout, tap, Cin]
+        if chunked:
+            m = m.reshape(cout, 4, cin // 32, 32).permute(0, 2, 1, 3)
+        mats.append(tile_weight(m.reshape(cout, 4 * cin), _T2_BN))
+    return torch.stack(mats).contiguous()
 
 
 def pad_head(wh):
     """Head [J, C] int8 (K-minor) -> [8 jt, ceil(C / 128) * 128] zero padded,
     jt = 2 for J <= 16, else 4: the rows and columns B1's head reads."""
     joints, c = wh.shape
+    if joints > 32:
+        raise ValueError(f"pad_head: the kernels' heads take J <= 32, not {joints}")
     rows = 16 if joints <= 16 else 32
     out = wh.new_zeros((rows, -(-c // _T2_BN) * _T2_BN))
     out[:joints, :c] = wh

@@ -133,8 +133,9 @@ def build_serving_pipeline(cfg, model, calib_batches, *, flip_test=False,
             f"layer2_{i}.out" for i in range(4))
     qparams, qfwd = quantize_pose_resnet(model.resnet, calib_batches,
                                          subpixel_deconvs=subpixel_deconvs,
-                                         phase_kernel=2, act4=act4 or (),
-                                         device=dev)
+                                         act4=act4 or (), act4_mode="s4",
+                                         jns_head="phase", phase_kernel=2,
+                                         stem_s2d="pre", device=dev)
     tables = phase_index_tables((hm_h, hm_w), levels=2)
     qagg = None
     if bool(cfg.NETWORK.AGGRE) and model.aggre_layer is not None:

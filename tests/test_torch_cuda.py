@@ -464,7 +464,7 @@ def _deconv_args(gen, cin, cout, joints, dev):
             "wh": _i8(gen, joints, cout),
             "vh": torch.stack([torch.rand(joints, generator=gen) * 1e-3,
                                torch.rand(joints, generator=gen) - 0.5])}
-    return {k: v.to(dev) for k, v in args.items()}
+    return tdc.with_deconv_weights({k: v.to(dev) for k, v in args.items()})
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", [(3, 6, 8, 32, 16), (5, 3, 7, 96, 24),
@@ -499,6 +499,69 @@ def test_deconv_head_kernel_equals_plain(cuda, n, h, w, cin, cout, joints):
     assert torch.equal(got, ref) and float(ref.std()) > 0
 
 
+def _rings(h, w, cin, cout, jt, design, sets):
+    """Every ring depth the planner allows for this launch."""
+    depths = []
+    for stages in range(2, 16):
+        try:
+            tpt.plan_tail2(h, w, cin, cout, jt, stages, design=design, folded=True, sets=sets)
+        except ValueError:
+            break
+        depths.append(stages)
+    return depths
+
+
+@pytest.mark.parametrize("design,n,h,w,cin,cout,sets", [
+    ("halo", 3, 6, 10, 64, 136, 8), ("halo", 2, 16, 16, 256, 256, 4),
+    ("stream", 5, 8, 8, 2048, 256, 1), ("stream", 3, 9, 12, 64, 136, 2),
+    ("stream", 5, 8, 8, 2048, 256, 4), ("stream", 3, 9, 12, 128, 24, 4)])
+def test_deconv_kernel_every_design_and_ring(cuda, design, n, h, w, cin, cout, sets):
+    """B9a's kernel in both its designs, at each ring depth the
+    planner allows and a run of (phase, n-half) pairs a block, on grids the
+    tiles overhang and batches the image pairs do not divide: equal to the
+    plain version."""
+    gen = torch.Generator().manual_seed(13)
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    args = _deconv_args(gen, cin, cout, 4, cuda)
+    wt = tpt.tile_phase_weight(args["w"], chunked=design == "stream")
+    ref = tdc.subpixel_deconv_plain(x, args, h=h, w=w).reshape(n, 2 * h, 2 * w, cout)
+    depths = _rings(h, w, cin, cout, 0, design, sets)
+    assert len(depths) >= 2
+    for stages in depths:
+        got = tpt.launch_tail2(x.reshape(n, h, w, cin), wt, args["v"], None, folded=True,
+                               design=design, sets=sets, stages=stages)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), (design, stages)
+    assert len(torch.unique(ref)) > 50
+
+
+def test_deconv_head_kernel_every_ring(cuda):
+    """B9b at every ring depth the planner allows, a partial n-half and 17
+    joints (the 32-joint instance): equal to the plain version."""
+    gen = torch.Generator().manual_seed(14)
+    n, h, w, cin, cout, joints = 2, 6, 10, 64, 136, 17
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    args = _deconv_args(gen, cin, cout, joints, cuda)
+    ref = tdc.subpixel_deconv_head_plain(x, args, h=h, w=w)
+    for stages in _rings(h, w, cin, cout, 4, "halo", None):
+        got = tpt.launch_tail2(x.reshape(n, h, w, cin), args["wt"], args["v"], None,
+                               args["wht"], args["vh"], folded=True, stages=stages)
+        torch.cuda.synchronize()
+        assert torch.equal(got, ref), stages
+
+
+def test_deconv_serving_plans_blocks_an_sm(cuda):
+    """The three launches of path 5's B9 at their serving shapes put the
+    planned blocks on an SM: deconv0's 128 streamed blocks one each (one
+    wave), deconv1's and deconv2 + head's two."""
+    plans = [(tpt.plan_tail2(8, 8, 2048, 256, 0, tdc.STREAM_STAGES, design=tdc.STREAM_DESIGN,
+                             folded=True, sets=tdc.STREAM_SETS), 0, 1),
+             (tpt.plan_tail2(16, 16, 256, 256, 0, folded=True), 0, 2),
+             (tpt.plan_tail2(32, 32, 256, 256, 2, folded=True), 2, 2)]
+    for plan, jt, blocks in plans:
+        assert tpt.tail2_blocks_per_sm(plan, jt, folded=True) == blocks, plan
+
+
 def test_block_and_deconv_kernels_refuse_unsupported_shapes(cuda):
     gen = torch.Generator().manual_seed(12)
     z = lambda *s: torch.zeros(*s, dtype=torch.int8, device=cuda)
@@ -521,3 +584,10 @@ def test_block_and_deconv_kernels_refuse_unsupported_shapes(cuda):
     args["wh"] = z(4, 24)
     with pytest.raises(ValueError):
         tdc.fused_subpixel_deconv_head(z(2, 16, 32), args, h=4, w=4)
+    # B9b: more than 32 joints; a head after a deconv whose halo does not fit
+    with pytest.raises(ValueError, match="J <= 32"):
+        tdc.fused_subpixel_deconv_head(z(2, 16, 32), _deconv_args(gen, 32, 16, 33, cuda),
+                                       h=4, w=4)
+    with pytest.raises(ValueError, match="resident halo"):
+        tdc.fused_subpixel_deconv_head(z(2, 16, 2048), _deconv_args(gen, 2048, 16, 4, cuda),
+                                       h=4, w=4)

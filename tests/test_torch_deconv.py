@@ -28,7 +28,9 @@ from posetpu.models import quant as jq  # noqa: E402
 from posetpu.ops.pallas import deconv as jdc  # noqa: E402
 from posetpu_torch.models.convert import from_jax_params  # noqa: E402
 from posetpu_torch.ops import deconv as tdc  # noqa: E402
+from posetpu_torch.ops import phase_tail as tpt  # noqa: E402
 from posetpu_torch.ops.phase_tail import phase_sums  # noqa: E402
+from posetpu_torch.ops.resblock import untile_weight  # noqa: E402
 
 H, W, CIN, COUT, J = 6, 8, 32, 16, 16
 S_IN = 0.031
@@ -145,7 +147,7 @@ def test_build_deconv_and_head_args_match_jax(form):
     ref = {**jdc.build_deconv_args(q, "deconv0", S_IN), **jdc.build_head_args(q, s_out)}
     got = {**tdc.build_deconv_args(q, "deconv0", S_IN), **tdc.build_head_args(q, s_out)}
     dev = tdc.deconv_device_args(got, "cpu")
-    assert set(got) == set(ref) == set(dev)
+    assert set(got) == set(ref) and set(dev) == set(ref) | {"wt", "wht"}
     for k in ref:
         r = np.asarray(ref[k])
         assert got[k].dtype == r.dtype, k
@@ -155,3 +157,217 @@ def test_build_deconv_and_head_args_match_jax(form):
     np.testing.assert_array_equal(dev["wh"].numpy().T, np.asarray(ref["wh"]))
     w = np.asarray(ref["w"]).reshape(4, CIN, 4, COUT)  # [tap, I, phase, O]
     np.testing.assert_array_equal(dev["w"].numpy(), w.transpose(2, 0, 3, 1))
+    # the kernel's weights: deconv0's stage images in the taps' K order (the
+    # halo fits at Cin 32), the head padded to 16 joints and 128 channels
+    assert tdc.deconv_design(CIN, COUT, J) == "halo"
+    for g in range(4):
+        full = untile_weight(dev["wt"][g], 128, 4 * CIN)
+        np.testing.assert_array_equal(full[:COUT].reshape(COUT, 4, CIN).permute(1, 0, 2).numpy(),
+                                      dev["w"][g].numpy())
+        assert not full[COUT:].any()
+    np.testing.assert_array_equal(dev["wht"][:J, :COUT].numpy(), dev["wh"].numpy())
+    assert not dev["wht"][J:].any() and not dev["wht"][:, COUT:].any()
+
+
+def _kernel_args(rng, cin, cout, joints=0, chunked=False):
+    """Random B9 arguments in the kernels' layout: K-minor w, per-phase v
+    [2, 4 Cout] that keep the folded requant off its clip, and the stage
+    images (``chunked``: the streamed halo's K order)."""
+    w = torch.from_numpy(rng.integers(-127, 128, (4, 4, cout, cin)).astype(np.int8))
+    v = np.stack([rng.uniform(0.5, 1.5, 4 * cout) * 0.3 / cin ** 0.5 / 127,
+                  rng.uniform(-4, 4, 4 * cout)]).astype(np.float32)
+    args = {"w": w, "v": torch.from_numpy(v), "wt": tpt.tile_phase_weight(w, chunked=chunked)}
+    if joints:
+        args["wh"] = torch.from_numpy(rng.integers(-127, 128, (joints, cout)).astype(np.int8))
+        args["vh"] = torch.from_numpy(np.stack([rng.uniform(1e-4, 1e-3, joints),
+                                                rng.uniform(-0.5, 0.5, joints)]).astype(np.float32))
+        args["wht"] = tpt.pad_head(args["wh"])
+    return args
+
+
+def b9_kernel_emulation(x4, args, *, design="halo", sets=None):
+    """One launch of csrc/tail2.cu with B9's folded, per-phase epilogue on the
+    CPU, block by block as the kernel walks it: the planned grid (tiles x
+    images x groups of ``sets`` (phase, n-half) pairs), each block's flat
+    k-steps from its first pair's stage images on, each step's four 32-deep
+    products with A as the design brings it (the resident halo at the tap's
+    offset; the streamed halo's 32-channel chunk under tap s) and B read
+    through the stage images' swizzle, the half requantised with its phase's vectors (zeros past
+    Cout), then the deconv stored interleaved, or the head summed half by
+    half and its phase stored row-major at pixel (2y + a, 2x + b)."""
+    n, h, w, cin = x4.shape
+    wt, v = args["wt"], args["v"]
+    nh, cout = wt.shape[1], v.shape[-1] // 4
+    head = "wht" in args
+    joints = args["vh"].shape[-1] if head else 0
+    jt = 0 if not head else (2 if joints <= 16 else 4)
+    plan = tpt.plan_tail2(h, w, cin, cout, jt, design=design, folded=True, sets=sets)
+    stream = design != "halo"
+    ks_count = 4 * cin // 128
+    images = wt.reshape(-1, 128, 64)
+    swz = np.arange(4)[None, :] ^ ((np.arange(128)[:, None] >> 1) & 3)
+    phys = torch.from_numpy((swz[:, :, None] * 16 + np.arange(16)).reshape(128, 64)).long()
+    sv = torch.zeros(8, nh * 128)
+    sv[:, :cout] = v.reshape(8, cout)  # row 4 (scale, bias) + phase
+    # the input as TMA or the halo copy sees it: zeros outside the images
+    xp = torch.zeros(n + 2, h + 18, w + 18, cin, dtype=torch.int8)
+    xp[:n, 1:h + 1, 1:w + 1] = x4
+    r = np.arange(128)
+    if head:
+        out = torch.full((n, 2 * h, 2 * w, joints), float("nan"))
+    else:
+        out = torch.zeros(n, 2 * h, 2 * w, cout, dtype=torch.int8)
+    for by in range(-(-n // 2) if stream else n):
+        for y0, x0 in tpt.tail2_tiles(plan):
+            img = 2 * by + (r >> 6) if stream else np.full(128, by)
+            y = y0 + ((r >> 3) & 7 if stream else r >> 3)
+            x = x0 + (r & 7)
+            inside = (img < n) & (y < h) & (x < w)
+
+            def a_rows(sr, sc_, c0):  # rows' pixels shifted by (sr, sc_), 32 channels
+                return xp[img, 1 + y + sr, 1 + x + sc_, c0:c0 + 32]
+
+            for bz in range(4 * nh // plan.sets):
+                set0 = bz * plan.sets
+                q = set0 * ks_count
+                hacc = torch.zeros(128, 8 * jt, dtype=torch.float64)
+                for st in range(set0, set0 + plan.sets):
+                    g, half = divmod(st, nh)
+                    a, b = g >> 1, g & 1
+                    acc = torch.zeros(128, 128, dtype=torch.float64)
+                    tap, c = 0, 0
+                    for ks in range(ks_count):
+                        for s in range(4):
+                            brows = torch.gather(images[2 * q + (s >> 1)], 1,
+                                                 phys[:, 32 * (s & 1):32 * (s & 1) + 32])
+                            if design == "halo":
+                                arows = a_rows((tap >> 1) - 1 + a, (tap & 1) - 1 + b, c)
+                                c += 32
+                                if c == cin:
+                                    c, tap = 0, tap + 1
+                            else:
+                                arows = a_rows((s >> 1) - 1 + a, (s & 1) - 1 + b, 32 * ks)
+                            acc += arows.double() @ brows.double().t()
+                        q += 1
+                    cols = slice(half * 128, half * 128 + 128)
+                    accf = acc.round().to(torch.int32).float()
+                    z = torch.clamp(torch.round(accf * sv[g, cols] + sv[4 + g, cols]), 0, 127
+                                    ).to(torch.int8)
+                    z[:, max(0, min(128, cout - half * 128)):] = 0
+                    keep = inside.nonzero()[0]
+                    if not head:
+                        o = slice(half * 128, min(cout, half * 128 + 128))
+                        out[img[keep], 2 * y[keep] + a, 2 * x[keep] + b, o] = \
+                            z[keep, :o.stop - o.start]
+                        continue
+                    hacc += z.double() @ args["wht"][:, cols].double().t()
+                    if half == nh - 1:
+                        acc_h = hacc[keep, :joints].round().to(torch.int32)
+                        out[img[keep], 2 * y[keep] + a, 2 * x[keep] + b] = \
+                            acc_h.float() * args["vh"][0] + args["vh"][1]
+                        hacc.zero_()
+    return out.reshape(n, 4 * h * w, -1)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,design,sets", [
+    (3, 6, 8, 32, 16, "halo", None),     # the small card shape
+    (5, 3, 7, 96, 24, "halo", 4),        # odd: overhanging tiles, partial n-half, sets
+    (2, 4, 4, 32, 136, "halo", None),    # two n-halves, the second partial
+    (3, 8, 8, 64, 16, "stream", 1),      # deconv0's streamed K order at small Cin
+    (3, 3, 7, 96, 136, "stream", 2),     # odd: an image past N, tiles past the grid
+    (2, 9, 10, 128, 24, "stream", 4),    # two 8 x 8 tiles a row and a column
+])
+def test_b9a_kernel_emulation_equals_plain(n, h, w, cin, cout, design, sets):
+    """B9a's decomposition in both designs (the grid, the sets a block takes,
+    the stage images' K order, the A operand the design brings, the folded
+    per-phase epilogue, the interleaved store) gives the plain version's
+    int8 image exactly: the CPU's check of the kernel's index arithmetic."""
+    rng = np.random.default_rng(20 + cin + cout)
+    args = _kernel_args(rng, cin, cout, chunked=design == "stream")
+    x = torch.from_numpy(rng.integers(0, 128, (n, h * w, cin)).astype(np.int8))
+    ref = tdc.subpixel_deconv_plain(x, args, h=h, w=w)
+    got = b9_kernel_emulation(x.reshape(n, h, w, cin), args, design=design, sets=sets)
+    assert got.shape == ref.shape and len(torch.unique(ref)) > 50
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,joints", [(3, 6, 8, 32, 16, 16), (5, 3, 7, 96, 24, 7),
+                                                   (2, 4, 6, 64, 136, 17)])
+def test_b9b_kernel_emulation_equals_plain(n, h, w, cin, cout, joints):
+    """B9b's decomposition: the folded per-phase requant of each n-half into
+    the head's sums, the head's epilogue per phase and its row-major store
+    (J floats at pixel (2y + a, 2x + b)), odd joint counts and a partial
+    n-half: equal to the plain version's heatmaps."""
+    rng = np.random.default_rng(30 + joints)
+    args = _kernel_args(rng, cin, cout, joints)
+    x = torch.from_numpy(rng.integers(0, 128, (n, h * w, cin)).astype(np.int8))
+    ref = tdc.subpixel_deconv_head_plain(x, args, h=h, w=w)
+    got = b9_kernel_emulation(x.reshape(n, h, w, cin), args)
+    assert got.shape == ref.shape == (n, 4 * h * w, joints)
+    assert torch.equal(got, ref) and float(ref.std()) > 0
+
+
+@pytest.mark.parametrize("cin,cout,joints", [(2048, 256, 0), (256, 256, 0), (256, 256, 16),
+                                             (96, 24, 7)])
+def test_deconv_device_args_stage_images_round_trip(cin, cout, joints):
+    """``deconv_device_args`` tiles ``w`` into the stage images of the design
+    the shape takes (deconv0 at Cin 2048: the streamed halo's chunked K
+    order; the rest: the taps') and pads the head; untiled, they hold ``w``
+    and ``wh`` exactly, zeros elsewhere."""
+    rng = np.random.default_rng(cin + joints)
+    jargs = {"w": rng.integers(-127, 128, (4, cin, 4 * cout)).astype(np.int8),
+             "v": rng.uniform(-1, 1, (2, 4 * cout)).astype(np.float32)}
+    if joints:
+        jargs["wh"] = rng.integers(-127, 128, (cout, joints)).astype(np.int8)
+        jargs["vh"] = rng.uniform(-1, 1, (2, joints)).astype(np.float32)
+    dev = tdc.deconv_device_args(jargs, "cpu")
+    design = tdc.deconv_design(cin, cout, joints)
+    assert design == ("halo" if cin <= 256 else tdc.STREAM_DESIGN)
+    nh = -(-cout // 128)
+    assert tuple(dev["wt"].shape) == (4, nh, 4 * cin // 64, 128, 64)
+    for g in range(4):
+        full = untile_weight(dev["wt"][g], nh * 128, 4 * cin)
+        assert not full[cout:].any()
+        k = full[:cout].reshape(cout, cin // 32, 4, 32).permute(0, 2, 1, 3) \
+            if design == "stream" else full[:cout].reshape(cout, 4, cin)
+        np.testing.assert_array_equal(k.reshape(cout, 4, cin).permute(1, 0, 2).numpy(),
+                                      dev["w"][g].numpy())
+    if joints:
+        assert tuple(dev["wht"].shape) == (16, nh * 128)
+        np.testing.assert_array_equal(dev["wht"][:joints, :cout].numpy(), dev["wh"].numpy())
+        assert not dev["wht"][joints:].any() and not dev["wht"][:, cout:].any()
+
+
+def test_plan_serving_shapes():
+    """The three B9 launches of a forward at their serving shapes (128
+    images): deconv0 (8x8, 2048 -> 256) does not fit the resident halo and
+    streams, its 4 (phase, n-half) pairs a block giving 64 x 2 = 128 blocks,
+    one wave on the 132 SMs at one block an SM; deconv1 (16x16, 256 -> 256)
+    and deconv2 + head (32x32, 256 -> 256 -> 16) take the resident halo with
+    the per-phase vectors, two blocks an SM (228 KB, 1 KB reserved a block);
+    too deep a ring, a head after a streamed deconv and sets that split a
+    phase under a head are refused."""
+    blocks_an_sm = lambda plan: 228 * 1024 // (plan.smem + 1024)
+    assert not tpt.halo_fits(2048, 256, 0, folded=True)
+    assert tdc.deconv_design(2048, 256) == tdc.STREAM_DESIGN == "stream"
+    p0 = tpt.plan_tail2(8, 8, 2048, 256, 0, tdc.STREAM_STAGES, design=tdc.STREAM_DESIGN,
+                        folded=True, sets=tdc.STREAM_SETS)
+    assert (p0.tiles_x, p0.tiles_y, p0.off_ring) == (1, 1, 0)
+    assert 64 * (8 // p0.sets) <= 132 and blocks_an_sm(p0) == 1
+    for h, jt, tiles in ((16, 0, 2), (32, 2, 8)):
+        assert tdc.deconv_design(256, 256, 16 if jt else 0) == "halo"
+        plan = tpt.plan_tail2(h, h, 256, 256, jt, folded=True)
+        assert plan.tiles_x * plan.tiles_y == tiles and plan.sets == 8
+        assert blocks_an_sm(plan) == 2
+        # the per-phase vectors cost 6 KB over B1's shared ones
+        assert plan.smem - tpt.plan_tail2(h, h, 256, 256, jt).smem == 6 * 1024
+    with pytest.raises(ValueError, match="shared memory"):
+        tpt.plan_tail2(8, 8, 2048, 256, 0, folded=True)
+    with pytest.raises(ValueError, match="shared memory"):
+        tpt.plan_tail2(8, 8, 2048, 256, 0, 10, design="stream", folded=True)
+    with pytest.raises(ValueError, match="head"):
+        tpt.plan_tail2(32, 32, 256, 256, 2, design="stream", folded=True)
+    with pytest.raises(ValueError, match="whole phases"):
+        tpt.plan_tail2(32, 32, 256, 256, 2, folded=True, sets=1)
+    with pytest.raises(ValueError, match="design"):
+        tpt.plan_tail2(8, 8, 96, 256, 0, design="boxes", folded=True)

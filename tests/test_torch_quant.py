@@ -111,7 +111,9 @@ def test_int8_forward_bitexact_with_carried_qparams(rng, monkeypatch,
     ref = np.asarray(jfwd(qparams, jnp.asarray(x)))
 
     model = _port_model(variables, num_layers)
-    _, fwd = tq.quantize_pose_resnet(model, calib, act4=ACT4, device="cpu")
+    _, fwd = tq.quantize_pose_resnet(model, calib, jns_head="phase", phase_kernel=2,
+                                     stem_s2d="pre", subpixel_deconvs={"deconv0"},
+                                     act4=ACT4, act4_mode="s4", device="cpu")
     carried = from_jax_params({"q": _np_tree(qparams), "qagg": None}, "cpu")["q"]
     got = fwd(carried, torch.from_numpy(x)).numpy()
     assert got.shape == ref.shape == (16, 3, (size // 4) ** 2)
@@ -120,3 +122,22 @@ def test_int8_forward_bitexact_with_carried_qparams(rng, monkeypatch,
 
     monkeypatch.setattr(tpt, "_phase_head_plain", fma_head)
     np.testing.assert_array_equal(fwd(carried, torch.from_numpy(x)).numpy(), ref)
+
+
+def test_quantize_pose_resnet_defaults_match_jax():
+    """The same call builds the same model in both packages: every argument
+    the two ``quantize_pose_resnet`` share has the same default (the JAX
+    one's: row-major heads, the 7x7 stem, no kernel, the packed act4
+    carrier)."""
+    import inspect
+
+    def defaults(fn):
+        return {k: p.default for k, p in inspect.signature(fn).parameters.items()
+                if p.default is not inspect.Parameter.empty}
+
+    jax_d, port_d = defaults(jq.quantize_pose_resnet), defaults(tq.quantize_pose_resnet)
+    shared = set(jax_d) & set(port_d)
+    assert shared >= {"subpixel_deconvs", "jns_head", "stem_s2d", "phase_kernel", "act4",
+                      "act4_mode"}
+    assert {k: port_d[k] for k in shared} == {k: jax_d[k] for k in shared}
+    assert set(port_d) - set(jax_d) == {"device"}

@@ -133,8 +133,9 @@ def test_int8_forward_matches_jax(rng, monkeypatch, phase_kernel, subpixel, batc
     ref = np.asarray(jfwd(qparams, jnp.asarray(x)))
 
     own, fwd = tq.quantize_pose_resnet(_port_model(variables, 18), calib,
-                                       subpixel_deconvs=subpixel,
-                                       phase_kernel=phase_kernel, device="cpu")
+                                       subpixel_deconvs=subpixel, jns_head="phase",
+                                       phase_kernel=phase_kernel, stem_s2d="pre",
+                                       device="cpu")
     carried = from_jax_params({"q": _np_tree(qparams), "qagg": None}, "cpu")["q"]
     assert set(own) == set(carried)
     assert ("phase_tail" in own) == (phase_kernel == 1)
@@ -182,7 +183,8 @@ def test_dilated_deconvs_k3_and_k2_match_jax(rng):
     model = PoseResNet(num_layers=18, deconv_kernels=kernels)
     model.load_state_dict(from_jax_variables(_np_tree(variables)))
     own, _ = tq.quantize_pose_resnet(model.eval(), calib, subpixel_deconvs=False,
-                                     phase_kernel=1, device="cpu")
+                                     jns_head="phase", phase_kernel=1, stem_s2d="pre",
+                                     device="cpu")
     carried = from_jax_params({"q": _np_tree(qparams), "qagg": None}, "cpu")["q"]
     for k, w in own["weights"].items():
         np.testing.assert_array_equal(w.numpy(), carried["weights"][k].numpy(), err_msg=k)
@@ -218,7 +220,8 @@ def test_phase_tail_deconvs_cannot_be_subpixel(rng):
     model = _port_model(variables, 18)
     for pk, sub in ((2, True), (1, True), (False, True), (2, D01), (1, {"deconv2"})):
         with pytest.raises(ValueError, match="phase tail"):
-            tq.quantize_pose_resnet(model, calib, subpixel_deconvs=sub,
-                                    phase_kernel=pk, device="cpu")
+            tq.quantize_pose_resnet(model, calib, subpixel_deconvs=sub, jns_head="phase",
+                                    phase_kernel=pk, stem_s2d="pre", device="cpu")
     with pytest.raises(ValueError, match="phase_kernel"):
-        tq.quantize_pose_resnet(model, calib, phase_kernel=3, device="cpu")
+        tq.quantize_pose_resnet(model, calib, jns_head="phase", phase_kernel=3,
+                                stem_s2d="pre", device="cpu")

@@ -7,6 +7,7 @@
     python3 tools/torch_kernel_sweep.py imma         # mma.sync and wgmma int8 rates
     python3 tools/torch_kernel_sweep.py tail2        # B1: per launch and ring shape
     python3 tools/torch_kernel_sweep.py agg          # B3: quantize, GEMM, wrapper
+    python3 tools/torch_kernel_sweep.py deconv       # B9a, B9b: designs, rings, sets
 
 ``check`` builds ``csrc/resblock.cu`` and ``csrc/decode.cu``, prints ptxas'
 register report and holds B8a (``ops/resblock.fused_bottleneck``) equal to
@@ -29,6 +30,14 @@ version), the wrapper, and the parent's design on the same inputs
 device time by kernel from torch.profiler. ``agg`` times B3 at J*N = 512, S = 4096: the quantize
 pass and the GEMM alone, the wrapper, the plain quantize, ``torch._int_mm``
 on pre-gathered operands, and the kernels' device time by torch.profiler.
+``deconv`` times B9a and B9b at path 5's shapes, 128 images: deconv0 (8x8,
+2048 -> 256) on the streamed halo (its planes through the ring) for every
+ring depth the planner allows and 1, 2, 4 or 8 (phase, n-half) pairs a block
+(the pixels a block are fixed at 128: two images, one a warpgroup), deconv1
+(16x16, 256 -> 256) and deconv2 + head (32x32, 256 -> 256 -> 16) on the
+resident halo for each ring depth, every launch held equal to its plain
+version; then the two wrappers, ``torch._int_mm`` on the pre-gathered
+phase operands (the GEMMs alone), and the device time by kernel.
 Inputs are random from a seed; nothing is read from disk. Every line of
 numbers ends with the card's name and power limit.
 """
@@ -49,9 +58,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 from posetpu_torch.ops import _build  # noqa: E402
 from posetpu_torch.ops import aggregation as agg  # noqa: E402
 from posetpu_torch.ops import decode as dec  # noqa: E402
+from posetpu_torch.ops import deconv as dcv  # noqa: E402
 from posetpu_torch.ops import phase_tail as pt  # noqa: E402
 from posetpu_torch.ops import resblock as rb  # noqa: E402
 from posetpu_torch.ops.heatmap import decode_heatmaps  # noqa: E402
+from chip_smoke import phase_gemms  # noqa: E402
 
 # ResNet-50's stride-1 bottlenecks at 256x256 input: h, w, Cin, Cm, Cout, projection
 LAYERS = {"layer1_0": (64, 64, 64, 64, 256, True),
@@ -375,6 +386,89 @@ def aggregation(dev, j=16, ng=32, s=4096):
           flush=True)
 
 
+def deconv_inputs(rs, n, h, cin, cout, joints, dev):
+    """B9's inputs: x int8 [n, h*h, cin] and kernel arguments whose folded
+    requants neither saturate nor vanish."""
+    args = {"w": rs.randint(-127, 128, (4, cin, 4 * cout)).astype(np.int8),
+            "v": np.stack([rs.uniform(0.5, 1.5, 4 * cout) * 40.0 / (127.0 * np.sqrt(4 * cin) * 60.0),
+                           rs.uniform(-2, 2, 4 * cout)]).astype(np.float32)}
+    if joints:
+        args["wh"] = rs.randint(-127, 128, (cout, joints)).astype(np.int8)
+        args["vh"] = np.stack([rs.uniform(1e-4, 1e-3, joints),
+                               rs.uniform(-1, 1, joints)]).astype(np.float32)
+    x = torch.from_numpy(rs.randint(0, 128, (n, h * h, cin)).astype(np.int8)).to(dev)
+    return x, dcv.deconv_device_args(args, dev)
+
+
+def deconv(dev, n=128):
+    ptxas(["tail2"])
+    rs = np.random.RandomState(0)
+    shapes = (("deconv0", 8, 2048, 0), ("deconv1", 16, 256, 0), ("deconv2 + head", 32, 256, 16))
+    wrappers = {}
+    for label, h, cin, joints in shapes:
+        cout = 256
+        x, a = deconv_inputs(rs, n, h, cin, cout, joints, dev)
+        x4 = x.reshape(n, h, h, cin)
+        head = joints > 0
+        plain = dcv.subpixel_deconv_head_plain if head else dcv.subpixel_deconv_plain
+        ref = plain(x, a, h=h, w=h)
+        want = ref if head else ref.reshape(n, 2 * h, 2 * h, cout)
+        macs = 16 * n * h * h * cin * cout + (4 * n * h * h * joints * cout if head else 0)
+        print(f"B9 {label} inputs: nonzero share {float((ref != 0).float().mean()):.2f}, "
+              f"{len(torch.unique(ref))} values; bound {2 * macs / 1.979e15 * 1e3:.4f} ms",
+              flush=True)
+        jt = 2 if head else 0
+        d = dcv.deconv_design(cin, cout, joints)
+        stream = d == "stream"
+        wt = pt.tile_phase_weight(a["w"], chunked=stream)
+        for sets in ((1, 2, 4, 8) if stream else (8,)):
+            for stages in range(2, 8):
+                try:
+                    plan = pt.plan_tail2(h, h, cin, cout, jt, stages, design=d, folded=True,
+                                         sets=sets)
+                except ValueError:
+                    break
+
+                def run(st=stages, sets=sets):
+                    return pt.launch_tail2(x4, wt, a["v"], None, a.get("wht"), a.get("vh"),
+                                           folded=True, design=d, sets=sets, stages=st)
+                ok = torch.equal(run(), want)
+                ms = cuda_ms(run)
+                chosen = (stages, sets) == ((dcv.STREAM_STAGES, dcv.STREAM_SETS) if stream
+                                            else (pt.TAIL2_STAGES, 8))
+                grid = plan.tiles_x * plan.tiles_y * (-(-n // 2) if stream else n) * (8 // sets)
+                print(f"B9 {label} {d} sets {sets} ring {stages} x 128 B"
+                      f"{' (planned)' if chosen else ''}: {ms:.4f} ms, "
+                      f"{2 * macs / ms / 1e9:.1f} TOP/s, {'equal' if ok else 'DIFFERS'}, "
+                      f"smem {plan.smem}, blocks/SM {pt.tail2_blocks_per_sm(plan, jt, folded=True)}"
+                      f", grid {grid} | {card()}", flush=True)
+        fused = dcv.fused_subpixel_deconv_head if head else dcv.fused_subpixel_deconv
+        ok = torch.equal(fused(x, a, h=h, w=h), ref)
+        wrappers[label] = cuda_ms(lambda: fused(x, a, h=h, w=h))
+        zq = dcv.subpixel_deconv_plain(x, a, h=h, w=h) if head else None
+        lib_ms = cuda_ms(phase_gemms(x4, a["w"], zq, a.get("wh")))
+        print(f"B9 {label} wrapper: {wrappers[label]:.4f} ms ({'equal' if ok else 'DIFFERS'}); "
+              f"torch._int_mm on the pre-gathered phase operands {lib_ms:.4f} ms; plain "
+              f"{cuda_ms(lambda: plain(x, a, h=h, w=h), reps=5):.4f} ms | {card()}", flush=True)
+        from torch.profiler import ProfilerActivity, profile
+        fused(x, a, h=h, w=h)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                fused(x, a, h=h, w=h)
+            torch.cuda.synchronize()
+        by = {}
+        for e in prof.events():
+            if e.device_type.name == "CUDA":
+                k = e.name.split("(")[0][-40:]
+                by[k] = by.get(k, 0.0) + (e.time_range.end - e.time_range.start) / 10e3
+        print(f"B9 {label} device ms a call by kernel: "
+              f"{ {k: round(v, 4) for k, v in sorted(by.items(), key=lambda kv: -kv[1])} } "
+              f"| {card()}", flush=True)
+    print(f"B9a wrapper, both calls: {wrappers['deconv0'] + wrappers['deconv1']:.4f} ms; "
+          f"B9b {wrappers['deconv2 + head']:.4f} ms | {card()}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -383,7 +477,7 @@ def main() -> int:
     print(f"card: {card()} | torch {torch.__version__}")
     for mode in sys.argv[1:] or ["check"]:
         {"check": check, "sweep": sweep, "decode": decode, "imma": imma, "tail2": tail2,
-         "agg": aggregation}[mode](dev)
+         "agg": aggregation, "deconv": deconv}[mode](dev)
     return 0
 
 
