@@ -16,14 +16,18 @@ Phases, each of which fails the run on its own:
    is over the rest. Every kernel's launch count is set to 0 just before a
    path and read just after: each kernel of the path must have launched.
    - path 1, the defaults: ``build_serving_pipeline``, 32 four-view groups
-     (128 images) per request: B2, B1, B3 (and B3's quantize pass); its
-     profiled request must show B1 as two launches of ``tail2_kernel``'s B1
-     instances and no ``phase_head_kernel`` (z2 stays on chip), one
-     ``phase_conv_kernel`` (B2);
+     (128 images) per request: B2, B1, B3 (and B3's quantize pass); 8 timed
+     requests, frames/s as the median and the min-max over them; its
+     profiled request must show B2 as one launch of ``tail2_kernel``'s
+     phase-major instance, B1 as two launches of its instances and no
+     ``phase_head_kernel`` (z2 stays on chip) or ``phase_conv_kernel``;
    - path 2: ``build_serving_pipeline(flip_test="premirrored",
-     agg_w4=True)``, 32 groups, so 256 images through the trunk: B2, B1, B4;
-     one request is profiled (device time by kernel family, idle share) and
-     one request with ``flip_test=True`` must give equal preds and maxvals;
+     agg_w4=True)``, 32 groups, so 256 images through the trunk: B2, B1, B4
+     (and B3's quantize pass); 8 timed requests; its profiled request must
+     show B2's instance, B4's ``aggregation_w4_kernel`` and one
+     ``quantize_kernel``, and no ``phase_conv_kernel`` or
+     ``aggregation_s4_kernel``; one request with ``flip_test=True`` must give
+     equal preds and maxvals;
    - path 3: ``quantize_pose_resnet(jns_head="phase", phase_kernel=1,
      stem_s2d="pre", act4_mode="s4", subpixel_deconvs={"deconv0"})`` with
      ``SUBPIX_BATCHED = False``, the levels=1 tables, the int8 bank, decode
@@ -51,7 +55,7 @@ Phases, each of which fails the run on its own:
    Timed with CUDA events (3 warm-up calls, median of 20): the kernel, its
    plain version, and where PyTorch computes the same products a
    yardstick (B3, B4: 4 ``torch._int_mm`` calls on pre-gathered operands,
-   the 4-bit bank widened to int8, B3 also its GEMM kernel alone; the
+   the 4-bit bank widened to int8, both also their GEMM kernel alone; the
    phase-form deconvs B2, B5, B6, B9a and B9b: per phase one
    ``torch._int_mm`` on the four shifted taps gathered beforehand, and for
    a head one more on its int8 input: the GEMMs alone; B1 also the parent
@@ -63,8 +67,10 @@ Phases, each of which fails the run on its own:
    their sum; each line carries the block shape its planner chose: rows per
    block, ring stages, staging tiles, shared memory, blocks per SM,
    registers) and each block is also held within one int8 step of the
-   runner's block on the same input; B9a on both its deconvs (the kernels
-   line carries each call's case, with its design, and their sum); B8b on
+   runner's block on the same input; B2 on path 1's 128 images (the numbers
+   of its ``kernels`` entry) and on path 2's 256; B9a on both its deconvs
+   (the kernels line carries each call's case, with its design, and their
+   sum); B8b on
    path 5c's 12 inputs, equal to its plain version and to B8a's output;
 5. card vs CPU on one group through the same port on ``device="cpu"`` with
    the same params, for path 1 and path 2 (the s4 bank): maxvals equal,
@@ -211,15 +217,16 @@ def profile_request(fn) -> dict:
         wall_us = (time.perf_counter() - t) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(dev, "torch.profiler recorded no device activity")
-    families = {"deconv1 + deconv2 + head (B1)": ("tail2_kernel<0, 0,", "tail2_kernel<2, 0,",
+    families = {"deconv0 (B2)": ("tail2_kernel<0, 2,",),
+                "deconv1 + deconv2 + head (B1)": ("tail2_kernel<0, 0,", "tail2_kernel<2, 0,",
                                                    "tail2_kernel<4, 0,"),
                 "subpixel deconv + head (B9a, B9b)": ("tail2_kernel<0, 1,", "tail2_kernel<2, 1,",
                                                       "tail2_kernel<4, 1,"),
-                "phase_conv (B2, B5, B6)": ("phase_conv",),
+                "phase_conv (B5, B6)": ("phase_conv",),
                 "phase_head (B5)": ("phase_head",),
-                "aggregation (B3, B4, B3's quantize)": ("aggregation_kernel",
-                                                        "aggregation_s4_kernel",
-                                                        "quantize_kernel"),
+                "aggregation (B3, B4, their quantize)": ("aggregation_kernel",
+                                                         "aggregation_w4_kernel",
+                                                         "quantize_kernel"),
                 "decode (B7)": ("decode_kernel",),
                 "bottleneck (B8a, B8b)": ("bottleneck_rows_kernel", "bottleneck_im2col_kernel"),
                 "f32 convolutions and GEMMs (float path)": (
@@ -521,13 +528,16 @@ def main() -> int:
             f"{ {k: v for k, v in counts.items() if v} } | {card}")
         return preds, maxvals
 
-    drive("path 1 (defaults)", serve_with(pipe), lambda: pipe.prepare(images), GROUPS, 3,
+    drive("path 1 (defaults)", serve_with(pipe), lambda: pipe.prepare(images), GROUPS, 9,
           ["fused_subpixel_deconv_batched", "fused_phase_tail2", "aggregation_grouped",
            "quantize_heatmaps"])
     p_pre, m_pre = drive(
         "path 2 (premirrored flip, s4 bank)", serve_with(pipe_pre),
-        lambda: pipe_pre.prepare(images), GROUPS, 4,
-        ["fused_subpixel_deconv_batched", "fused_phase_tail2", "aggregation_grouped_s4"])
+        lambda: pipe_pre.prepare(images), GROUPS, 9,
+        ["fused_subpixel_deconv_batched", "fused_phase_tail2", "aggregation_grouped_s4",
+         "quantize_heatmaps"])
+    check(launches_by_path["path 2 (premirrored flip, s4 bank)"]["quantize_heatmaps"] == 9,
+          "path 2: the quantize kernel is not launched once a request")
     pt.SUBPIX_BATCHED = False
     try:
         drive("path 3 (one-level tail, per-pair deconv0)", serve3,
@@ -611,10 +621,15 @@ def main() -> int:
             pt.SUBPIX_BATCHED = True
         log(f"profile {label}: " + json.dumps({"prepare_ms": prepare_ms, **prof}))
         hand = prof["hand_kernel_launches"]
-        if label == "path 1":  # B1 keeps z2 on chip: no phase_head, B2 alone on phase_conv
-            check(hand.get("tail2_kernel<0,0,0>") == 1 and hand.get("tail2_kernel<2,0,0>") == 1
-                  and "phase_head_kernel" not in hand and hand.get("phase_conv_kernel") == 1
-                  and hand.get("quantize_kernel") == 1, f"path 1: hand kernel launches {hand}")
+        b2 = f"tail2_kernel<0,2,{pt.DESIGNS.index(pt.STREAM_DESIGN)}>"
+        if label in ("path 1", "path 2"):  # B2 and B1 on tail2_kernel; z2 stays on chip
+            check(hand.get(b2) == 1 and hand.get("tail2_kernel<0,0,0>") == 1
+                  and hand.get("tail2_kernel<2,0,0>") == 1 and hand.get("quantize_kernel") == 1
+                  and "phase_head_kernel" not in hand and "phase_conv_kernel" not in hand,
+                  f"{label}: hand kernel launches {hand}")
+        if label == "path 2":  # B4 on its wgmma kernel, once
+            b4 = {k: v for k, v in hand.items() if k.startswith("aggregation")}
+            check(b4 == {"aggregation_w4_kernel": 1}, f"path 2: hand kernel launches {hand}")
         if label == "path 5b":  # B9a: deconv0 streamed, deconv1 on the halo; B9b on the halo
             stream = pt.DESIGNS.index(dcv.STREAM_DESIGN)
             b9 = {k: v for k, v in hand.items() if k.startswith("tail2_kernel")}
@@ -630,8 +645,10 @@ def main() -> int:
                               (agg, "aggregation_grouped"),
                               (agg, "quantize_heatmaps")]) as seen:
         serve_with(pipe)(pipe.prepare(images))
-    with capture_first_calls([(agg, "aggregation_grouped_s4")]) as seen2:
+    with capture_first_calls([(agg, "aggregation_grouped_s4"),
+                              (pt, "fused_subpixel_deconv_batched")]) as seen2:
         serve_with(pipe_pre)(pipe_pre.prepare(images))
+    b2_path2 = seen2.pop("fused_subpixel_deconv_batched")
     with capture_first_calls([(dec, "decode_heatmaps_kernel")]) as seen4:
         serve_with(pipe4, g, cams_small)(pipe4.prepare(views_f32))
     seen.update(seen2)
@@ -738,11 +755,28 @@ def main() -> int:
     def x4_of(x, kw):
         return x.reshape(x.shape[0], kw["h"], kw["w"], x.shape[-1])
 
-    (x0, a0), kw0 = seen["fused_subpixel_deconv_batched"]
-    compare("fused_subpixel_deconv_batched", "posetpu_torch/csrc/phase_tail.cu",
-            "posetpu/ops/pallas/phase_tail.py:609", pt.subpixel_deconv_plain,
-            (x0, a0), kw0, *subpixel_work(x0, a0),
-            library=phase_gemms(x4_of(x0, kw0), a0["w"]))
+    # B2 at path 1's 128 images (the kernels line's numbers) and path 2's 256;
+    # each weight counts once: the kernel reads the stage images and svb
+    def b2_case(tag, args, kw):
+        x, a = args
+        once = {k: v for k, v in a.items() if k not in ("wt", "svb")}
+        return (f" {tag}, {x.shape[0]} images", args, kw, *subpixel_work(x, once))
+
+    def b2_plan(args, kw):
+        x, a = args
+        sets = pt.stream_sets(x.shape[0], kw["h"], kw["w"], a["svb"].shape[-1], pt.sm_count(0))
+        return f"{sets} (phase, n-half) pairs a block, ring {pt.STREAM_STAGES}"
+
+    b2_cases = [b2_case("path 1", *seen["fused_subpixel_deconv_batched"]),
+                b2_case("path 2", *b2_path2)]
+    check(b2_cases[0][0].endswith(" 128 images") and b2_cases[1][0].endswith(" 256 images"),
+          f"B2's cases: {[c[0] for c in b2_cases]}")
+    compare_cases("fused_subpixel_deconv_batched", "posetpu_torch/csrc/tail2.cu",
+                  "posetpu/ops/pallas/phase_tail.py:609", pt.subpixel_deconv_plain, b2_cases,
+                  library={tag: phase_gemms(x4_of(a[0], kw), a[1]["w"])
+                           for tag, a, kw, _, _ in b2_cases},
+                  headline=0, note=b2_plan)
+    del b2_cases, b2_path2
 
     (x1, a1), kw1 = seen["fused_phase_tail2"]
     n, hw, cin = x1.shape
@@ -807,11 +841,22 @@ def main() -> int:
     # [4, 3, S, S/2]); the diagonal term adds 3 multiply-adds per output
     (qagg4, hm4), kw4 = seen["aggregation_grouped_s4"]
     j, ng, v, s = hm4.shape
+    xq4 = agg.quantize_heatmaps(qagg4, hm4)
+    out4 = torch.empty((4, j * ng, s), dtype=torch.float32, device=dev)
+
+    def b4_gemm_alone():  # the B4 kernel on the quantised planes, no wrapper
+        _build.check(lib3.aggregation_grouped_s4(
+            xq4.data_ptr(), qagg4["wq4"].data_ptr(), qagg4["sv"].data_ptr(),
+            qagg4["dv"].data_ptr(), out4.data_ptr(), j * ng, s, agg.S4_STAGES,
+            pt.stream_of(hm4)),
+            "aggregation_grouped_s4")
     compare("aggregation_grouped_s4", "posetpu_torch/csrc/aggregation.cu",
             "posetpu/ops/pallas/aggregation.py:294", agg.aggregation_grouped_s4_plain,
             (qagg4, hm4), kw4, 2 * 4 * j * ng * 3 * s * s,
-            nbytes(hm4, qagg4) + hm4.numel() * 4,
-            library=gathered_operands(qagg4, hm4, agg.unpack_nibbles_k(qagg4["wq4"])))
+            nbytes(hm4, {k: v for k, v in qagg4.items() if k != "sv"}) + hm4.numel() * 4,
+            library=gathered_operands(qagg4, hm4, agg.unpack_nibbles_k(qagg4["wq4"])),
+            extra={"kernel_ms": cuda_ms(b4_gemm_alone)})
+    del xq4, out4
 
     (x5, a5), kw5 = seen["fused_phase_tail"]
     n, hw, cin = x5.shape
@@ -949,7 +994,8 @@ def main() -> int:
         stream = d != "halo"
         plan = pt.plan_tail2(kw["h"], kw["w"], cin, cout, 2 if "wh" in a else 0,
                              dcv.STREAM_STAGES if stream else None, design=d, folded=True,
-                             sets=dcv.STREAM_SETS if stream else None)
+                             sets=pt.stream_sets(x.shape[0], kw["h"], kw["w"], cout,
+                                                 pt.sm_count(0)) if stream else None)
         return (f"design {d}, {plan.stages} ring stages, {plan.sets} (phase, n-half) pairs a "
                 f"block, {plan.smem} bytes of shared memory")
 

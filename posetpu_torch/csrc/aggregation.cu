@@ -44,72 +44,43 @@
 //   out = acc * sv[t] + sum_p xq[src(t, p)][m, o] * dv[t, p][o]
 // with res and dia each built from separately rounded multiplies and adds,
 // dia summed in pair order p = 0, 1, 2, then res + dia. The bank arrives
-// nibble-packed K-minor, wq4 [4, 3, S_out, S_in / 2] bytes (int8_mma.cuh:
-// mma_mainloop_w4 gives the order), so the card reads 100.7 MB of weights at
-// S = 4096, not 201 MB; each nibble pair is widened to int8 in registers and
-// fed to the same mma.sync. Bound at the serving shapes: 1.03e11 MAC,
-// ~0.104 ms by operations; all inputs and outputs (~152 MB) are 0.045 ms.
-// B4 keeps its first design (int8_mma.cuh's two-stage loop).
+// nibble-packed K-minor, wq4 [4, 3, S_out, S_in / 2] bytes (in every 32-deep
+// k-block byte b holds k = b low and k = 16 + b high: ops/aggregation.py
+// pack_nibbles_k), so the card reads 100.7 MB of weights at S = 4096, not
+// 201 MB. Bound at the serving shapes: 1.03e11 MAC, 0.104 ms by operations;
+// the packed bank alone is 0.030 ms of HBM. So B4 is B3's GEMM with the
+// bank widened on its way to the tensor cores, which have no 4-bit integer
+// type (aggregation_w4_kernel):
+//   - a block computes a transposed tile out[t]^T, 128 bank rows (S_out) x
+//     256 J*N columns: the bank is wgmma's A (64 rows a consumer warpgroup)
+//     and xq its B, read by descriptor from the same 128-byte-swizzled TMA
+//     box as B3's (256 rows x 128 bytes); the two J*N blocks of a bank tile
+//     are neighbours in the grid's order, so the bank crosses HBM once;
+//   - the producer warp brings each step's packed bank tile (128 rows x 64
+//     bytes, 64-byte swizzle: a warp's 4-byte fragment loads hit 32 banks)
+//     beside the xq box, on a ring of 40 KB stages with full / empty
+//     mbarriers;
+//   - each consumer thread loads word tig of its rows gid and gid + 8 per
+//     32-deep k-block: with pack_nibbles_k's order the low nibbles are
+//     k = 4 tig .. 4 tig + 3 and the high ones k = 16 + 4 tig .. + 3, which is
+//     wgmma's (and mma.m16n8k32's) A fragment, so widening is two masks and
+//     a sign extension (sext_nibbles) a register. It stores them into its
+//     warpgroup's 128-byte-swizzled int8 A tile (two slots, one a step in
+//     turn), fences the generic proxy's stores for the tensor cores, and
+//     wgmma reads A by descriptor, one step's products in flight;
+//   - the epilogue stages res = acc * sv through shared memory transposed,
+//     then leaves 16-byte row stores of out [4, J*N, S], adding dia from xq's
+//     bytes (eight rows' loads in flight) and dv (staged per block) four
+//     outputs a thread.
+// Feeding wgmma the widened registers as its A operand instead was built,
+// held equal and measured 0.5-2.4 % slower on a ring of 4 (ptxas serialises
+// those wgmmas, C7513: the next step's A registers are written while one is
+// in flight), so it was removed; PERF.md has both designs' times
+// (tools/torch_kernel_sweep.py agg).
 
 #include "ring.cuh"
 
 namespace posetpu {
-
-struct AggARow {
-  const int8_t* xq;
-  int t, m, jn, s;
-  __device__ const void* operator()(int k, bool& valid) const {
-    const int p = k / s, kk = k - p * s;
-    const int src = p < t ? p : p + 1;
-    valid = m < jn;
-    return valid ? xq + (static_cast<size_t>(src) * jn + m) * s + kk : xq;
-  }
-};
-
-struct AggB4Row {
-  const uint8_t* wq4;
-  int t, o, s;
-  __device__ const void* operator()(int k_byte, bool& valid) const {
-    const int half = s / 2;
-    const int p = k_byte / half, kk = k_byte - p * half;
-    valid = o < s;
-    return valid ? wq4 + ((static_cast<size_t>(t) * 3 + p) * s + o) * half + kk : wq4;
-  }
-};
-
-__global__ void __launch_bounds__(THREADS) aggregation_s4_kernel(
-    const int8_t* xq, const uint8_t* wq4, const float* sv, const float* dv,
-    float* out, int jn, int s) {
-  const int t = blockIdx.z;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  AggARow la{xq, t, m0 + (static_cast<int>(threadIdx.x) >> 1), jn, s};
-  AggB4Row lb{wq4, t, n0 + static_cast<int>(threadIdx.x), s};
-
-  Acc acc;
-  mma_mainloop_w4(la, lb, 3 * s / BK, acc);
-
-  const float* svt = sv + static_cast<size_t>(t) * s;
-  const float* dvt = dv + static_cast<size_t>(t) * 3 * s;
-  for_each_pair(acc, [&](int row, int col, int v0, int v1) {
-    const int m = m0 + row, o = n0 + col;
-    if (m >= jn || o >= s) return;
-    float dia[2];
-#pragma unroll
-    for (int p = 0; p < 3; ++p) {
-      const int src = p < t ? p : p + 1;
-      const char2 x = *reinterpret_cast<const char2*>(
-          xq + (static_cast<size_t>(src) * jn + m) * s + o);
-      const float d0 = __fmul_rn(static_cast<float>(x.x), dvt[p * s + o]);
-      const float d1 = __fmul_rn(static_cast<float>(x.y), dvt[p * s + o + 1]);
-      dia[0] = p == 0 ? d0 : __fadd_rn(dia[0], d0);
-      dia[1] = p == 0 ? d1 : __fadd_rn(dia[1], d1);
-    }
-    float2 r;
-    r.x = __fadd_rn(__fmul_rn(__int2float_rn(v0), svt[o]), dia[0]);
-    r.y = __fadd_rn(__fmul_rn(__int2float_rn(v1), svt[o + 1]), dia[1]);
-    *reinterpret_cast<float2*>(out + (static_cast<size_t>(t) * jn + m) * s + o) = r;
-  });
-}
 
 // ---------------------------------------------------------------------------
 // B3: TMA + wgmma
@@ -248,6 +219,186 @@ __global__ void __launch_bounds__(G_THREADS, 1) aggregation_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// B4: TMA + wgmma on the nibble-packed bank, widened to int8 by the consumers
+
+constexpr int W4_BM = 128, W4_BN = 256, W4_BK = 128;  // bank rows, J*N columns, k a step
+constexpr int W4_X_BYTES = W4_BN * W4_BK;             // xq box, 128-byte swizzle
+constexpr int W4_P_BYTES = W4_BM * W4_BK / 2;         // packed bank box, 64-byte swizzle
+constexpr int W4_STAGE = W4_X_BYTES + W4_P_BYTES;     // 40 KB
+constexpr int W4_A_BYTES = 64 * W4_BK;                // a warpgroup's widened A tile
+constexpr int W4_LDO = W4_BM + 4;                     // floats a staged output row (m)
+constexpr int W4_OUT_BYTES = W4_BN * W4_LDO * 4;      // the staged tile
+
+// bytes before the mbarriers: the ring and each warpgroup's two A slots, at
+// least the staged output tile the epilogue writes over them
+__host__ __device__ constexpr int w4_ring_bytes(int stages) {
+  return stages * W4_STAGE + 4 * W4_A_BYTES > W4_OUT_BYTES ? stages * W4_STAGE + 4 * W4_A_BYTES
+                                                            : W4_OUT_BYTES;
+}
+// the mbarriers, then sv and dv of the block's 128 bank rows; 1 KB to align
+__host__ __device__ constexpr int w4_smem(int stages) {
+  return 1024 + w4_ring_bytes(stages) + 16 * stages + 4 * 4 * W4_BM;
+}
+
+__global__ void __launch_bounds__(G_THREADS, 1) aggregation_w4_kernel(
+    const __grid_constant__ CUtensorMap tm_x,  // xq [4][JN][S], box 128 x 256 x 1
+    const __grid_constant__ CUtensorMap tm_w,  // wq4 [4*3*S][S/2] bytes, box 64 x 128
+    const int8_t* __restrict__ xq, const float* __restrict__ sv, const float* __restrict__ dv,
+    float* __restrict__ out, int jn, int s, int stages) {
+  extern __shared__ int8_t smem_raw[];
+  const unsigned raw_s = smem_addr(smem_raw);
+  int8_t* smem = smem_raw + ((1024 - (raw_s & 1023)) & 1023);  // 1024-aligned: the swizzles
+  const unsigned smem_s = smem_addr(smem);
+  const int ring = w4_ring_bytes(stages);
+  const unsigned full0 = smem_s + ring, empty0 = full0 + 8 * stages;
+  float* svs = reinterpret_cast<float*>(smem + ring + 16 * stages);
+  float* dvs = svs + W4_BM;  // [3][128]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * W4_BN, o0 = blockIdx.y * W4_BM, t = blockIdx.z;
+  const int kpp = (s + W4_BK - 1) / W4_BK;  // k-steps a source plane; past S reads zeros
+  const int ksteps = 3 * kpp;
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(full0 + 8 * i, 1);   // the producer's arrive, and the bytes
+      mbar_init(empty0 + 8 * i, 8);  // one arrive per consumer warp
+    }
+    mbar_init_fence();
+  }
+  for (int i = tid; i < W4_BM; i += G_THREADS) {
+    const bool in = o0 + i < s;
+    svs[i] = in ? sv[static_cast<size_t>(t) * s + o0 + i] : 0.0f;
+#pragma unroll
+    for (int p = 0; p < 3; ++p)
+      dvs[p * W4_BM + i] = in ? dv[(static_cast<size_t>(t) * 3 + p) * s + o0 + i] : 0.0f;
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // the producer
+    if (lane == 0) {
+      for (int ks = 0; ks < ksteps; ++ks) {
+        const int st = ks % stages;
+        if (ks >= stages) mbar_wait(empty0 + 8 * st, ((ks / stages) - 1) & 1);
+        const int p = ks / kpp, kk = (ks - p * kpp) * W4_BK;
+        const int src = p < t ? p : p + 1;
+        const unsigned dst = smem_s + st * W4_STAGE;
+        mbar_expect_tx(full0 + 8 * st, W4_STAGE);
+        tma_load_3d(dst, &tm_x, kk, n0, src, full0 + 8 * st);
+        tma_load_2d(dst + W4_X_BYTES, &tm_w, kk / 2, (t * 3 + p) * s + o0, full0 + 8 * st);
+      }
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg takes bank rows 64 wg .. 64 wg + 63 of the tile,
+  // warp wq of it rows 16 wq .. 16 wq + 15, this thread rows r0 and r0 + 8
+  const int wg = warp >> 2, wq = warp & 3, gid = lane >> 2, tig = lane & 3;
+  const int r0 = 64 * wg + 16 * wq + gid;
+  // word tig of 16-byte chunk kk of packed row r sits in chunk kk ^ ((r >> 1) & 3)
+  const int psw = (r0 >> 1) & 3;  // the same for r0 + 8
+
+  int d[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) d[i] = 0;
+  // two steps an iteration, so each one's A slot is a constant: 4-6 % faster
+  // than one on the H100 (PERF.md)
+#pragma unroll 2
+  for (int ks = 0; ks < ksteps; ++ks) {
+    const int st = ks % stages;
+    mbar_wait(full0 + 8 * st, (ks / stages) & 1);
+    // widen this thread's fragment words, then store them into this
+    // warpgroup's A slot (ks & 1), 128-byte swizzle: byte k of row r in chunk
+    // (k >> 4) ^ (r & 7); rows r0 - 64 wg and + 8 both have r & 7 = gid
+    const int8_t* pk = smem + st * W4_STAGE + W4_X_BYTES + r0 * 64 + 4 * tig;
+    const int slot = stages * W4_STAGE + ((ks & 1) * 2 + wg) * W4_A_BYTES;
+    int8_t* as = smem + slot + (16 * wq + gid) * 128 + 4 * tig;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const unsigned w0 = *reinterpret_cast<const unsigned*>(pk + 16 * (kk ^ psw));
+      const unsigned w1 = *reinterpret_cast<const unsigned*>(pk + 8 * 64 + 16 * (kk ^ psw));
+      // rows r0 and r0 + 8, k 4 tig .. (low nibbles) and k 16 + 4 tig .. (high)
+      *reinterpret_cast<unsigned*>(as + 16 * ((2 * kk) ^ gid)) = sext_nibbles(w0 & 0x0F0F0F0Fu);
+      *reinterpret_cast<unsigned*>(as + 8 * 128 + 16 * ((2 * kk) ^ gid)) =
+          sext_nibbles(w1 & 0x0F0F0F0Fu);
+      *reinterpret_cast<unsigned*>(as + 16 * ((2 * kk + 1) ^ gid)) =
+          sext_nibbles((w0 >> 4) & 0x0F0F0F0Fu);
+      *reinterpret_cast<unsigned*>(as + 8 * 128 + 16 * ((2 * kk + 1) ^ gid)) =
+          sext_nibbles((w1 >> 4) & 0x0F0F0F0Fu);
+    }
+    // the generic proxy's stores, visible to the tensor cores, from every warp
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    asm volatile("bar.sync %0, 128;\n" :: "r"(2 + wg) : "memory");
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+    const unsigned b = smem_s + st * W4_STAGE;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_m64n256k32(d, sw128_desc(smem_s + slot + 32 * kk), sw128_desc(b + 32 * kk));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    // the step before this one has finished: its stage and A slot are free
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    keep_in_registers(d);
+    if (ks > 0 && lane == 0) mbar_arrive(empty0 + 8 * ((ks - 1) % stages));
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  keep_in_registers(d);
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");  // every stage read: the ring is free
+
+  // res = acc * sv, staged transposed [m][o]: d[4 i + r] is bank row (o)
+  // 64 wg + 16 wq + gid (+8 for r >= 2), column (m) 8 i + 2 tig + (r & 1)
+  float* so = reinterpret_cast<float*>(smem);
+#pragma unroll
+  for (int i = 0; i < 32; ++i)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int o = r0 + 8 * (r >> 1), m = 8 * i + 2 * tig + (r & 1);
+      so[m * W4_LDO + o] = __fmul_rn(__int2float_rn(d[4 * i + r]), svs[o]);
+    }
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
+  // out = res + dia, four outputs of one row a thread (S % 32 == 0: whole
+  // float4s), eight rows at a time: their 24 loads of xq's bytes in flight
+  // together, not one L2 round trip a row
+  constexpr int kRows = 8;
+#pragma unroll 1
+  for (int it = 0; it < W4_BN * (W4_BM / 4) / 256; it += kRows) {
+    char4 x[kRows][3];
+    bool in[kRows];
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int e = tid + 256 * (it + u), m = n0 + (e >> 5), o = o0 + (e & 31) * 4;
+      in[u] = m < jn && o < s;
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const int src = p < t ? p : p + 1;
+        x[u][p] = in[u] ? *reinterpret_cast<const char4*>(
+                              xq + (static_cast<size_t>(src) * jn + m) * s + o)
+                        : make_char4(0, 0, 0, 0);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kRows; ++u) {
+      const int e = tid + 256 * (it + u), ml = e >> 5, c = (e & 31) * 4;
+      if (!in[u]) continue;
+      const float4 res = *reinterpret_cast<const float4*>(so + ml * W4_LDO + c);
+      float4 dia;
+#pragma unroll
+      for (int p = 0; p < 3; ++p) {
+        const float4 v = *reinterpret_cast<const float4*>(dvs + p * W4_BM + c);
+        const float4 dp = make_float4(__fmul_rn(static_cast<float>(x[u][p].x), v.x),
+                                      __fmul_rn(static_cast<float>(x[u][p].y), v.y),
+                                      __fmul_rn(static_cast<float>(x[u][p].z), v.z),
+                                      __fmul_rn(static_cast<float>(x[u][p].w), v.w));
+        dia = p == 0 ? dp
+                     : make_float4(__fadd_rn(dia.x, dp.x), __fadd_rn(dia.y, dp.y),
+                                   __fadd_rn(dia.z, dp.z), __fadd_rn(dia.w, dp.w));
+      }
+      *reinterpret_cast<float4*>(out + (static_cast<size_t>(t) * jn + n0 + ml) * s + o0 + c) =
+          make_float4(__fadd_rn(res.x, dia.x), __fadd_rn(res.y, dia.y),
+                      __fadd_rn(res.z, dia.z), __fadd_rn(res.w, dia.w));
+    }
+  }
+}
+
 // hm [J, NG, 4, S] f32 -> xq [4, J*NG, S] int8, 16 values a thread (S % 16 == 0)
 __global__ void __launch_bounds__(256) quantize_kernel(const float* __restrict__ hm,
                                                        const float* __restrict__ x_scale,
@@ -281,14 +432,35 @@ __global__ void __launch_bounds__(256) quantize_kernel(const float* __restrict__
 
 using namespace posetpu;
 
-extern "C" int aggregation_grouped_s4(const void* xq, const void* wq4,
-                                      const void* sv, const void* dv, void* out,
-                                      int jn, int s, void* stream) {
-  dim3 grid((s + BN - 1) / BN, (jn + BM - 1) / BM, 4);
-  aggregation_s4_kernel<<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int8_t*>(xq), static_cast<const uint8_t*>(wq4),
-      static_cast<const float*>(sv), static_cast<const float*>(dv),
-      static_cast<float*>(out), jn, s);
+// B4. S % 32 == 0, any J*N; ``stages`` the ring's depth (w4_smem must fit a
+// block).
+extern "C" int aggregation_grouped_s4(const void* xq, const void* wq4, const void* sv,
+                                      const void* dv, void* out, int jn, int s, int stages,
+                                      void* stream) {
+  static int configured = 0;
+  const int smem = w4_smem(stages);
+  if (stages < 2 || smem > 232448)  // a block's shared memory
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (smem > configured) {
+    cudaError_t e = cudaFuncSetAttribute(aggregation_w4_kernel,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    configured = smem;
+  }
+  CUtensorMap tm_x, tm_w;
+  const cuuint64_t xd[3] = {static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(jn), 4};
+  const cuuint64_t xp[2] = {static_cast<cuuint64_t>(s), static_cast<cuuint64_t>(jn) * s};
+  const cuuint32_t xb[3] = {W4_BK, W4_BN, 1};
+  const cuuint64_t wd[2] = {static_cast<cuuint64_t>(s / 2), 12ull * s};
+  const cuuint64_t wp[1] = {static_cast<cuuint64_t>(s / 2)};
+  const cuuint32_t wb[2] = {W4_BK / 2, W4_BM};
+  if (!uint8_map(&tm_x, xq, 3, xd, xp, xb, CU_TENSOR_MAP_SWIZZLE_128B) ||
+      !uint8_map(&tm_w, wq4, 2, wd, wp, wb, CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  dim3 grid((jn + W4_BN - 1) / W4_BN, (s + W4_BM - 1) / W4_BM, 4);
+  aggregation_w4_kernel<<<grid, G_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(
+      tm_x, tm_w, static_cast<const int8_t*>(xq), static_cast<const float*>(sv),
+      static_cast<const float*>(dv), static_cast<float*>(out), jn, s, stages);
   return static_cast<int>(cudaGetLastError());
 }
 

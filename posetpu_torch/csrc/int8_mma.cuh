@@ -9,9 +9,8 @@
 // picked per k-block) without materialising it: a load whose source is
 // outside the operand is a zero-filled cp.async (src-size 0).
 //
-// mma_mainloop_w4 is the same loop with B stored at 4 bits (two weights per
-// byte), widened to int8 in registers. mma_resident (below) is the loop for
-// an A operand that already sits in shared memory.
+// mma_resident (below) is the loop for an A operand that already sits in
+// shared memory.
 //
 // Tiles: 128 x 128 x 32, 256 threads = 8 warps as 4 (m) x 2 (n), each warp
 // 32 x 64 = 2 x 8 mma tiles. Two shared-memory stages, cp.async double
@@ -22,13 +21,13 @@
 // m16n8k32 s8 reaches 1,270 of the card's 1,979 TOP/s, tools/imma_rate.cu)
 // and not memory bandwidth, but the step: 32 bytes of K behind a
 // cp.async.wait_group and two __syncthreads is an exposed L2 round trip,
-// and 24 four-byte ld.shared feed 16 mma. The kernels built on them (B2, B4,
-// B5, B6, B8b) sit 7-22x above their bounds for that reason. B8a
+// and 24 four-byte ld.shared feed 16 mma. The kernels still built on them
+// (B5, B6, B8b) sit 7-22x above their bounds for that reason. B8a
 // (resblock.cu) left these loops for a three-stage ring 64 bytes deep that
 // runs across tiles, ldmatrix fragments and bulk-copied weight stages, B1,
-// B9a and B9b (tail2.cu) and B3 (aggregation.cu) for wgmma fed from rings of
-// bulk copies, and PERF.md has what each step bought; the same is queued for
-// the rest.
+// B2, B9a and B9b (tail2.cu) and B3 and B4 (aggregation.cu) for wgmma fed
+// from rings of bulk copies, and PERF.md has what each step bought; the same
+// is queued for the rest.
 #pragma once
 
 #include <cstdint>
@@ -73,7 +72,8 @@ struct Acc {
 
 // Sign-extend the four 4-bit values held in the low nibbles of a word's
 // bytes to four int8: per byte (x ^ 8) - 8, written as x | 0xF0 where bit 3
-// is set (the same value; no borrow crosses a byte).
+// is set (the same value; no borrow crosses a byte). B4 (aggregation.cu)
+// widens its nibble-packed bank with it.
 __device__ __forceinline__ unsigned sext_nibbles(unsigned x) {
   return x | ((x & 0x08080808u) * 0x1Eu);
 }
@@ -82,21 +82,11 @@ __device__ __forceinline__ unsigned sext_nibbles(unsigned x) {
 // address of 16 bytes at depth k (a multiple of 16) of this thread's row,
 // setting valid=false (and returning any mapped address) for a zero row.
 // Each thread loads row tid>>1, 16-byte half tid&1, of both tiles.
-//
-// W4: the B operand is stored at 4 bits, nibble-packed K-minor. In every
-// 32-deep k-block, byte b (0..15) holds k = b in its low nibble and
-// k = 16 + b in its high nibble, so the 32-bit word ``tig`` of a row's
-// 16-byte k-block is exactly one thread's two B fragment registers
-// (k = 4*tig..4*tig+3 and 16+4*tig..16+4*tig+3) after two masks and the
-// sign extension: no shuffle, half the shared and global bytes of int8.
-// Then BLoad's operator()(k_byte, valid) serves B row ``tid`` (only threads
-// tid < BN load B), with k_byte = 16 * k-step.
-template <bool W4, class ALoad, class BLoad>
-__device__ __forceinline__ void mma_mainloop_impl(const ALoad& la, const BLoad& lb,
-                                                  int k_steps, Acc& acc) {
-  constexpr int LDB = W4 ? 16 : LDS;  // bytes per shared B row
+template <class ALoad, class BLoad>
+__device__ __forceinline__ void mma_mainloop(const ALoad& la, const BLoad& lb,
+                                             int k_steps, Acc& acc) {
   __shared__ __align__(16) int8_t sA[2][BM * LDS];
-  __shared__ __align__(16) int8_t sB[2][BN * LDB];
+  __shared__ __align__(16) int8_t sB[2][BN * LDS];
 
   const int tid = threadIdx.x;
   const int lrow = tid >> 1;          // this thread's A row (and int8 B row) in the tile
@@ -116,15 +106,8 @@ __device__ __forceinline__ void mma_mainloop_impl(const ALoad& la, const BLoad& 
     bool va, vb;
     const void* pa = la(ks * BK + lcol, va);
     cp_async16(&sA[stage][lrow * LDS + lcol], pa, va);
-    if constexpr (W4) {
-      if (tid < BN) {
-        const void* pb = lb(ks * 16, vb);
-        cp_async16(&sB[stage][tid * LDB], pb, vb);
-      }
-    } else {
-      const void* pb = lb(ks * BK + lcol, vb);
-      cp_async16(&sB[stage][lrow * LDB + lcol], pb, vb);
-    }
+    const void* pb = lb(ks * BK + lcol, vb);
+    cp_async16(&sB[stage][lrow * LDS + lcol], pb, vb);
   };
 
   load(0, 0);
@@ -148,14 +131,8 @@ __device__ __forceinline__ void mma_mainloop_impl(const ALoad& la, const BLoad& 
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const int n = wn * 64 + j * 8 + gid;
-      if constexpr (W4) {
-        const unsigned word = *reinterpret_cast<const unsigned*>(b + n * LDB + tig * 4);
-        bf[j][0] = sext_nibbles(word & 0x0F0F0F0Fu);
-        bf[j][1] = sext_nibbles((word >> 4) & 0x0F0F0F0Fu);
-      } else {
-        bf[j][0] = *reinterpret_cast<const unsigned*>(b + n * LDB + tig * 4);
-        bf[j][1] = *reinterpret_cast<const unsigned*>(b + n * LDB + 16 + tig * 4);
-      }
+      bf[j][0] = *reinterpret_cast<const unsigned*>(b + n * LDS + tig * 4);
+      bf[j][1] = *reinterpret_cast<const unsigned*>(b + n * LDS + 16 + tig * 4);
     }
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -163,18 +140,6 @@ __device__ __forceinline__ void mma_mainloop_impl(const ALoad& la, const BLoad& 
       for (int j = 0; j < 8; ++j) mma_s8(acc.v[i][j], af[i], bf[j]);
     __syncthreads();  // the next iteration's load overwrites this stage
   }
-}
-
-template <class ALoad, class BLoad>
-__device__ __forceinline__ void mma_mainloop(const ALoad& la, const BLoad& lb,
-                                             int k_steps, Acc& acc) {
-  mma_mainloop_impl<false>(la, lb, k_steps, acc);
-}
-
-template <class ALoad, class B4Load>
-__device__ __forceinline__ void mma_mainloop_w4(const ALoad& la, const B4Load& lb,
-                                                int k_steps, Acc& acc) {
-  mma_mainloop_impl<true>(la, lb, k_steps, acc);
 }
 
 // Walk this thread's accumulator elements as (tile row, tile col pair):

@@ -1,16 +1,15 @@
 // Phase-domain deconvolution kernels for the serving tail (sm_90a).
 //
-// Replaces three Pallas TPU kernels of posetpu/ops/pallas/phase_tail.py:
-//   B2 fused_subpixel_deconv_batched (_subpixel_deconv_kernel_batched) —
-//      deconv0 as 4 phases x 4 taps of int8 dots + per-phase requant;
+// Replaces two Pallas TPU kernels of posetpu/ops/pallas/phase_tail.py:
 //   B5 fused_phase_tail (_phase_tail_kernel) — the last deconv + the 1x1
 //      head, heatmaps in the phase_index_tables(levels=1) order: phase_conv
 //      (phase-major output) then phase_head(levels=1);
-//   B6 fused_subpixel_deconv (_subpixel_deconv_kernel) — B2's arithmetic
-//      with the per-pair kernel's N-minor output [4, H, W, N, Cout]
-//      (phase_conv output mode 2).
-// B1 (fused_phase_tail2) has its own kernel, tail2.cu; the launches here are
-// the design it left (PERF.md), kept for B2, B5, B6 until they move onto it.
+//   B6 fused_subpixel_deconv (_subpixel_deconv_kernel) — deconv0 as 4 phases
+//      x 4 taps of int8 dots + per-phase requant, with the per-pair kernel's
+//      N-minor output [4, H, W, N, Cout] (phase_conv output mode 2).
+// B1 (fused_phase_tail2) and B2 (fused_subpixel_deconv_batched) have their
+// own kernel, tail2.cu; the launches here are the design they left (PERF.md),
+// kept for B5 and B6 until they move onto it.
 //
 // phase_conv: one k4/s2/p1 transposed conv in phase form. Output element
 // (g=(a,b), n, i, j, o) = requant(sum_t sum_c x[n, i+sr, j+sc, c] * w[g,t,o,c])
@@ -26,10 +25,10 @@
 // (2i+al, 2j+be); levels=1, p = g*h*w + r reads phase g at row-major pixel r.
 //
 // Bound on the H100 (1,979 TOP/s int8 dense, 3.35 TB/s), at the serving
-// shapes (128 images, 256^2 input): B2 6.87e10 MAC over 33.6 MB, ~0.069 ms,
-// compute-bound. B5 at the serving shapes (128 images, 32x32 -> 64x64, C
-// 256): 1.36e11 MAC, ~0.137 ms, compute-bound; it round-trips its deconv
-// output (134 MB int8) through device memory. B6 is B2's work: ~0.069 ms.
+// shapes (128 images, 256^2 input): B6 (deconv0) 6.87e10 MAC over 33.6 MB,
+// ~0.069 ms, compute-bound. B5 at the serving shapes (128 images, 32x32 ->
+// 64x64, C 256): 1.36e11 MAC, ~0.137 ms, compute-bound; it round-trips its
+// deconv output (134 MB int8) through device memory.
 // The design answers the compute bound with int8 tensor-core mma.sync (exact
 // int32 sums) on 128x128 tiles on int8_mma.cuh's two-stage loop; it is 7-12x
 // above the bound (PERF.md).

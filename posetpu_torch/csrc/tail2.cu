@@ -1,7 +1,7 @@
 // The phase-form k4/s2/p1 transposed convs of the deconv tails, and their 1x1
 // heads, on one halo + wgmma kernel (sm_90a).
 //
-// Replaces three Pallas TPU kernels:
+// Replaces four Pallas TPU kernels:
 //   B1 posetpu/ops/pallas/phase_tail.py: fused_phase_tail2
 //      (_phase_tail2_kernel): deconv1 and deconv2 and the 1x1 head,
 //      heatmaps in the phase_index_tables(levels=2) order. Two launches:
@@ -13,6 +13,10 @@
 //      folded per-phase epilogue (EPI = kFolded).
 //   B9b deconv.py: fused_subpixel_deconv_head (_deconv_head_kernel): the same
 //      and the head -> f32 [N, 2H, 2W, J] row-major (JT > 0, EPI = kFolded).
+//   B2 posetpu/ops/pallas/phase_tail.py: fused_subpixel_deconv_batched
+//      (deconv0 of the serving tail): the phase maps int8 [4, N, H, W, Cout],
+//      phase-major, B1's relu requant on per-phase vectors (EPI =
+//      kReluPhase), on the streamed halo.
 // The deconv's output never leaves the block when a head follows: each
 // 128-channel half of it is requantised into shared memory and the head's
 // int32 sums, which split exactly over the channels, accumulate half by half
@@ -58,13 +62,16 @@
 // stored in the levels=2 packed order; kFolded, B9's: acc * v0 + v1 rounded
 // once and clipped to [0, 127], v [2, 4 Cout] per phase (scale and bias
 // pre-divided by the output scale on the host), the head stored row-major
-// at pixel (2i + a, 2j + b) of the 2H x 2W image, J floats a pixel.
+// at pixel (2i + a, 2j + b) of the 2H x 2W image, J floats a pixel;
+// kReluPhase, B2's: kRelu's arithmetic with kFolded's per-phase rows
+// (scales of the four phases, then their biases: [8, Cout]) and the deconv
+// stored phase-major, pixel (i, j) of phase g at [g][n][i][j].
 //
 // Bounds on the H100 (1,979 TOP/s int8 dense, 3.35 TB/s), 128 images: B1 at
 // 16x16 deconv1 input, C = 256, J = 16: 1.73e11 MAC -> 0.176 ms; B9b (32x32,
 // 256 -> 256 -> 16) 1.40e11 MAC -> 0.141 ms; B9a deconv0 (8x8, 2048 -> 256)
-// 6.9e10 MAC -> 0.069 ms and deconv1 (16x16, 256 -> 256) 3.4e10 -> 0.035 ms:
-// all bound by operations. Each block streams its sets' weights from L2
+// 6.9e10 MAC -> 0.069 ms (B2's the same) and deconv1 (16x16, 256 -> 256)
+// 3.4e10 -> 0.035 ms: all bound by operations. Each block streams its sets' weights from L2
 // (4 taps x Cin x 128 bytes a set: 128 KB at Cin 256, 1 MB at Cin 2048), so
 // the block's 128 pixels set the weights' L2 traffic: deconv0 reads 8192 /
 // 128 x 8.4 MB = 0.54 GB of them, whatever the sets a block. Measured design
@@ -96,7 +103,7 @@ constexpr int T2_THREADS = 256;
 constexpr int T2_IMGS = 2;                // the streamed designs: an image a warpgroup
 constexpr int T2_SPLANE = T2_IMGS * 10 * T2_HW * 16;  // kHaloStream: a plane, both images
 
-enum Epilogue { kRelu = 0, kFolded = 1 };
+enum Epilogue { kRelu = 0, kFolded = 1, kReluPhase = 2 };
 enum ASource { kHalo = 0, kHaloStream = 1 };
 
 // bytes of A a ring stage holds beside its weights (two planes), and the
@@ -111,12 +118,12 @@ __host__ __device__ constexpr int ring_stage_bytes(int asrc) {
 struct Tail2Args {
   const int8_t* x;    // [N, H, W, Cin]
   const int8_t* wt;   // stage images [4][NH][KS][128][64]
-  const float* sc;    // kRelu: [2, Cout] (scale, bias); kFolded: [2, 4 Cout]
-  const float* so;    // kRelu: the output scale
+  const float* sc;    // kRelu: [2, Cout] (scale, bias); else per phase [2, 4 Cout]
+  const float* so;    // kRelu, kReluPhase: the output scale
   const int8_t* wh;   // head [JT * 8][NH * 128], zero padded (JT > 0)
   const float* vh;    // [2, J]: scale, bias (JT > 0)
-  void* out;          // JT = 0: int8 [N, 2H, 2W, Cout]; else f32 [J, N, 4 H W] (kRelu)
-                      // or [N, 4 H W, J] (kFolded)
+  void* out;          // JT = 0: int8 [N, 2H, 2W, Cout] ([4, N, H, W, Cout] kReluPhase);
+                      // else f32 [J, N, 4 H W] (kRelu) or [N, 4 H W, J] (kFolded)
   int n, h, w, cin, cout, joints;
   int tiles_x, stages, sets;
 };
@@ -167,9 +174,10 @@ __global__ void __launch_bounds__(T2_THREADS, 2) tail2_kernel(
     const Tail2Args p, const Tail2Layout lay,
     const __grid_constant__ CUtensorMap tm_x) {  // x [N][H][W][Cin] (streamed designs)
   static_assert(JT == 0 || ASRC == kHalo, "a head follows only the resident halo");
+  static_assert(JT == 0 || EPI != kReluPhase, "the phase-major deconv has no head");
   constexpr bool kStream = ASRC != kHalo;
   constexpr int ring_stage = ring_stage_bytes(ASRC);
-  constexpr int nvec = EPI == kFolded ? 8 : 2;  // rows of sv: (scale, bias) x phases
+  constexpr int nvec = EPI == kRelu ? 2 : 8;  // rows of sv: (scale, bias) x phases
   extern __shared__ __align__(1024) int8_t smem[];
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gid = lane >> 2, tig = lane & 3;
@@ -235,7 +243,7 @@ __global__ void __launch_bounds__(T2_THREADS, 2) tail2_kernel(
   for (int i = tid; i < cpad; i += T2_THREADS) {
     const bool in = i < p.cout;
 #pragma unroll
-    for (int r = 0; r < nvec; ++r)  // kFolded: row 4 (scale, bias) + phase
+    for (int r = 0; r < nvec; ++r)  // per phase: row 4 (scale, bias) + phase
       sv[r * cpad + i] = in ? p.sc[r * p.cout + i] : 0.0f;
   }
   const int ldh = cpad + 16;
@@ -250,7 +258,7 @@ __global__ void __launch_bounds__(T2_THREADS, 2) tail2_kernel(
           *reinterpret_cast<const int4*>(p.wh + r * cpad + ch * 16);
     }
   }
-  const float inv_so = EPI == kRelu ? __fdiv_rn(1.0f, *p.so) : 0.0f;
+  const float inv_so = EPI != kFolded ? __fdiv_rn(1.0f, *p.so) : 0.0f;
   if constexpr (ASRC == kHalo) cp_async_wait0();
   // every thread's halo copies and scales are in, and visible to the tensor
   // cores' reads (the async proxy); what TMA brings needs only its mbarrier
@@ -326,8 +334,8 @@ __global__ void __launch_bounds__(T2_THREADS, 2) tail2_kernel(
     // channel 8 i + 2 tig + (r & 1)
     asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
     keep_in_registers(d);
-    const float* s_g = sv + (EPI == kFolded ? g : 0) * cpad;
-    const float* b_g = sv + (EPI == kFolded ? 4 + g : 1) * cpad;
+    const float* s_g = sv + (EPI != kRelu ? g : 0) * cpad;
+    const float* b_g = sv + (EPI != kRelu ? 4 + g : 1) * cpad;
 #pragma unroll
     for (int k = 0; k < 32; ++k) {
       const int row = 64 * wg + 16 * (warp & 3) + 8 * (k & 1) + gid;
@@ -348,15 +356,18 @@ __global__ void __launch_bounds__(T2_THREADS, 2) tail2_kernel(
     __syncthreads();
 
     if constexpr (JT == 0) {
-      // the deconv's output leaves interleaved, 16 bytes a store, a pixel's
-      // 128 channels one 128-byte line
+      // the deconv's output leaves interleaved (phase-major for kReluPhase),
+      // 16 bytes a store, a pixel's 128 channels one 128-byte line
       int8_t* z1 = static_cast<int8_t*>(p.out);
       for (int e = tid; e < 128 * (T2_BN / 16); e += T2_THREADS) {
         const int row = e >> 3, ch = e & 7, o = nh * T2_BN + ch * 16;
         int img, y, x;
         if (!pixel(row, img, y, x) || o >= p.cout) continue;
-        int8_t* dst = z1 + ((static_cast<size_t>(img) * 2 * p.h + 2 * y + a) * 2 * p.w +
-                            2 * x + b) * p.cout + o;
+        const size_t px =
+            EPI == kReluPhase
+                ? ((static_cast<size_t>(g) * p.n + img) * p.h + y) * p.w + x
+                : (static_cast<size_t>(img) * 2 * p.h + 2 * y + a) * 2 * p.w + 2 * x + b;
+        int8_t* dst = z1 + px * p.cout + o;
         const int8_t* src = zs + row * T2_LDZ + ch * 16;
         if (p.cout % 16 == 0) {
           *reinterpret_cast<int4*>(dst) = *reinterpret_cast<const int4*>(src);
@@ -448,7 +459,7 @@ struct Tail2Kernel {
 };
 
 // the instances: B1's two launches (deconv1; deconv2 + head at J <= 16 and
-// <= 32), B9's at the resident halo, and B9a's streamed halo
+// <= 32), B9's at the resident halo, B9a's and B2's streamed halo
 static Tail2Kernel tail2_kernels[] = {
     {0, kRelu, kHalo, tail2_kernel<0, kRelu, kHalo>, 0},
     {2, kRelu, kHalo, tail2_kernel<2, kRelu, kHalo>, 0},
@@ -457,6 +468,7 @@ static Tail2Kernel tail2_kernels[] = {
     {2, kFolded, kHalo, tail2_kernel<2, kFolded, kHalo>, 0},
     {4, kFolded, kHalo, tail2_kernel<4, kFolded, kHalo>, 0},
     {0, kFolded, kHaloStream, tail2_kernel<0, kFolded, kHaloStream>, 0},
+    {0, kReluPhase, kHaloStream, tail2_kernel<0, kReluPhase, kHaloStream>, 0},
 };
 
 static Tail2Kernel* find_kernel(int jt, int epi, int asrc) {
@@ -477,7 +489,7 @@ static cudaError_t configure(Tail2Kernel& k, int smem) {
 using namespace posetpu;
 
 // One launch of the kernel. ``jt`` 0 runs a deconv into int8; 2 or 4 a deconv
-// and the head (J <= 8 jt). ``epi`` picks the epilogue (0 B1's, 1 B9's),
+// and the head (J <= 8 jt). ``epi`` picks the epilogue (0 B1's, 1 B9's, 2 B2's),
 // ``asrc`` the design (0 the resident halo, 1 the streamed halo), ``sets``
 // the (phase, n-half) pairs a block takes
 // (a divisor of 4 NH; a multiple of NH with a head). The ring's shape and the

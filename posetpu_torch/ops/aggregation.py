@@ -34,7 +34,10 @@ with ``dia`` summed in pair order and every multiply and add rounded on its
 own. Its ``qagg`` (:func:`aggregation_device_params_s4`) holds the bank
 nibble-packed K-minor, wq4 [4, 3, S_out, S_in / 2] uint8 — two weights per
 byte, so the card reads half the bytes of the int8 bank — plus w_scale,
-dv [4, 3, S] f32 and x_scale. :func:`pack_nibbles_k` gives the nibble order.
+dv [4, 3, S] f32, x_scale and sv folded once. :func:`pack_nibbles_k` gives
+the nibble order. On the card the wrapper runs the same quantize kernel as
+B3, then B4's kernel, which widens the nibbles to int8 into shared memory
+on their way to the tensor cores, on a ring of :data:`S4_STAGES`.
 """
 
 from __future__ import annotations
@@ -48,9 +51,13 @@ from posetpu_torch.ops.phase_tail import check_cuda, stream_of
 
 _SIGNATURES = {
     "aggregation_grouped": [_build.P] * 4 + [_build.I] * 2 + [_build.P],
-    "aggregation_grouped_s4": [_build.P] * 5 + [_build.I] * 2 + [_build.P],
+    "aggregation_grouped_s4": [_build.P] * 5 + [_build.I] * 3 + [_build.P],
     "quantize_heatmaps": [_build.P] * 3 + [_build.I] * 2 + [_build.P],
 }
+
+# B4's ring: 4 stages of 40 KB, measured on the H100 at J*N 512, S 4096
+# (tools/torch_kernel_sweep.py agg; PERF.md)
+S4_STAGES = 4
 
 # source views of target t, in order: {0..3} \ {t}
 _SRC = [[s for s in range(4) if s != t] for t in range(4)]
@@ -194,28 +201,31 @@ def aggregation_grouped_s4_plain(qagg, hm):
 
 def aggregation_grouped_s4(qagg, hm):
     """hm [J, N, V=4, S] f32 -> fused [J, N, V, S] f32 over the diag-split
-    4-bit bank (see the module docstring). The kernel takes S % 32 == 0 and
-    a contiguous uint8 CUDA bank [4, 3, S, S/2]; any J*N."""
+    4-bit bank (see the module docstring). On the card: the quantize kernel,
+    then B4's kernel; S % 32 == 0, a contiguous uint8 CUDA bank
+    [4, 3, S, S/2] and sv from :func:`aggregation_device_params_s4`; any
+    J*N."""
     j, n, v, s = hm.shape
     if v != 4:
         raise ValueError(f"the aggregation bank is built for 4 views, got {v}")
     if not hm.is_cuda:
         return aggregation_grouped_s4_plain(qagg, hm)
-    wq4, dv = qagg["wq4"], qagg["dv"]
+    wq4, dv, sv = qagg["wq4"], qagg["dv"], qagg.get("sv")
     if s % 32 or wq4.shape != (4, 3, s, s // 2) or wq4.dtype != torch.uint8 \
             or not wq4.is_cuda or not wq4.is_contiguous() \
-            or dv.shape != (4, 3, s) or dv.dtype != torch.float32 or not dv.is_cuda:
+            or dv.shape != (4, 3, s) or dv.dtype != torch.float32 \
+            or sv is None or sv.shape != (4, s):
         raise ValueError(f"aggregation_grouped_s4: unsupported shapes hm "
                          f"{tuple(hm.shape)}, wq4 {tuple(wq4.shape)} {wq4.dtype}, "
                          f"dv {tuple(dv.shape)} (S % 32 == 0, contiguous "
-                         f"nibble-packed uint8 CUDA bank [4, 3, S, S/2])")
-    xq, sv = _quantize(qagg, hm), fold_sv(qagg)
-    xq, sv, dv = xq.contiguous(), sv.contiguous(), dv.contiguous()
+                         f"nibble-packed uint8 CUDA bank [4, 3, S, S/2], sv [4, S] from "
+                         f"aggregation_device_params_s4)")
+    check_cuda("aggregation_grouped_s4", dv=dv, sv=sv)
+    xq = quantize_heatmaps(qagg, hm)
     out = torch.empty((4, j * n, s), dtype=torch.float32, device=hm.device)
-    lib = _build.load("aggregation", _SIGNATURES)
-    _build.check(lib.aggregation_grouped_s4(
-        xq.data_ptr(), wq4.data_ptr(), sv.data_ptr(), dv.data_ptr(),
-        out.data_ptr(), j * n, s, stream_of(hm)), "aggregation_grouped_s4")
+    _build.check(_build.load("aggregation", _SIGNATURES).aggregation_grouped_s4(
+        xq.data_ptr(), wq4.data_ptr(), sv.data_ptr(), dv.data_ptr(), out.data_ptr(),
+        j * n, s, S4_STAGES, stream_of(hm)), "aggregation_grouped_s4")
     aggregation_grouped_s4.launches += 1
     return _unpack(out, hm)
 
@@ -231,21 +241,24 @@ def aggregation_device_params_s4(qagg: dict, device) -> dict:
     """A JAX-layout s4 bank (``wq4`` [4, 3, S_in, S_out] as an int8 carrier
     with values in [-7, 7], numpy or arrays) -> the B4 kernel's tensors on
     ``device``: wq4 K-minor and nibble-packed, uint8 [4, 3, S_out, S_in/2]
-    (:func:`pack_nibbles_k`); w_scale [4, 1, S], dv [4, 3, S], x_scale f32.
-    The counterpart of the JAX package's ``finalize_device_params``, which
-    casts the carrier to a 4-bit type on the device."""
+    (:func:`pack_nibbles_k`); w_scale [4, 1, S], dv [4, 3, S], x_scale f32,
+    and sv [4, S] folded once (:func:`fold_sv`). The counterpart of the JAX
+    package's ``finalize_device_params``, which casts the carrier to a 4-bit
+    type on the device."""
     wq = torch.from_numpy(np.array(_as_np(qagg["wq4"]))).to(device)
     if wq.dtype != torch.int8 or int(wq.abs().max()) > 7:
         raise ValueError("aggregation_device_params_s4: wq4 must be an int8 "
                          "carrier with values in [-7, 7]")
     f32 = lambda a: torch.from_numpy(_as_np(a).astype(np.float32)).to(device)
-    return {
+    out = {
         "wq4": pack_nibbles_k(wq.transpose(-1, -2).contiguous()),
         "w_scale": f32(qagg["w_scale"]),
         "dv": f32(qagg["dv"]).contiguous(),
         "x_scale": torch.tensor(float(_as_np(qagg["x_scale"])), dtype=torch.float32,
                                 device=device),
     }
+    out["sv"] = fold_sv(out).contiguous()
+    return out
 
 
 def aggregation_device_params(qagg: dict, device) -> dict:

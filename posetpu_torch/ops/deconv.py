@@ -26,8 +26,9 @@ The design, picked by shape (:func:`deconv_design`): where the input tile's
 halo fits a block's shared memory with the folded epilogue (Cin up to about
 960, deconv1 and deconv2 + head at serving), the resident halo of B1's
 kernel; otherwise (deconv0, Cin 2048) the input streamed through the ring,
-:data:`STREAM_DESIGN` with :data:`STREAM_SETS` (phase, n-half) pairs a block
-and :data:`STREAM_STAGES` ring stages. :func:`deconv_device_args` tiles the
+:data:`STREAM_DESIGN` with :func:`stream_sets` (phase, n-half) pairs a block
+and :data:`STREAM_STAGES` ring stages (ops/phase_tail's, B2's too).
+:func:`deconv_device_args` tiles the
 weights into that design's stage images (``wt``) beside the K-minor
 [phase, tap, Cout, Cin] ``w`` the plain version reads, and pads the head
 (``wht``). Shapes the kernels take: Cin % 32 == 0, Cout % 8 == 0, J <= 32, a head only after a deconv whose halo
@@ -42,6 +43,8 @@ import torch
 
 from posetpu_torch.ops.int_mm import int_mm
 from posetpu_torch.ops.phase_tail import (
+    STREAM_DESIGN,
+    STREAM_STAGES,
     _k_minor,
     _np,
     _to,
@@ -49,15 +52,11 @@ from posetpu_torch.ops.phase_tail import (
     launch_tail2,
     pad_head,
     phase_sums,
+    sm_count,
+    stream_sets,
     subpixel_interleave_packed_nmajor,
     tile_phase_weight,
 )
-
-# deconv0's design (Cin 2048: the halo does not fit), measured on the H100 at
-# 128 images of 8x8 (tools/torch_kernel_sweep.py deconv): the streamed halo,
-# four (phase, n-half) pairs a block (128 blocks: one wave, one an SM) and a
-# ring of 7 stages beat 1, 2 or 8 pairs and shallower rings by 5-15 %
-STREAM_DESIGN, STREAM_SETS, STREAM_STAGES = "stream", 4, 7
 
 
 # ------------------------------------------------------------ plain versions
@@ -115,7 +114,9 @@ def _launch(x, args, h, w, head: bool, what):
     stream = design != "halo"
     out = launch_tail2(x.reshape(n, h, w, cin), args["wt"], args["v"], None,
                        args["wht"] if head else None, args["vh"] if head else None,
-                       folded=True, design=design, sets=STREAM_SETS if stream else None,
+                       epilogue="folded", design=design,
+                       sets=stream_sets(n, h, w, cout, sm_count(x.device.index)) if stream
+                       else None,
                        stages=STREAM_STAGES if stream else None)
     return out if head else out.reshape(n, 4 * hw, cout)
 

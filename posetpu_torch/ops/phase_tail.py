@@ -1,7 +1,7 @@
 """The phase-domain deconvolution tail: an inner deconv (B2, B6), the last
 deconv + the 1x1 head (B5) and the last two deconvs + head (B1), each a
-hand-written CUDA kernel (``csrc/phase_tail.cu``; B1: ``csrc/tail2.cu``)
-with its plain PyTorch version beside it.
+hand-written CUDA kernel (``csrc/phase_tail.cu``; B1 and B2:
+``csrc/tail2.cu``) with its plain PyTorch version beside it.
 
 Ports posetpu/ops/pallas/phase_tail.py's kernels with the same contracts:
 
@@ -25,9 +25,13 @@ wgmma with A read from the halo; its shared memory is planned per shape by
 the pure :func:`plan_tail2`, and the weights arrive as the stage images
 :func:`tile_phase_weight` makes (``tail2_device_args``). The same kernel,
 with B9's folded per-phase epilogue and row-major head, and with the input
-streamed where its halo does not fit, is B9a and B9b (ops/deconv.py);
-:func:`launch_tail2` launches every instance. B2, B5 and B6 run
-``phase_conv`` (+ ``phase_head``).
+streamed where its halo does not fit, is B9a and B9b (ops/deconv.py); with
+B1's requant on per-phase vectors, the phase-major store and the streamed
+halo (:data:`STREAM_DESIGN`, :func:`stream_sets`, :data:`STREAM_STAGES`) it
+is B2, whose arguments :func:`subpixel_device_args` makes (the streamed
+halo's stage images ``wt`` and the vectors ``svb`` beside the K-minor ``w``
+the plain version and B6 read). :func:`launch_tail2` launches every
+instance. B5 and B6 run ``phase_conv`` (+ ``phase_head``).
 
 On a CUDA tensor the wrapper launches the kernel (and counts the launch in
 its ``launches`` attribute); on a CPU tensor it runs the plain version,
@@ -62,6 +66,12 @@ from posetpu_torch.ops.int_mm import int_mm
 SUBPIX_BATCHED = True
 
 _PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
+
+# deconv0's design (Cin 2048: the resident halo does not fit), B9a's and
+# B2's: the streamed halo with a ring of 7 stages (one block an SM) and the
+# (phase, n-half) pairs a block of stream_sets, measured on the H100 at 128
+# and 256 images of 8x8 (tools/torch_kernel_sweep.py deconv; PERF.md)
+STREAM_DESIGN, STREAM_STAGES = "stream", 7
 _P, _I = _build.P, _build.I
 _SIGNATURES = {
     "phase_conv": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
@@ -239,6 +249,9 @@ TAIL2_STAGES, _T2_IPS = 2, 2
 # shared memory; its planes streamed through the ring by TMA, an 8 x 8 tile
 # of one image a warpgroup (two planes of two images' halos a ring stage)
 DESIGNS = ("halo", "stream")
+# the epilogues (csrc/tail2.cu, Epilogue, in its order): B1's relu requant on
+# shared vectors, B9's folded per-phase one, B2's relu requant on per-phase rows
+EPILOGUES = ("relu", "folded", "relu_phase")
 _ASRC = {d: i for i, d in enumerate(DESIGNS)}
 _A_BYTES = {"halo": 0, "stream": 2 * 2 * 10 * 10 * 16}
 
@@ -300,7 +313,7 @@ def plan_tail2(h: int, w: int, cin: int, cout: int, jt: int,
                sets: int | None = None) -> Tail2Plan:
     """The block shape for one launch over an h x w input grid (``jt`` 0: a
     deconv alone; 2 or 4: a deconv with a head of <= 8 jt joints; ``folded``:
-    B9's per-phase vectors), a pure function of the shapes (cached: a launch
+    per-phase vectors, as B9's and B2's epilogues read them), a pure function of the shapes (cached: a launch
     looks it up): the design's tiles, the last row and column of them
     overhanging the grid, and the regions of shared memory in order: the halo
     tile (16-channel planes; none when streamed), the ring, the requantised
@@ -328,6 +341,25 @@ def plan_tail2(h: int, w: int, cin: int, cout: int, jt: int,
     return plan
 
 
+@functools.lru_cache(maxsize=None)
+def stream_sets(n: int, h: int, w: int, cout: int, sms: int) -> int:
+    """The (phase, n-half) pairs a block of the streamed halo takes: the
+    fewest whose grid is one wave on a card of ``sms`` SMs (a block an SM),
+    else all of them. At deconv0's 8x8, 2048 -> 256: 4 at 128 images and 8
+    at 256, each 128 blocks; the sweeps found one wave best at both (one
+    block an SM that also walks more pairs beats two waves)."""
+    pairs = 4 * -(-cout // _T2_BN)
+    tiles = -(-h // 8) * -(-w // 8) * -(-n // 2)
+    return next((sets for sets in range(1, pairs + 1)
+                 if pairs % sets == 0 and tiles * (pairs // sets) <= sms), pairs)
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(index: int) -> int:
+    """Streaming multiprocessors of CUDA device ``index``."""
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def tail2_tiles(plan: Tail2Plan):
     """The (y0, x0) corner of every block's tile, in the grid's order."""
     th, tw = tail2_tile(plan.design)
@@ -340,54 +372,72 @@ def _tail2_lib():
     return _build.load("tail2", _TAIL2_SIGNATURES)
 
 
-def tail2_blocks_per_sm(plan: Tail2Plan, jt: int, folded: bool = False) -> int:
-    """Blocks of the kernel the card puts on one SM for ``plan``."""
-    blocks = _tail2_lib().tail2_blocks_per_sm(jt, int(folded), _ASRC[plan.design], plan.smem)
+def tail2_blocks_per_sm(plan: Tail2Plan, jt: int, epilogue: str = "relu") -> int:
+    """Blocks of the kernel the card puts on one SM for ``plan`` and the
+    instance of ``epilogue`` (one of :data:`EPILOGUES`)."""
+    blocks = _tail2_lib().tail2_blocks_per_sm(jt, EPILOGUES.index(epilogue),
+                                               _ASRC[plan.design], plan.smem)
     if blocks < 0:
         raise RuntimeError(f"tail2_blocks_per_sm: CUDA error {-blocks}")
     return blocks
 
 
-def launch_tail2(x4, wt, sc, so, wh=None, vh=None, *, stages=None, folded=False,
+# the wrapper each epilogue serves, named in errors
+_EPILOGUE_OF = {"relu": "fused_phase_tail2", "folded": "fused_subpixel_deconv",
+                "relu_phase": "fused_subpixel_deconv_batched"}
+
+
+def launch_tail2(x4, wt, sc, so, wh=None, vh=None, *, epilogue="relu", stages=None,
                  design="halo", sets=None):
     """One launch of the phase-form kernel over x4 [N, H, W, Cin] int8 with
     the stage images ``wt`` [4, NH, 4 Cin / 64, 128, 64]
     (:func:`tile_phase_weight`, ``chunked`` for the ``"stream"`` design).
-    B1's epilogue: ``sc`` [2, Cout], ``so`` [1, 1]; ``folded`` (B9's): ``sc``
-    the per-phase v [2, 4 Cout], no ``so``. Without a head, int8
-    [N, 2H, 2W, Cout] (interleaved); with the padded head ``wh``
-    [8 jt, NH * 128] and ``vh`` [2, J], f32 [J, N, 4 H W] in the levels=2
-    order of the 2H x 2W output (B1), or [N, 4 H W, J] row-major (folded)."""
+    ``epilogue`` (:data:`EPILOGUES`): ``"relu"``, B1's, ``sc`` [2, Cout] and
+    ``so`` [1, 1]; ``"folded"``, B9's, ``sc`` the per-phase v [2, 4 Cout] and
+    no ``so``; ``"relu_phase"``, B2's (the streamed halo, no head), B1's
+    arithmetic on per-phase ``sc`` [8, Cout] (the four phases' scales, then
+    their biases) and ``so``. Without a head, int8 [N, 2H, 2W, Cout]
+    (interleaved), or [4, N, H, W, Cout] (``"relu_phase"``, phase-major);
+    with the padded head ``wh`` [8 jt, NH * 128] and ``vh`` [2, J], f32
+    [J, N, 4 H W] in the levels=2 order of the 2H x 2W output (``"relu"``),
+    or [N, 4 H W, J] row-major (``"folded"``)."""
     n, h, w, cin = x4.shape
     nh = wt.shape[1]
-    cout = sc.shape[-1] // 4 if folded else sc.shape[-1]
+    what = _EPILOGUE_OF[epilogue]
+    cout = sc.shape[-1] // 4 if epilogue == "folded" else sc.shape[-1]
+    sc_shape = {"relu": (2, cout), "folded": (2, 4 * cout), "relu_phase": (8, cout)}[epilogue]
     joints = 0 if wh is None else vh.shape[-1]
     jt = 0 if wh is None else (2 if joints <= 16 else 4)
-    what = "fused_subpixel_deconv" if folded else "fused_phase_tail2"
     if (x4.dtype != torch.int8 or wt.dtype != torch.int8 or cin % 32 or cout % 8
             or tuple(wt.shape) != (4, -(-cout // _T2_BN), 4 * cin // _T2_KB, _T2_BN, _T2_KB)
             or joints > 32 or (wh is not None and tuple(wh.shape) != (8 * jt, nh * _T2_BN))
-            or (folded and tuple(sc.shape) != (2, 4 * cout))):
+            or tuple(sc.shape) != sc_shape
+            or (epilogue == "relu_phase" and (wh is not None or design != STREAM_DESIGN))):
         raise ValueError(f"{what}: unsupported shapes x {tuple(x4.shape)}, "
                          f"w {tuple(wt.shape)}, Cout {cout}, {joints} joints (Cin % 32 == 0, "
                          f"Cout % 8 == 0, J <= 32, tiled weights)")
     tensors = {"x": x4, "w": wt, "s": sc}
-    if not folded:
+    if epilogue != "folded":
         tensors["so"] = so
     if wh is not None:
         tensors.update(wh=wh, vh=vh)
     check_cuda(what, **tensors)
-    plan = plan_tail2(h, w, cin, cout, jt, stages, design=design, folded=folded, sets=sets)
-    if wh is None:
+    plan = plan_tail2(h, w, cin, cout, jt, stages, design=design,
+                      folded=epilogue != "relu", sets=sets)
+    if epilogue == "relu_phase":
+        out = torch.empty((4, n, h, w, cout), dtype=torch.int8, device=x4.device)
+    elif wh is None:
         out = torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.int8, device=x4.device)
-    elif folded:
+    elif epilogue == "folded":
         out = torch.empty((n, 4 * h * w, joints), dtype=torch.float32, device=x4.device)
     else:
         out = torch.empty((joints, n, 4 * h * w), dtype=torch.float32, device=x4.device)
     _build.check(_tail2_lib().tail2(
-        x4.data_ptr(), wt.data_ptr(), sc.data_ptr(), 0 if folded else so.data_ptr(),
+        x4.data_ptr(), wt.data_ptr(), sc.data_ptr(),
+        0 if epilogue == "folded" else so.data_ptr(),
         0 if wh is None else wh.data_ptr(), 0 if vh is None else vh.data_ptr(),
-        out.data_ptr(), n, h, w, cin, cout, joints, jt, int(folded), _ASRC[design], plan.sets,
+        out.data_ptr(), n, h, w, cin, cout, joints, jt, EPILOGUES.index(epilogue),
+        _ASRC[design], plan.sets,
         plan.stages, plan.off_ring, plan.off_z, plan.off_wh, plan.off_sc, plan.off_bar,
         plan.smem, stream_of(x4)), what)
     return out
@@ -399,15 +449,20 @@ def launch_tail2(x4, wt, sc, so, wh=None, vh=None, *, stages=None, folded=False,
 def fused_subpixel_deconv_batched(x, args, *, h: int, w: int):
     """x: [N, H*W, Cin] int8 (deconv input, row-major) -> int8 phase maps
     [4, N, H, W, Cout] (phase (a, b) major), requantized with per-phase
-    scales. ``args`` from :func:`subpixel_device_args`."""
+    scales. ``args`` from :func:`subpixel_device_args`. On the card: B2's
+    instance of ``csrc/tail2.cu`` on the streamed halo."""
     n, hw, cin = x.shape
     if hw != h * w:
         raise ValueError(f"x has {hw} pixels per image, not {h}x{w}")
     if not x.is_cuda:
         return subpixel_deconv_plain(x, args, h=h, w=w)
-    cout = args["w"].shape[2]
-    out = _launch_phase_conv(x.reshape(n, h, w, cin), args["w"], args["sv"],
-                             args["bv"], cout, args["so"], _PHASE_MAJOR)
+    if "wt" not in args or "svb" not in args:
+        raise ValueError("fused_subpixel_deconv_batched: args need the stage images and "
+                         "vectors of subpixel_device_args (wt, svb)")
+    cout = args["svb"].shape[-1]
+    out = launch_tail2(x.reshape(n, h, w, cin), args["wt"], args["svb"], args["so"],
+                       epilogue="relu_phase", design=STREAM_DESIGN, stages=STREAM_STAGES,
+                       sets=stream_sets(n, h, w, cout, sm_count(x.device.index)))
     fused_subpixel_deconv_batched.launches += 1
     return out
 
@@ -595,10 +650,23 @@ def _k_minor(a, device):
 
 
 def subpixel_device_args(args: dict, device) -> dict:
-    """JAX-layout subpixel args (numpy or arrays) -> the kernel's tensors:
-    w [4, 4, Cout, Cin] int8 (K-minor), sv/bv [4, Cout] f32, so [1, 1] f32."""
-    return {"w": _k_minor(args["w"], device),
-            **{k: _to(args[k], device) for k in ("sv", "bv", "so")}}
+    """JAX-layout subpixel args (numpy or arrays) -> the kernels' tensors:
+    w [4, 4, Cout, Cin] int8 (K-minor, what B6 and the plain version read),
+    sv/bv [4, Cout] f32, so [1, 1] f32, and B2's (:func:`with_subpixel_weights`).
+    Both kernels' tensors are made whatever :data:`SUBPIX_BATCHED` says, as
+    the forward reads it per call: a B6 route carries B2's 8.4 MB of stage
+    images at deconv0 unread, a B2 route the K-minor ``w``."""
+    return with_subpixel_weights(
+        {"w": _k_minor(args["w"], device),
+         **{k: _to(args[k], device) for k in ("sv", "bv", "so")}})
+
+
+def with_subpixel_weights(args: dict) -> dict:
+    """``args`` (the K-minor tensors) with B2's beside them: ``wt`` the
+    streamed halo's stage images (:func:`tile_phase_weight`, chunked; 8.4 MB
+    at deconv0's 2048 -> 256) and ``svb`` [8, Cout], sv's rows then bv's."""
+    return dict(args, wt=tile_phase_weight(args["w"], chunked=True),
+                svb=torch.cat([args["sv"], args["bv"]]).contiguous())
 
 
 def tail_device_args(args: dict, device) -> dict:

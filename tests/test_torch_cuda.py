@@ -37,13 +37,57 @@ def test_subpixel_deconv_kernel_equals_plain(cuda, n, h, cin, cout):
             "sv": torch.rand(4, cout, generator=gen) * 2e-3 / cin ** 0.5,
             "bv": torch.rand(4, cout, generator=gen) * 40 - 20,
             "so": torch.tensor([[0.5]])}
-    dev = {k: v.to(cuda) for k, v in args.items()}
+    dev = tpt.with_subpixel_weights({k: v.to(cuda) for k, v in args.items()})
     before = tpt.fused_subpixel_deconv_batched.launches
     got = tpt.fused_subpixel_deconv_batched(x.to(cuda), dev, h=h, w=h)
     assert tpt.fused_subpixel_deconv_batched.launches == before + 1
     ref = tpt.subpixel_deconv_plain(x.to(cuda), dev, h=h, w=h)
     torch.cuda.synchronize()
     assert torch.equal(got, ref) and len(torch.unique(ref)) > 50
+
+
+def _subpixel_args(gen, cin, cout, dev):
+    """Random B2 arguments in the kernels' layout, scaled so the requant
+    spans the int8 range."""
+    args = {"w": _i8(gen, 4, 4, cout, cin),
+            "sv": torch.rand(4, cout, generator=gen) * 1.2e-3 / cin ** 0.5 + 1e-6,
+            "bv": torch.rand(4, cout, generator=gen) * 40 - 20,
+            "so": torch.tensor([[0.5]])}
+    return tpt.with_subpixel_weights({k: v.to(dev) for k, v in args.items()})
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout", [(128, 8, 8, 2048, 256), (256, 8, 8, 2048, 256),
+                                            (5, 3, 7, 96, 136), (3, 9, 12, 64, 24)])
+def test_subpixel_deconv_batched_serving_and_ragged_shapes(cuda, n, h, w, cin, cout):
+    """B2 (tail2_kernel's phase-major instance on the streamed halo) at paths
+    1 and 2's deconv0 (128 and 256 images of 8x8x2048) and at ragged shapes:
+    an image past N, tiles past the grid, a partial n-half; equal to the
+    plain version."""
+    gen = torch.Generator().manual_seed(21)
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    dev = _subpixel_args(gen, cin, cout, cuda)
+    before = tpt.fused_subpixel_deconv_batched.launches
+    got = tpt.fused_subpixel_deconv_batched(x, dev, h=h, w=w)
+    assert tpt.fused_subpixel_deconv_batched.launches == before + 1
+    ref = tpt.subpixel_deconv_plain(x, dev, h=h, w=w)
+    torch.cuda.synchronize()
+    assert got.shape == (4, n, h, w, cout)
+    assert torch.equal(got, ref) and len(torch.unique(ref)) > 50
+
+
+@pytest.mark.parametrize("sets,stages", [(1, 3), (2, 5), (4, 2), (8, 4)])
+def test_subpixel_deconv_batched_every_ring_and_sets(cuda, sets, stages):
+    """B2's instance at other (phase, n-half) runs and ring depths than the
+    wrapper's: equal to the plain version."""
+    gen = torch.Generator().manual_seed(22)
+    n, h, w, cin, cout = 7, 8, 8, 256, 256
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    dev = _subpixel_args(gen, cin, cout, cuda)
+    got = tpt.launch_tail2(x.reshape(n, h, w, cin), dev["wt"], dev["svb"], dev["so"],
+                           epilogue="relu_phase", design=tpt.STREAM_DESIGN, sets=sets, stages=stages)
+    ref = tpt.subpixel_deconv_plain(x, dev, h=h, w=w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 def _tail2_args(gen, cin, c1, c2, joints, dev):
@@ -172,6 +216,57 @@ def test_aggregation_s4_kernel_equals_plain(cuda, j, n, s):
     ref = tagg.aggregation_grouped_s4_plain(qagg, hm)
     torch.cuda.synchronize()
     assert torch.equal(got, ref) and float(ref.std()) > 0
+
+
+def _s4_bank(gen, s, dev):
+    """A random s4 bank in the kernel's layout, made on the card: residuals
+    in [-7, 7] nibble-packed, w_scale, dv, x_scale and sv folded once."""
+    g = torch.Generator(device=dev).manual_seed(int(torch.randint(1 << 30, (1,), generator=gen)))
+    w = torch.randint(-7, 8, (4, 3, s, s), generator=g, device=dev, dtype=torch.int8)
+    q = {"wq4": tagg.pack_nibbles_k(w),
+         "w_scale": torch.rand(4, 1, s, generator=g, device=dev) * 1e-2 + 1e-3,
+         "dv": torch.rand(4, 3, s, generator=g, device=dev) * 0.05,
+         "x_scale": torch.tensor(1.2 / 127, device=dev)}
+    q["sv"] = tagg.fold_sv(q).contiguous()
+    return q
+
+
+@pytest.mark.parametrize("j,n,s", [(16, 32, 4096), (5, 7, 96), (3, 3, 160)])
+def test_aggregation_s4_serving_and_ragged_shapes(cuda, j, n, s):
+    """B4 at the serving J*N = 512, S = 4096, and at J*N = 35 with S = 96
+    and J*N = 9 with S = 160 (ragged tiles both ways; S no multiple of the
+    128-deep k-step): equal to the plain version, and one launch of the
+    quantize kernel with each."""
+    gen = torch.Generator().manual_seed(23)
+    qagg = _s4_bank(gen, s, cuda)
+    hm = (torch.randn(j, n, 4, s, generator=gen) * 0.5).to(cuda)
+    before = (tagg.aggregation_grouped_s4.launches, tagg.quantize_heatmaps.launches)
+    got = tagg.aggregation_grouped_s4(qagg, hm)
+    assert (tagg.aggregation_grouped_s4.launches, tagg.quantize_heatmaps.launches) == \
+        (before[0] + 1, before[1] + 1)
+    ref = tagg.aggregation_grouped_s4_plain(qagg, hm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and float(ref.std()) > 0
+
+
+@pytest.mark.parametrize("stages", [2, 3, 4])
+def test_aggregation_s4_every_ring(cuda, stages):
+    """B4's kernel at each ring depth that fits a block, launched through the
+    library on the quantised planes: equal to the plain version."""
+    from posetpu_torch.ops import _build
+
+    gen = torch.Generator().manual_seed(24)
+    qagg = _s4_bank(gen, 512, cuda)
+    hm = (torch.randn(7, 41, 4, 512, generator=gen) * 0.5).to(cuda)
+    xq = tagg.quantize_heatmaps(qagg, hm)
+    out = torch.empty((4, 7 * 41, 512), dtype=torch.float32, device=cuda)
+    _build.check(_build.load("aggregation", tagg._SIGNATURES).aggregation_grouped_s4(
+        xq.data_ptr(), qagg["wq4"].data_ptr(), qagg["sv"].data_ptr(), qagg["dv"].data_ptr(),
+        out.data_ptr(), 7 * 41, 512, stages, tpt.stream_of(hm)), "aggregation_grouped_s4")
+    got = tagg._unpack(out, hm)
+    ref = tagg.aggregation_grouped_s4_plain(qagg, hm)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("n,h,w,c,joints", [(2, 4, 4, 32, 4), (3, 8, 8, 64, 16),
@@ -528,7 +623,7 @@ def test_deconv_kernel_every_design_and_ring(cuda, design, n, h, w, cin, cout, s
     depths = _rings(h, w, cin, cout, 0, design, sets)
     assert len(depths) >= 2
     for stages in depths:
-        got = tpt.launch_tail2(x.reshape(n, h, w, cin), wt, args["v"], None, folded=True,
+        got = tpt.launch_tail2(x.reshape(n, h, w, cin), wt, args["v"], None, epilogue="folded",
                                design=design, sets=sets, stages=stages)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), (design, stages)
@@ -545,7 +640,7 @@ def test_deconv_head_kernel_every_ring(cuda):
     ref = tdc.subpixel_deconv_head_plain(x, args, h=h, w=w)
     for stages in _rings(h, w, cin, cout, 4, "halo", None):
         got = tpt.launch_tail2(x.reshape(n, h, w, cin), args["wt"], args["v"], None,
-                               args["wht"], args["vh"], folded=True, stages=stages)
+                               args["wht"], args["vh"], epilogue="folded", stages=stages)
         torch.cuda.synchronize()
         assert torch.equal(got, ref), stages
 
@@ -555,11 +650,11 @@ def test_deconv_serving_plans_blocks_an_sm(cuda):
     planned blocks on an SM: deconv0's 128 streamed blocks one each (one
     wave), deconv1's and deconv2 + head's two."""
     plans = [(tpt.plan_tail2(8, 8, 2048, 256, 0, tdc.STREAM_STAGES, design=tdc.STREAM_DESIGN,
-                             folded=True, sets=tdc.STREAM_SETS), 0, 1),
+                             folded=True, sets=tdc.stream_sets(128, 8, 8, 256, 132)), 0, 1),
              (tpt.plan_tail2(16, 16, 256, 256, 0, folded=True), 0, 2),
              (tpt.plan_tail2(32, 32, 256, 256, 2, folded=True), 2, 2)]
     for plan, jt, blocks in plans:
-        assert tpt.tail2_blocks_per_sm(plan, jt, folded=True) == blocks, plan
+        assert tpt.tail2_blocks_per_sm(plan, jt, epilogue="folded") == blocks, plan
 
 
 def test_block_and_deconv_kernels_refuse_unsupported_shapes(cuda):

@@ -185,7 +185,8 @@ def _kernel_args(rng, cin, cout, joints=0, chunked=False):
     return args
 
 
-def b9_kernel_emulation(x4, args, *, design="halo", sets=None):
+def b9_kernel_emulation(x4, args, *, design="halo", sets=None, stages=None,
+                        epilogue="folded"):
     """One launch of csrc/tail2.cu with B9's folded, per-phase epilogue on the
     CPU, block by block as the kernel walks it: the planned grid (tiles x
     images x groups of ``sets`` (phase, n-half) pairs), each block's flat
@@ -194,14 +195,19 @@ def b9_kernel_emulation(x4, args, *, design="halo", sets=None):
     offset; the streamed halo's 32-channel chunk under tap s) and B read
     through the stage images' swizzle, the half requantised with its phase's vectors (zeros past
     Cout), then the deconv stored interleaved, or the head summed half by
-    half and its phase stored row-major at pixel (2y + a, 2x + b)."""
+    half and its phase stored row-major at pixel (2y + a, 2x + b).
+    ``epilogue="relu_phase"``: B2's instance instead, B1's relu requant with 1 / so on the
+    per-phase rows of ``args["svb"]`` [8, Cout] and the phase-major store,
+    pixel (y, x) of phase g at [g, img, y, x]."""
     n, h, w, cin = x4.shape
-    wt, v = args["wt"], args["v"]
+    phases = epilogue == "relu_phase"
+    wt = args["wt"]
+    v = args["svb"].reshape(2, -1) if phases else args["v"]
     nh, cout = wt.shape[1], v.shape[-1] // 4
     head = "wht" in args
     joints = args["vh"].shape[-1] if head else 0
     jt = 0 if not head else (2 if joints <= 16 else 4)
-    plan = tpt.plan_tail2(h, w, cin, cout, jt, design=design, folded=True, sets=sets)
+    plan = tpt.plan_tail2(h, w, cin, cout, jt, stages, design=design, folded=True, sets=sets)
     stream = design != "halo"
     ks_count = 4 * cin // 128
     images = wt.reshape(-1, 128, 64)
@@ -215,6 +221,9 @@ def b9_kernel_emulation(x4, args, *, design="halo", sets=None):
     r = np.arange(128)
     if head:
         out = torch.full((n, 2 * h, 2 * w, joints), float("nan"))
+    elif phases:
+        out = torch.full((4, n, h, w, cout), -128, dtype=torch.int8)  # -128: never stored
+        inv_so = 1.0 / args["so"].reshape(())
     else:
         out = torch.zeros(n, 2 * h, 2 * w, cout, dtype=torch.int8)
     for by in range(-(-n // 2) if stream else n):
@@ -251,10 +260,18 @@ def b9_kernel_emulation(x4, args, *, design="halo", sets=None):
                         q += 1
                     cols = slice(half * 128, half * 128 + 128)
                     accf = acc.round().to(torch.int32).float()
-                    z = torch.clamp(torch.round(accf * sv[g, cols] + sv[4 + g, cols]), 0, 127
-                                    ).to(torch.int8)
+                    if phases:  # relu(acc * s + b) * (1 / so), rounded once
+                        z = torch.clamp(torch.round(torch.relu(accf * sv[g, cols] + sv[4 + g, cols])
+                                                    * inv_so), -127, 127).to(torch.int8)
+                    else:
+                        z = torch.clamp(torch.round(accf * sv[g, cols] + sv[4 + g, cols]), 0, 127
+                                        ).to(torch.int8)
                     z[:, max(0, min(128, cout - half * 128)):] = 0
                     keep = inside.nonzero()[0]
+                    if phases:
+                        o = slice(half * 128, min(cout, half * 128 + 128))
+                        out[g, img[keep], y[keep], x[keep], o] = z[keep, :o.stop - o.start]
+                        continue
                     if not head:
                         o = slice(half * 128, min(cout, half * 128 + 128))
                         out[img[keep], 2 * y[keep] + a, 2 * x[keep] + b, o] = \
@@ -266,7 +283,7 @@ def b9_kernel_emulation(x4, args, *, design="halo", sets=None):
                         out[img[keep], 2 * y[keep] + a, 2 * x[keep] + b] = \
                             acc_h.float() * args["vh"][0] + args["vh"][1]
                         hacc.zero_()
-    return out.reshape(n, 4 * h * w, -1)
+    return out if phases else out.reshape(n, 4 * h * w, -1)
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout,design,sets", [
@@ -288,6 +305,37 @@ def test_b9a_kernel_emulation_equals_plain(n, h, w, cin, cout, design, sets):
     ref = tdc.subpixel_deconv_plain(x, args, h=h, w=w)
     got = b9_kernel_emulation(x.reshape(n, h, w, cin), args, design=design, sets=sets)
     assert got.shape == ref.shape and len(torch.unique(ref)) > 50
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,sets,stages", [
+    (3, 8, 8, 64, 16, None, None),       # the wrapper's sets and ring, one n-half
+    (5, 3, 7, 96, 136, None, None),      # an image past N, tiles past the grid, 2 n-halves
+    (3, 9, 12, 128, 24, 2, 3),           # two 8 x 8 tiles a row and a column, other sets
+    (2, 8, 8, 256, 256, 8, 2),           # deconv0's Cout, all eight pairs in one block
+])
+def test_b2_kernel_emulation_equals_plain(n, h, w, cin, cout, sets, stages):
+    """B2's decomposition, tail2_kernel's phase-major instance on the
+    streamed halo (the grid of 8 x 8 tiles of image pairs, the chunked K
+    order of the stage images, B1's relu requant with 1 / so on the per-phase
+    rows of ``svb``, the phase-major store): equal to phase_tail's plain
+    version exactly, every element stored once."""
+    rng = np.random.default_rng(40 + cin + cout)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (4, 4, cout, cin)).astype(np.int8))
+    sv = rng.uniform(0.5, 1.5, (4, cout)) * 0.6 / cin ** 0.5 / 127
+    args = tpt.with_subpixel_weights({
+        "w": w8, "sv": torch.from_numpy(sv.astype(np.float32)),
+        "bv": torch.from_numpy(rng.uniform(-20, 20, (4, cout)).astype(np.float32)),
+        "so": torch.tensor([[0.37]])})
+    assert tuple(args["svb"].shape) == (8, cout)
+    x = torch.from_numpy(rng.integers(0, 128, (n, h * w, cin)).astype(np.int8))
+    ref = tpt.subpixel_deconv_plain(x, args, h=h, w=w)
+    got = b9_kernel_emulation(x.reshape(n, h, w, cin), args, design=tpt.STREAM_DESIGN,
+                              sets=tpt.stream_sets(n, h, w, cout, 132) if sets is None else sets,
+                              stages=tpt.STREAM_STAGES if stages is None else stages,
+                              epilogue="relu_phase")
+    assert got.shape == ref.shape == (4, n, h, w, cout)
+    assert len(torch.unique(ref)) > 50 and bool((ref < 0).any() or (ref == 0).any())
     assert torch.equal(got, ref)
 
 
@@ -351,7 +399,7 @@ def test_plan_serving_shapes():
     assert not tpt.halo_fits(2048, 256, 0, folded=True)
     assert tdc.deconv_design(2048, 256) == tdc.STREAM_DESIGN == "stream"
     p0 = tpt.plan_tail2(8, 8, 2048, 256, 0, tdc.STREAM_STAGES, design=tdc.STREAM_DESIGN,
-                        folded=True, sets=tdc.STREAM_SETS)
+                        folded=True, sets=tdc.stream_sets(128, 8, 8, 256, 132))
     assert (p0.tiles_x, p0.tiles_y, p0.off_ring) == (1, 1, 0)
     assert 64 * (8 // p0.sets) <= 132 and blocks_an_sm(p0) == 1
     for h, jt, tiles in ((16, 0, 2), (32, 2, 8)):

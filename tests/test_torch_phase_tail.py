@@ -130,8 +130,9 @@ def test_args_builders_match_jax(rng, which):
         got = tpt.build_phase_tail2_args(q, "deconv1", "deconv2", 0.0123)
         dev = tpt.tail2_device_args(got, "cpu")
         k_minor = ("w1", "w2", "wh")
-    # the device args also carry B1's stage images and padded head
-    assert set(got) == set(ref) == set(dev) - {"w1t", "w2t", "wht"}
+    # the device args also carry B1's stage images and padded head, B2's
+    # stage images and per-phase vectors
+    assert set(got) == set(ref) == set(dev) - {"w1t", "w2t", "wht", "wt", "svb"}
     for k in ref:
         assert got[k].dtype == np.asarray(ref[k]).dtype, k
         np.testing.assert_array_equal(got[k], np.asarray(ref[k]), err_msg=k)
@@ -197,6 +198,25 @@ def test_plan_tail2_serving_shapes():
         tpt.plan_tail2(16, 16, 2048, 256, 2)   # the halo does not fit
     with pytest.raises(ValueError):
         tpt.plan_tail2(16, 16, 256, 256, 2, stages=1)
+
+
+@pytest.mark.parametrize("n,sets", [(128, 4), (256, 8), (64, 2), (300, 8), (3, 1)])
+def test_plan_tail2_b2_instance_fits_one_block(n, sets):
+    """B2's instance at deconv0's (8, 8, 2048, 256): the streamed halo's
+    8 x 8 tile covers the grid in one tile, its ring of STREAM_STAGES and the
+    per-phase vectors fit a block's shared memory, one block an SM; the
+    pairs a block are the fewest that leave one wave on the H100's 132 SMs
+    (4 at path 1's 128 images, 8 at path 2's 256), all eight where no
+    choice does."""
+    assert tpt.stream_sets(n, 8, 8, 256, 132) == sets
+    plan = tpt.plan_tail2(8, 8, 2048, 256, 0, tpt.STREAM_STAGES, design=tpt.STREAM_DESIGN,
+                          folded=True, sets=sets)
+    assert (plan.tiles_x, plan.tiles_y, plan.sets, plan.stages) == (1, 1, sets, 7)
+    assert 232448 // 2 < plan.smem <= 232448
+    blocks = -(-n // 2) * (8 // sets)
+    assert blocks <= 132 or sets == 8
+    with pytest.raises(ValueError):  # no head after the streamed halo
+        tpt.plan_tail2(8, 8, 2048, 256, 2, design=tpt.STREAM_DESIGN, folded=True)
 
 
 def _requant(acc, s, b, inv_so):

@@ -28,6 +28,7 @@ from posetpu_torch.geometry import triangulate as ttri
 from posetpu_torch.models.convert import from_jax_params, from_jax_variables
 from posetpu_torch.models.multiview import MultiViewPose
 from posetpu_torch.models.pose_resnet import PoseResNet
+from posetpu_torch.ops import aggregation as tagg
 from posetpu_torch.serving import build_serving_pipeline, pack_hwcn
 from tests.test_quant import _trained_like_variables
 from tests.test_serving import _small_cfg
@@ -153,7 +154,9 @@ def test_serving_agg_w4_dilated_deconv0_matches_jax(rng):
         jnp.asarray(scale), jnp.asarray(is_h36m))
     args = (torch.from_numpy(center), torch.from_numpy(scale), torch.from_numpy(is_h36m))
     carried = from_jax_params(_np_tree(jpipe.params), "cpu")
-    assert set(carried["qagg"]) == {"wq4", "w_scale", "dv", "x_scale"}
+    # the bank carried across nibble-packed, with sv folded once
+    assert set(carried["qagg"]) == {"wq4", "w_scale", "dv", "x_scale", "sv"}
+    assert torch.equal(carried["qagg"]["sv"], tagg.fold_sv(carried["qagg"]))
     assert carried["qagg"]["wq4"].dtype == torch.uint8
     assert carried["qagg"]["wq4"].numel() == 4 * 3 * 256 * 256 // 2
     assert "subpix_deconv0" not in carried["q"] and "phase_tail2" in carried["q"]

@@ -6,8 +6,8 @@
     python3 tools/torch_kernel_sweep.py decode       # B7: device, wrapper, host split
     python3 tools/torch_kernel_sweep.py imma         # mma.sync and wgmma int8 rates
     python3 tools/torch_kernel_sweep.py tail2        # B1: per launch and ring shape
-    python3 tools/torch_kernel_sweep.py agg          # B3: quantize, GEMM, wrapper
-    python3 tools/torch_kernel_sweep.py deconv       # B9a, B9b: designs, rings, sets
+    python3 tools/torch_kernel_sweep.py agg          # B3, B4: quantize, GEMM, rings
+    python3 tools/torch_kernel_sweep.py deconv       # B9a, B9b, B2: designs, rings, sets
 
 ``check`` builds ``csrc/resblock.cu`` and ``csrc/decode.cu``, prints ptxas'
 register report and holds B8a (``ops/resblock.fused_bottleneck``) equal to
@@ -29,7 +29,11 @@ version), the wrapper, and the parent's design on the same inputs
 (``phase_conv`` x2 + ``phase_head``, which B2 and B5 still run), with the
 device time by kernel from torch.profiler. ``agg`` times B3 at J*N = 512, S = 4096: the quantize
 pass and the GEMM alone, the wrapper, the plain quantize, ``torch._int_mm``
-on pre-gathered operands, and the kernels' device time by torch.profiler.
+on pre-gathered operands, and the kernels' device time by torch.profiler;
+then B4 at the same shape on a random 4-bit bank: its kernel alone on the
+quantised planes at every ring depth that fits, and the wrapper, each held
+equal to its plain version, ``torch._int_mm`` on the bank widened to int8,
+and the device time by kernel.
 ``deconv`` times B9a and B9b at path 5's shapes, 128 images: deconv0 (8x8,
 2048 -> 256) on the streamed halo (its planes through the ring) for every
 ring depth the planner allows and 1, 2, 4 or 8 (phase, n-half) pairs a block
@@ -37,7 +41,11 @@ ring depth the planner allows and 1, 2, 4 or 8 (phase, n-half) pairs a block
 (16x16, 256 -> 256) and deconv2 + head (32x32, 256 -> 256 -> 16) on the
 resident halo for each ring depth, every launch held equal to its plain
 version; then the two wrappers, ``torch._int_mm`` on the pre-gathered
-phase operands (the GEMMs alone), and the device time by kernel.
+phase operands (the GEMMs alone), and the device time by kernel. Then B2
+(``fused_subpixel_deconv_batched``, tail2_kernel's phase-major instance on
+the streamed halo) at 128 and 256 images of deconv0's 8x8, 2048 -> 256: every
+ring depth for 1, 2, 4 or 8 (phase, n-half) pairs a block, each launch held
+equal to its plain version, then its wrapper and the device time by kernel.
 Inputs are random from a seed; nothing is read from disk. Every line of
 numbers ends with the card's name and power limit.
 """
@@ -95,6 +103,20 @@ def cuda_ms(fn, warmup=3, reps=20):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def burst_ms(fn, k=20):
+    """Milliseconds a call over ``k`` back-to-back calls between two CUDA
+    events: the host enqueues ahead of the card, so this is the device's
+    time a call without the launch gaps of a lone call."""
+    fn()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(k):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / k
 
 
 def block_inputs(rs, n, h, w, cin, cm, cout, wd, dev):
@@ -385,6 +407,56 @@ def aggregation(dev, j=16, ng=32, s=4096):
           f"{ {k: round(v, 4) for k, v in sorted(by.items(), key=lambda kv: -kv[1])} } | {card()}",
           flush=True)
 
+    # B4 on a random 4-bit bank at the same shape
+    w4 = agg.pack_nibbles_k(torch.randint(-7, 8, (4, 3, s, s), generator=g, device=dev,
+                                          dtype=torch.int8))
+    q4 = {"wq4": w4, "w_scale": qagg["w_scale"], "x_scale": qagg["x_scale"],
+          "dv": torch.rand(4, 3, s, generator=g, device=dev) * 0.05}
+    q4["sv"] = agg.fold_sv(q4).contiguous()
+    ref4 = agg.aggregation_grouped_s4_plain(q4, hm)
+    for stages in range(2, 6):
+        def gemm4(stages=stages):
+            _build.check(lib.aggregation_grouped_s4(
+                xq.data_ptr(), q4["wq4"].data_ptr(), q4["sv"].data_ptr(), q4["dv"].data_ptr(),
+                out.data_ptr(), jn, s, stages, stream), "aggregation_grouped_s4")
+        try:
+            gemm4()
+        except RuntimeError as e:  # the ring does not fit a block
+            print(f"B4 ring {stages}: {e}")
+            break
+        ok = torch.equal(agg._unpack(out, hm), ref4)
+        k_ms = cuda_ms(gemm4)
+        b_ms = statistics.median(burst_ms(gemm4) for _ in range(5))
+        print(f"B4 ring {stages} x 40 KB{' (planned)' if stages == agg.S4_STAGES else ''}: "
+              f"GEMM kernel {k_ms:.4f} ms, back to back {b_ms:.4f} ms "
+              f"({2 * macs / b_ms / 1e9:.1f} TOP/s); {'equal' if ok else 'DIFFERS'} | {card()}",
+              flush=True)
+    ok = torch.equal(agg.aggregation_grouped_s4(q4, hm), ref4)
+    w_ms = cuda_ms(lambda: agg.aggregation_grouped_s4(q4, hm))
+    print(f"B4 wrapper {w_ms:.4f} ms ({2 * macs / w_ms / 1e9:.1f} TOP/s); "
+          f"{'equal' if ok else 'DIFFERS'} | {card()}", flush=True)
+    bank4 = agg.unpack_nibbles_k(q4["wq4"])
+    bank4_kn = [bank4[t].transpose(-1, -2).reshape(3 * s, s).contiguous() for t in range(4)]
+    del bank4
+    print(f"B4 plain {cuda_ms(lambda: agg.aggregation_grouped_s4_plain(q4, hm), reps=5):.4f} ms; "
+          f"4 x torch._int_mm on the widened bank, pre-gathered "
+          f"{cuda_ms(lambda: [torch._int_mm(gathered[t], bank4_kn[t]) for t in range(4)]):.4f}"
+          f" ms; bank {4 * 3 * s * s / 2e6:.1f} MB packed at 3.35 TB/s "
+          f"{4 * 3 * s * s / 2 / 3.35e12 * 1e3:.4f} ms | {card()}", flush=True)
+    agg.aggregation_grouped_s4(q4, hm)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(10):
+            agg.aggregation_grouped_s4(q4, hm)
+        torch.cuda.synchronize()
+    by = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            by[e.name[:48]] = by.get(e.name[:48], 0.0) + (e.time_range.end - e.time_range.start) / 10e3
+    print(f"B4 device ms a call by kernel: "
+          f"{ {k: round(v, 4) for k, v in sorted(by.items(), key=lambda kv: -kv[1])} } | {card()}",
+          flush=True)
+
 
 def deconv_inputs(rs, n, h, cin, cout, joints, dev):
     """B9's inputs: x int8 [n, h*h, cin] and kernel arguments whose folded
@@ -431,16 +503,18 @@ def deconv(dev, n=128):
 
                 def run(st=stages, sets=sets):
                     return pt.launch_tail2(x4, wt, a["v"], None, a.get("wht"), a.get("vh"),
-                                           folded=True, design=d, sets=sets, stages=st)
+                                           epilogue="folded", design=d, sets=sets, stages=st)
                 ok = torch.equal(run(), want)
                 ms = cuda_ms(run)
-                chosen = (stages, sets) == ((dcv.STREAM_STAGES, dcv.STREAM_SETS) if stream
+                chosen = (stages, sets) == ((dcv.STREAM_STAGES,
+                                             pt.stream_sets(n, h, h, cout, pt.sm_count(0)))
+                                            if stream
                                             else (pt.TAIL2_STAGES, 8))
                 grid = plan.tiles_x * plan.tiles_y * (-(-n // 2) if stream else n) * (8 // sets)
                 print(f"B9 {label} {d} sets {sets} ring {stages} x 128 B"
                       f"{' (planned)' if chosen else ''}: {ms:.4f} ms, "
                       f"{2 * macs / ms / 1e9:.1f} TOP/s, {'equal' if ok else 'DIFFERS'}, "
-                      f"smem {plan.smem}, blocks/SM {pt.tail2_blocks_per_sm(plan, jt, folded=True)}"
+                      f"smem {plan.smem}, blocks/SM {pt.tail2_blocks_per_sm(plan, jt, epilogue="folded")}"
                       f", grid {grid} | {card()}", flush=True)
         fused = dcv.fused_subpixel_deconv_head if head else dcv.fused_subpixel_deconv
         ok = torch.equal(fused(x, a, h=h, w=h), ref)
@@ -467,6 +541,74 @@ def deconv(dev, n=128):
               f"| {card()}", flush=True)
     print(f"B9a wrapper, both calls: {wrappers['deconv0'] + wrappers['deconv1']:.4f} ms; "
           f"B9b {wrappers['deconv2 + head']:.4f} ms | {card()}", flush=True)
+
+    # B2: deconv0's phase-major instance, at paths 1 and 2's batches
+    h, cin, cout = 8, 2048, 256
+    for n2 in (128, 256):
+        x = torch.from_numpy(rs.randint(0, 128, (n2, h * h, cin)).astype(np.int8)).to(dev)
+        a = pt.subpixel_device_args(
+            {"w": rs.randint(-127, 128, (4, 4, cin, cout)).astype(np.int8),
+             "sv": (rs.uniform(0.5, 1.5, (4, cout)) * 40.0 / (127.0 * np.sqrt(4 * cin) * 60.0)
+                    ).astype(np.float32),
+             "bv": rs.uniform(-2, 2, (4, cout)).astype(np.float32),
+             "so": np.asarray([[0.5]], np.float32)}, dev)
+        ref = pt.subpixel_deconv_plain(x, a, h=h, w=h)
+        macs = 16 * n2 * h * h * cin * cout
+        print(f"B2 {n2} images: nonzero share {float((ref != 0).float().mean()):.2f}, "
+              f"{len(torch.unique(ref))} values; bound {2 * macs / 1.979e15 * 1e3:.4f} ms",
+              flush=True)
+        x4 = x.reshape(n2, h, h, cin)
+        for sets in (1, 2, 4, 8):
+            for stages in range(2, 9):
+                try:
+                    plan = pt.plan_tail2(h, h, cin, cout, 0, stages, design="stream",
+                                         folded=True, sets=sets)
+                except ValueError:
+                    break
+
+                def run(st=stages, sets=sets):
+                    return pt.launch_tail2(x4, a["wt"], a["svb"], a["so"], epilogue="relu_phase",
+                                           design="stream", sets=sets, stages=st)
+                ok = torch.equal(run(), ref)
+                ms = cuda_ms(run)
+                b_ms = burst_ms(run)
+                chosen = (stages, sets) == (pt.STREAM_STAGES,
+                                            pt.stream_sets(n2, h, h, cout, pt.sm_count(0)))
+                print(f"B2 {n2} images sets {sets} ring {stages} x 128 B"
+                      f"{' (planned)' if chosen else ''}: {ms:.4f} ms, back to back "
+                      f"{b_ms:.4f} ms ({2 * macs / b_ms / 1e9:.1f} TOP/s), "
+                      f"{'equal' if ok else 'DIFFERS'}, smem "
+                      f"{plan.smem}, blocks/SM {pt.tail2_blocks_per_sm(plan, 0, epilogue='relu_phase')}, "
+                      f"grid {plan.tiles_x * plan.tiles_y * (-(-n2 // 2)) * (8 // sets)} "
+                      f"| {card()}", flush=True)
+        ok = torch.equal(pt.fused_subpixel_deconv_batched(x, a, h=h, w=h), ref)
+        w_ms = cuda_ms(lambda: pt.fused_subpixel_deconv_batched(x, a, h=h, w=h))
+        # the same launches on activation-like input: ReLU'd, half of it zeros
+        xr = torch.clamp(torch.randn(n2, h * h, cin, device=dev) * 30, 0, 127).to(torch.int8)
+        xr4 = xr.reshape(n2, h, h, cin)
+        okr = torch.equal(pt.fused_subpixel_deconv_batched(xr, a, h=h, w=h),
+                          pt.subpixel_deconv_plain(xr, a, h=h, w=h))
+        for sets in (4, 8):
+            def run_r(sets=sets):
+                return pt.launch_tail2(xr4, a["wt"], a["svb"], a["so"], epilogue="relu_phase",
+                                       design="stream", sets=sets, stages=pt.STREAM_STAGES)
+            print(f"B2 {n2} images, ReLU'd input, sets {sets} ring {pt.STREAM_STAGES}: "
+                  f"{cuda_ms(run_r):.4f} ms, back to back {burst_ms(run_r):.4f} ms "
+                  f"({'equal' if okr else 'DIFFERS'}) | {card()}", flush=True)
+        print(f"B2 {n2} images wrapper: {w_ms:.4f} ms ({'equal' if ok else 'DIFFERS'}); "
+              f"torch._int_mm on the pre-gathered phase operands "
+              f"{cuda_ms(phase_gemms(x4, a['w'])):.4f} ms; plain "
+              f"{cuda_ms(lambda: pt.subpixel_deconv_plain(x, a, h=h, w=h), reps=5):.4f} ms "
+              f"| {card()}", flush=True)
+        pt.fused_subpixel_deconv_batched(x, a, h=h, w=h)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):
+                pt.fused_subpixel_deconv_batched(x, a, h=h, w=h)
+            torch.cuda.synchronize()
+        dev_ms = sum(e.time_range.end - e.time_range.start for e in prof.events()
+                     if "tail2_kernel" in e.name) / 10e3
+        print(f"B2 {n2} images device ms a call: {dev_ms:.4f} | {card()}", flush=True)
 
 
 def main() -> int:
