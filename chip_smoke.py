@@ -19,20 +19,22 @@ Phases, each of which fails the run on its own:
      (128 images) per request: B2, B1, B3 (and B3's quantize pass); 8 timed
      requests, frames/s as the median and the min-max over them; its
      profiled request must show B2 as one launch of ``tail2_kernel``'s
-     phase-major instance, B1 as two launches of its instances and no
-     ``phase_head_kernel`` (z2 stays on chip) or ``phase_conv_kernel``;
+     phase-major instance, B1 as two launches of its instances (z2 stays on
+     chip) and no other ``tail2_kernel`` instance;
    - path 2: ``build_serving_pipeline(flip_test="premirrored",
      agg_w4=True)``, 32 groups, so 256 images through the trunk: B2, B1, B4
      (and B3's quantize pass); 8 timed requests; its profiled request must
-     show B2's instance, B4's ``aggregation_w4_kernel`` and one
-     ``quantize_kernel``, and no ``phase_conv_kernel`` or
+     show B2's and B1's instances alone among ``tail2_kernel``'s, B4's
+     ``aggregation_w4_kernel`` and one ``quantize_kernel``, and no
      ``aggregation_s4_kernel``; one request with ``flip_test=True`` must give
      equal preds and maxvals;
    - path 3: ``quantize_pose_resnet(jns_head="phase", phase_kernel=1,
      stem_s2d="pre", act4_mode="s4", subpixel_deconvs={"deconv0"})`` with
      ``SUBPIX_BATCHED = False``, the levels=1 tables, the int8 bank, decode
      and triangulation, 8 groups: B6, B5 (and B3); deconv1 runs the dilated
-     int8 conv;
+     int8 conv; its profiled request must show B6's and B5's ``tail2_kernel``
+     instances once each and no other, one ``quantize_kernel`` and one
+     ``aggregation_kernel``;
    - path 4: ``build_float_pipeline(flip_test=True)``, 8 groups: B7;
    - path 5a: ``quantize_pose_resnet(model, calib)`` at its defaults (the
      JAX package's) then ``make_fused_forward(model, qparams)``: float
@@ -58,9 +60,8 @@ Phases, each of which fails the run on its own:
    the 4-bit bank widened to int8, both also their GEMM kernel alone; the
    phase-form deconvs B2, B5, B6, B9a and B9b: per phase one
    ``torch._int_mm`` on the four shifted taps gathered beforehand, and for
-   a head one more on its int8 input: the GEMMs alone; B1 also the parent
-   design's launches ``phase_conv`` x2 + ``phase_head`` on the same input;
-   B7: ``torch.max`` over the maps flattened, from the same input). B7 runs
+   a head one more on its int8 input: the GEMMs alone; B7: ``torch.max``
+   over the maps flattened, from the same input). B7 runs
    at path 4's 512 maps (the numbers of its ``kernels`` entry) and at path
    5b's 2,048, with the wrapper's host time per call beside ``torch.max``'s.
    B8a runs on each of the 13 block inputs path 5b gives it (its time is
@@ -68,7 +69,10 @@ Phases, each of which fails the run on its own:
    block, ring stages, staging tiles, shared memory, blocks per SM,
    registers) and each block is also held within one int8 step of the
    runner's block on the same input; B2 on path 1's 128 images (the numbers
-   of its ``kernels`` entry) and on path 2's 256; B9a on both its deconvs
+   of its ``kernels`` entry) and on path 2's 256; B6 on path 3's 32 images
+   (its entry's numbers) and on B2's 128-image input; B5 on path 3's 32
+   images (its entry's numbers) and on the same input four times over (128
+   images, B9b's shape, timed beside B9b); B9a on both its deconvs
    (the kernels line carries each call's case, with its design, and their
    sum); B8b on
    path 5c's 12 inputs, equal to its plain version and to B8a's output;
@@ -201,6 +205,16 @@ def cuda_ms(fn, warmup=3, reps=20):
     return statistics.median(times)
 
 
+def tail2_instance(jt: int, epilogue: str, design: str, store: str) -> str:
+    """A ``tail2_kernel`` instance's name as the profile shows it, spaces
+    dropped: its template arguments in csrc/tail2.cu's order."""
+    from posetpu_torch.ops import phase_tail as pt
+
+    return (f"tail2_kernel<{jt},{pt.EPILOGUES.index(epilogue)},{pt.DESIGNS.index(design)},"
+            f"{pt.STORES.index(store)}>")
+
+
+
 def profile_request(fn) -> dict:
     """Device time of one call of ``fn`` by kernel family, from
     torch.profiler's CUDA activity, and the device's idle share of the
@@ -217,13 +231,17 @@ def profile_request(fn) -> dict:
         wall_us = (time.perf_counter() - t) * 1e6
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(dev, "torch.profiler recorded no device activity")
-    families = {"deconv0 (B2)": ("tail2_kernel<0, 2,",),
-                "deconv1 + deconv2 + head (B1)": ("tail2_kernel<0, 0,", "tail2_kernel<2, 0,",
-                                                   "tail2_kernel<4, 0,"),
-                "subpixel deconv + head (B9a, B9b)": ("tail2_kernel<0, 1,", "tail2_kernel<2, 1,",
-                                                      "tail2_kernel<4, 1,"),
-                "phase_conv (B5, B6)": ("phase_conv",),
-                "phase_head (B5)": ("phase_head",),
+    inst = lambda epi, cases: tuple(tail2_instance(jt, epi, d, st) for d, jt, st in cases)
+    families = {"deconv0 (B2)": inst("relu_phase", [("stream", 0, "phase_major")]),
+                "deconv1 + deconv2 + head (B1)": inst("relu", [
+                    ("halo", 0, "interleaved"), ("halo", 2, "head_packed2"),
+                    ("halo", 4, "head_packed2")]),
+                "subpixel deconv + head (B9a, B9b)": inst("folded", [
+                    ("stream", 0, "interleaved"), ("halo", 0, "interleaved"),
+                    ("halo", 2, "head_row_major"), ("halo", 4, "head_row_major")]),
+                "per-pair deconv0 (B6)": inst("relu_phase", [("stream", 0, "n_minor")]),
+                "one-level deconv + head (B5)": inst("relu", [("halo", 2, "head_packed1"),
+                                                              ("halo", 4, "head_packed1")]),
                 "aggregation (B3, B4, their quantize)": ("aggregation_kernel",
                                                          "aggregation_w4_kernel",
                                                          "quantize_kernel"),
@@ -239,7 +257,8 @@ def profile_request(fn) -> dict:
     for e in dev:
         us = e.time_range.end - e.time_range.start
         spans.append((e.time_range.start, e.time_range.end))
-        fam = next((f for f, keys in families.items() if any(k in e.name for k in keys)),
+        name = e.name.replace(" ", "")
+        fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
                    "other PyTorch kernels (im2col, epilogues, decode)")
         by_family[fam] = by_family.get(fam, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
@@ -621,22 +640,27 @@ def main() -> int:
             pt.SUBPIX_BATCHED = True
         log(f"profile {label}: " + json.dumps({"prepare_ms": prepare_ms, **prof}))
         hand = prof["hand_kernel_launches"]
-        b2 = f"tail2_kernel<0,2,{pt.DESIGNS.index(pt.STREAM_DESIGN)}>"
+        tail2 = {k: v for k, v in hand.items() if k.startswith("tail2_kernel")}
+        aggs = {k: v for k, v in hand.items() if k.startswith("aggregation")}
         if label in ("path 1", "path 2"):  # B2 and B1 on tail2_kernel; z2 stays on chip
-            check(hand.get(b2) == 1 and hand.get("tail2_kernel<0,0,0>") == 1
-                  and hand.get("tail2_kernel<2,0,0>") == 1 and hand.get("quantize_kernel") == 1
-                  and "phase_head_kernel" not in hand and "phase_conv_kernel" not in hand,
-                  f"{label}: hand kernel launches {hand}")
+            check(tail2 == {tail2_instance(0, "relu_phase", pt.STREAM_DESIGN, "phase_major"): 1,
+                            tail2_instance(0, "relu", "halo", "interleaved"): 1,
+                            tail2_instance(2, "relu", "halo", "head_packed2"): 1}
+                  and hand.get("quantize_kernel") == 1, f"{label}: hand kernel launches {hand}")
         if label == "path 2":  # B4 on its wgmma kernel, once
-            b4 = {k: v for k, v in hand.items() if k.startswith("aggregation")}
-            check(b4 == {"aggregation_w4_kernel": 1}, f"path 2: hand kernel launches {hand}")
+            check(aggs == {"aggregation_w4_kernel": 1}, f"path 2: hand kernel launches {hand}")
+        if label == "path 3":  # B6 and B5 as tail2_kernel's N-minor and levels=1 instances
+            check(tail2 == {tail2_instance(0, "relu_phase", pt.STREAM_DESIGN, "n_minor"): 1,
+                            tail2_instance(2, "relu", "halo", "head_packed1"): 1}
+                  and aggs == {"aggregation_kernel": 1} and hand.get("quantize_kernel") == 1,
+                  f"path 3: hand kernel launches {hand}")
         if label == "path 5b":  # B9a: deconv0 streamed, deconv1 on the halo; B9b on the halo
-            stream = pt.DESIGNS.index(dcv.STREAM_DESIGN)
-            b9 = {k: v for k, v in hand.items() if k.startswith("tail2_kernel")}
             rows = sum(v for k, v in hand.items() if k.startswith("bottleneck_rows_kernel"))
-            check(b9 == {f"tail2_kernel<0,1,{stream}>": 1, "tail2_kernel<0,1,0>": 1,
-                         "tail2_kernel<2,1,0>": 1} and rows == 13
-                  and hand.get("decode_kernel") == 1, f"path 5b: hand kernel launches {hand}")
+            check(tail2 == {tail2_instance(0, "folded", dcv.STREAM_DESIGN, "interleaved"): 1,
+                            tail2_instance(0, "folded", "halo", "interleaved"): 1,
+                            tail2_instance(2, "folded", "halo", "head_row_major"): 1}
+                  and rows == 13 and hand.get("decode_kernel") == 1,
+                  f"path 5b: hand kernel launches {hand}")
 
     # one more request per path to take each kernel's inputs for phase 4 (the
     # callers look the kernels up on their modules at call time)
@@ -784,23 +808,11 @@ def main() -> int:
     macs1 = (16 * n * hw * cmid * cin + 16 * n * 4 * hw * cout * cmid
              + n * 16 * hw * joints * cout)
 
-    def b1_parent_design():
-        """The parent's B1 on the same input: phase_conv x2 (z1 and z2 through
-        device memory) + phase_head, the launches B2 and B5 still make."""
-        s1, s2 = a1["s1"], a1["s2"]
-        z1 = pt._launch_phase_conv(x1.reshape(n, kw1["h"], kw1["w"], cin), a1["w1"], s1[0],
-                                   s1[1], 0, a1["so1"], pt._INTERLEAVED)
-        z2 = pt._launch_phase_conv(z1, a1["w2"], s2[0], s2[1], 0, a1["so2"], pt._PHASE_MAJOR)
-        return pt._launch_phase_head(z2, a1["wh"], a1["vh"])
-
-    check(torch.equal(b1_parent_design(), pt.phase_tail2_plain(x1, a1, **kw1)),
-          "B1's parent design != plain")
     # each weight counts once: the kernel reads the stage images (w1t, w2t, wht)
     once1 = {k: v for k, v in a1.items() if not k.endswith("t")}
     compare("fused_phase_tail2", "posetpu_torch/csrc/tail2.cu",
             "posetpu/ops/pallas/phase_tail.py:384", pt.phase_tail2_plain,
-            (x1, a1), kw1, 2 * macs1, nbytes(x1, once1) + 4 * joints * n * 16 * hw,
-            extra={"parent_design_ms": cuda_ms(b1_parent_design)})
+            (x1, a1), kw1, 2 * macs1, nbytes(x1, once1) + 4 * joints * n * 16 * hw)
 
     def gathered_operands(qagg, hm, bank_ok):
         """The library yardstick's operands: per target one int8 GEMM
@@ -858,23 +870,53 @@ def main() -> int:
             extra={"kernel_ms": cuda_ms(b4_gemm_alone)})
     del xq4, out4
 
+    # B5 at path 3's 32 images (the kernels line's numbers) and on the same
+    # input four times over, 128 images of B9b's shape (B9b is timed below);
+    # each weight counts once: the kernel reads the stage images (wt, wht)
     (x5, a5), kw5 = seen["fused_phase_tail"]
-    n, hw, cin = x5.shape
-    cout, joints = a5["w"].shape[2], a5["wh"].shape[0]
-    z5 = pt._phase_conv_plain(x4_of(x5, kw5), a5["w"], a5["sv"][0], a5["sv"][1], a5["so"],
-                              interleave=False)
-    compare("fused_phase_tail", "posetpu_torch/csrc/phase_tail.cu",
-            "posetpu/ops/pallas/phase_tail.py:184", pt.phase_tail_plain, (x5, a5), kw5,
-            2 * (16 * n * hw * cout * cin + n * 4 * hw * joints * cout),
-            nbytes(x5, a5) + 4 * joints * n * 4 * hw,
-            library=phase_gemms(x4_of(x5, kw5), a5["w"], z5, a5["wh"]))
-    del z5
+    once5 = {k: v for k, v in a5.items() if k not in ("wt", "wht")}
 
-    (x6, a6), kw6 = seen["fused_subpixel_deconv"]
-    compare("fused_subpixel_deconv", "posetpu_torch/csrc/phase_tail.cu",
-            "posetpu/ops/pallas/phase_tail.py:527", pt.subpixel_deconv_pairs_plain,
-            (x6, a6), kw6, *subpixel_work(x6, a6),
-            library=phase_gemms(x4_of(x6, kw6), a6["w"]))
+    def b5_case(tag, x):
+        n, hw, cin = x.shape
+        cout, joints = a5["w"].shape[2], a5["wh"].shape[0]
+        return (f" {tag}, {n} images", (x, a5), kw5,
+                2 * (16 * n * hw * cout * cin + n * 4 * hw * joints * cout),
+                nbytes(x, once5) + 4 * joints * n * 4 * hw)
+
+    def b5_library(x):
+        z = pt._phase_conv_plain(x4_of(x, kw5), a5["w"], a5["sv"][0], a5["sv"][1], a5["so"],
+                                 interleave=False)
+        return phase_gemms(x4_of(x, kw5), a5["w"], z, a5["wh"])
+
+    b5_cases = [b5_case("path 3", x5), b5_case("path 3's input x4", x5.repeat(4, 1, 1))]
+    check(b5_cases[0][0].endswith(" 32 images") and b5_cases[1][0].endswith(" 128 images"),
+          f"B5's cases: {[c[0] for c in b5_cases]}")
+    compare_cases("fused_phase_tail", "posetpu_torch/csrc/tail2.cu",
+                  "posetpu/ops/pallas/phase_tail.py:184", pt.phase_tail_plain, b5_cases,
+                  library={tag: b5_library(a[0]) for tag, a, _, _, _ in b5_cases}, headline=0)
+    b5_128_ms = results[-1]["cases"][1]["ms"]
+    del b5_cases
+
+    # B6 at path 3's 32 images (the kernels line's numbers) and on B2's
+    # 128-image input from path 1, timed beside B2 there
+    def b6_case(tag, args, kw):
+        x, a = args
+        once = {k: v for k, v in a.items() if k not in ("wt", "svb")}
+        return (f" {tag}, {x.shape[0]} images", args, kw, *subpixel_work(x, once))
+
+    b6_cases = [b6_case("path 3", *seen["fused_subpixel_deconv"]),
+                b6_case("B2's input from path 1", *seen["fused_subpixel_deconv_batched"])]
+    check(b6_cases[0][0].endswith(" 32 images") and b6_cases[1][0].endswith(" 128 images"),
+          f"B6's cases: {[c[0] for c in b6_cases]}")
+    (x2, a2), kw2 = seen["fused_subpixel_deconv_batched"]
+    compare_cases("fused_subpixel_deconv", "posetpu_torch/csrc/tail2.cu",
+                  "posetpu/ops/pallas/phase_tail.py:527", pt.subpixel_deconv_pairs_plain,
+                  b6_cases, library={tag: phase_gemms(x4_of(a[0], kw), a[1]["w"])
+                                     for tag, a, kw, _, _ in b6_cases},
+                  headline=0, note=b2_plan,
+                  extra={"b2_ms_same_input": cuda_ms(
+                      lambda: pt.fused_subpixel_deconv_batched(x2, a2, **kw2))})
+    del b6_cases
 
     # B7: one compare and one select per element, outside the tensor cores;
     # every map read once, 12 bytes written per map. At path 4's 512 maps
@@ -1013,6 +1055,8 @@ def main() -> int:
             (x9, a9), kw9, *deconv_work(x9, a9, joints=a9["wh"].shape[0]),
             library=phase_gemms(x4_of(x9, kw9), a9["w"], z9, a9["wh"]))
     log(f"kernel fused_subpixel_deconv_head: {deconv_design((x9, a9), kw9)}")
+    log(f"B5 at 128 images {b5_128_ms:.4f} ms beside B9b on its shape "
+        f"({x9.shape[0]} images) {results[-1]['ms']:.4f} ms | {card}")
     del z9, cases9a
     del seen5, block_cases
 

@@ -21,13 +21,13 @@
 // m16n8k32 s8 reaches 1,270 of the card's 1,979 TOP/s, tools/imma_rate.cu)
 // and not memory bandwidth, but the step: 32 bytes of K behind a
 // cp.async.wait_group and two __syncthreads is an exposed L2 round trip,
-// and 24 four-byte ld.shared feed 16 mma. The kernels still built on them
-// (B5, B6, B8b) sit 7-22x above their bounds for that reason. B8a
-// (resblock.cu) left these loops for a three-stage ring 64 bytes deep that
-// runs across tiles, ldmatrix fragments and bulk-copied weight stages, B1,
-// B2, B9a and B9b (tail2.cu) and B3 and B4 (aggregation.cu) for wgmma fed
-// from rings of bulk copies, and PERF.md has what each step bought; the same
-// is queued for the rest.
+// and 24 four-byte ld.shared feed 16 mma. The kernel still built on them
+// (B8b) sits 22x above its bound for that reason. B8a (resblock.cu) left
+// these loops for a three-stage ring 64 bytes deep that runs across tiles,
+// ldmatrix fragments and bulk-copied weight stages, B1, B2, B5, B6, B9a and
+// B9b (tail2.cu) and B3 and B4 (aggregation.cu) for wgmma fed from rings of
+// bulk copies, and PERF.md has what each step bought; the same is queued for
+// B8b.
 #pragma once
 
 #include <cstdint>

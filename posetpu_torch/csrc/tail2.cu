@@ -1,13 +1,16 @@
 // The phase-form k4/s2/p1 transposed convs of the deconv tails, and their 1x1
 // heads, on one halo + wgmma kernel (sm_90a).
 //
-// Replaces four Pallas TPU kernels:
+// Replaces six Pallas TPU kernels:
 //   B1 posetpu/ops/pallas/phase_tail.py: fused_phase_tail2
 //      (_phase_tail2_kernel): deconv1 and deconv2 and the 1x1 head,
 //      heatmaps in the phase_index_tables(levels=2) order. Two launches:
 //        1. deconv1 (JT = 0): x [N, H, W, Cin] -> z1 [N, 2H, 2W, Cout] int8,
 //           each phase written interleaved (the 2H x 2W image deconv2 reads);
 //        2. deconv2 + head (JT > 0): z1 -> f32 [J, N, 16 H W] packed.
+//   B5 phase_tail.py: fused_phase_tail (_phase_tail_kernel): the last deconv
+//      and the head in one launch, B1's second with the levels=1 store
+//      (column g H W + y W + x of [J, N, 4 H W]).
 //   B9a posetpu/ops/pallas/deconv.py: fused_subpixel_deconv (_deconv_kernel):
 //      one deconv into the same interleaved int8 image, requantised with the
 //      folded per-phase epilogue (EPI = kFolded).
@@ -17,6 +20,8 @@
 //      (deconv0 of the serving tail): the phase maps int8 [4, N, H, W, Cout],
 //      phase-major, B1's relu requant on per-phase vectors (EPI =
 //      kReluPhase), on the streamed halo.
+//   B6 phase_tail.py: fused_subpixel_deconv (the per-pair kernel): B2 with
+//      the N-minor store [4, H, W, N, Cout].
 // The deconv's output never leaves the block when a head follows: each
 // 128-channel half of it is requantised into shared memory and the head's
 // int32 sums, which split exactly over the channels, accumulate half by half
@@ -57,21 +62,27 @@
 // their 64 pixels, and keep a step's products in flight while the next
 // step's are issued (wgmma.wait_group 1).
 //
-// Epilogues (EPI): kRelu, B1's: relu(acc * s + b) * (1 / so), rounded once,
-// clipped to [-127, 127], s and b [2, Cout] shared by the phases, the head
-// stored in the levels=2 packed order; kFolded, B9's: acc * v0 + v1 rounded
-// once and clipped to [0, 127], v [2, 4 Cout] per phase (scale and bias
-// pre-divided by the output scale on the host), the head stored row-major
-// at pixel (2i + a, 2j + b) of the 2H x 2W image, J floats a pixel;
-// kReluPhase, B2's: kRelu's arithmetic with kFolded's per-phase rows
-// (scales of the four phases, then their biases: [8, Cout]) and the deconv
-// stored phase-major, pixel (i, j) of phase g at [g][n][i][j].
+// Epilogues (EPI), the arithmetic: kRelu, B1's and B5's: relu(acc * s + b) *
+// (1 / so), rounded once, clipped to [-127, 127], s and b [2, Cout] shared by
+// the phases; kFolded, B9's: acc * v0 + v1 rounded once and clipped to
+// [0, 127], v [2, 4 Cout] per phase (scale and bias pre-divided by the output
+// scale on the host); kReluPhase, B2's and B6's: kRelu's arithmetic with
+// kFolded's per-phase rows (scales of the four phases, then their biases:
+// [8, Cout]).
+// Stores (STORE), the layout, pixel (y, x) of phase g = (a, b) of image n:
+// the deconv's int8 kInterleaved at (2y + a, 2x + b) of [N, 2H, 2W, Cout],
+// kPhaseMajor at [g][n][y][x] of [4, N, H, W, Cout], kNMinor at [g][y][x][n]
+// of [4, H, W, N, Cout]; the head's f32 kHeadPacked2 in the levels=2 packed
+// order of [J, N, 4 H W], kHeadPacked1 in the levels=1 order (column g H W +
+// y W + x) of the same, kHeadRowMajor J floats at pixel (2y + a, 2x + b) of
+// [N, 2H, 2W, J]. The instances (tail2_kernels[] below) pair them.
 //
 // Bounds on the H100 (1,979 TOP/s int8 dense, 3.35 TB/s), 128 images: B1 at
 // 16x16 deconv1 input, C = 256, J = 16: 1.73e11 MAC -> 0.176 ms; B9b (32x32,
 // 256 -> 256 -> 16) 1.40e11 MAC -> 0.141 ms; B9a deconv0 (8x8, 2048 -> 256)
-// 6.9e10 MAC -> 0.069 ms (B2's the same) and deconv1 (16x16, 256 -> 256)
-// 3.4e10 -> 0.035 ms: all bound by operations. Each block streams its sets' weights from L2
+// 6.9e10 MAC -> 0.069 ms (B2's and B6's the same) and deconv1 (16x16, 256 ->
+// 256) 3.4e10 -> 0.035 ms: all bound by operations, as B5 (B9b's shape) and
+// B6 (B2's) are at any batch. Each block streams its sets' weights from L2
 // (4 taps x Cin x 128 bytes a set: 128 KB at Cin 256, 1 MB at Cin 2048), so
 // the block's 128 pixels set the weights' L2 traffic: deconv0 reads 8192 /
 // 128 x 8.4 MB = 0.54 GB of them, whatever the sets a block. Measured design
@@ -83,8 +94,9 @@
 // Exactness: int32 sums in any order; requant_relu / requant_folded /
 // scale_bias of int8_mma.cuh (multiply and add rounded separately,
 // --fmad=false), 1/so a correctly rounded divide, rintf half to even:
-// bit-equal to ops/phase_tail.phase_tail2_plain and ops/deconv's plain
-// versions.
+// bit-equal to ops/phase_tail's plain versions (phase_tail2_plain,
+// phase_tail_plain, subpixel_deconv_plain, subpixel_deconv_pairs_plain) and
+// ops/deconv's.
 
 #include "ring.cuh"
 
@@ -105,6 +117,11 @@ constexpr int T2_SPLANE = T2_IMGS * 10 * T2_HW * 16;  // kHaloStream: a plane, b
 
 enum Epilogue { kRelu = 0, kFolded = 1, kReluPhase = 2 };
 enum ASource { kHalo = 0, kHaloStream = 1 };
+enum Store {
+  kInterleaved = 0, kPhaseMajor = 1, kNMinor = 2,            // the deconv's, int8
+  kHeadPacked2 = 3, kHeadPacked1 = 4, kHeadRowMajor = 5      // the head's, f32
+};
+__host__ __device__ constexpr bool head_store(int store) { return store >= kHeadPacked2; }
 
 // bytes of A a ring stage holds beside its weights (two planes), and the
 // stage's size (1024-aligned: the swizzled weights' atoms)
@@ -122,8 +139,7 @@ struct Tail2Args {
   const float* so;    // kRelu, kReluPhase: the output scale
   const int8_t* wh;   // head [JT * 8][NH * 128], zero padded (JT > 0)
   const float* vh;    // [2, J]: scale, bias (JT > 0)
-  void* out;          // JT = 0: int8 [N, 2H, 2W, Cout] ([4, N, H, W, Cout] kReluPhase);
-                      // else f32 [J, N, 4 H W] (kRelu) or [N, 4 H W, J] (kFolded)
+  void* out;          // as the store lays it out (Store)
   int n, h, w, cin, cout, joints;
   int tiles_x, stages, sets;
 };
@@ -169,12 +185,12 @@ __device__ __forceinline__ void keep_in_registers(int (&d)[64]) {
   for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i])::"memory");
 }
 
-template <int JT, int EPI, int ASRC>
+template <int JT, int EPI, int ASRC, int STORE>
 __global__ void __launch_bounds__(T2_THREADS, 2) tail2_kernel(
     const Tail2Args p, const Tail2Layout lay,
     const __grid_constant__ CUtensorMap tm_x) {  // x [N][H][W][Cin] (streamed designs)
   static_assert(JT == 0 || ASRC == kHalo, "a head follows only the resident halo");
-  static_assert(JT == 0 || EPI != kReluPhase, "the phase-major deconv has no head");
+  static_assert((JT > 0) == head_store(STORE), "a head store with a head, a deconv's without");
   constexpr bool kStream = ASRC != kHalo;
   constexpr int ring_stage = ring_stage_bytes(ASRC);
   constexpr int nvec = EPI == kRelu ? 2 : 8;  // rows of sv: (scale, bias) x phases
@@ -356,17 +372,21 @@ __global__ void __launch_bounds__(T2_THREADS, 2) tail2_kernel(
     __syncthreads();
 
     if constexpr (JT == 0) {
-      // the deconv's output leaves interleaved (phase-major for kReluPhase),
-      // 16 bytes a store, a pixel's 128 channels one 128-byte line
+      // the deconv's output leaves in the store's layout, 16 bytes a store,
+      // a pixel's 128 channels one 128-byte line
       int8_t* z1 = static_cast<int8_t*>(p.out);
       for (int e = tid; e < 128 * (T2_BN / 16); e += T2_THREADS) {
         const int row = e >> 3, ch = e & 7, o = nh * T2_BN + ch * 16;
         int img, y, x;
         if (!pixel(row, img, y, x) || o >= p.cout) continue;
-        const size_t px =
-            EPI == kReluPhase
-                ? ((static_cast<size_t>(g) * p.n + img) * p.h + y) * p.w + x
-                : (static_cast<size_t>(img) * 2 * p.h + 2 * y + a) * 2 * p.w + 2 * x + b;
+        size_t px;
+        if constexpr (STORE == kPhaseMajor) {
+          px = ((static_cast<size_t>(g) * p.n + img) * p.h + y) * p.w + x;
+        } else if constexpr (STORE == kNMinor) {
+          px = ((static_cast<size_t>(g) * p.h + y) * p.w + x) * p.n + img;
+        } else {
+          px = (static_cast<size_t>(img) * 2 * p.h + 2 * y + a) * 2 * p.w + 2 * x + b;
+        }
         int8_t* dst = z1 + px * p.cout + o;
         const int8_t* src = zs + row * T2_LDZ + ch * 16;
         if (p.cout % 16 == 0) {
@@ -407,8 +427,8 @@ __global__ void __launch_bounds__(T2_THREADS, 2) tail2_kernel(
           const int row = warp * 16 + hh * 8 + gid;
           int img, y, x;
           if (!pixel(row, img, y, x)) continue;
-          if constexpr (EPI == kFolded) {
-            // row-major: J floats at pixel (2y + a, 2x + b) of the 2H x 2W image
+          if constexpr (STORE == kHeadRowMajor) {
+            // J floats at pixel (2y + a, 2x + b) of the 2H x 2W image
             float* hm = static_cast<float*>(p.out) +
                         ((static_cast<size_t>(img) * 2 * p.h + 2 * y + a) * 2 * p.w + 2 * x +
                          b) * p.joints;
@@ -426,13 +446,20 @@ __global__ void __launch_bounds__(T2_THREADS, 2) tail2_kernel(
               }
             }
           } else {
-            // the levels = 2 order: pixel (y, x) of deconv2's phase g is packed
-            // position (4 g + 2 (y & 1) + (x & 1)) * (h/2 * w/2) + (y >> 1) *
-            // w/2 + (x >> 1) of [J, N, 4 h w]
+            // [J, N, 4 h w]; the levels = 2 order: pixel (y, x) of the
+            // phase g is packed position (4 g + 2 (y & 1) + (x & 1)) * (h/2 *
+            // w/2) + (y >> 1) * w/2 + (x >> 1); the levels = 1 order: g h w +
+            // y w + x
             float* hm = static_cast<float*>(p.out);
-            const int bh = p.h / 2, bw = p.w / 2, plane = 4 * p.h * p.w;
-            const size_t pk = static_cast<size_t>(4 * g + 2 * (y & 1) + (x & 1)) * bh * bw +
-                              (y >> 1) * bw + (x >> 1);
+            const int plane = 4 * p.h * p.w;
+            size_t pk;
+            if constexpr (STORE == kHeadPacked2) {
+              const int bh = p.h / 2, bw = p.w / 2;
+              pk = static_cast<size_t>(4 * g + 2 * (y & 1) + (x & 1)) * bh * bw +
+                   (y >> 1) * bw + (x >> 1);
+            } else {
+              pk = (static_cast<size_t>(g) * p.h + y) * p.w + x;
+            }
 #pragma unroll
             for (int jt = 0; jt < JT; ++jt)
 #pragma unroll
@@ -453,27 +480,34 @@ __global__ void __launch_bounds__(T2_THREADS, 2) tail2_kernel(
 using Tail2Fn = void (*)(Tail2Args, Tail2Layout, CUtensorMap);
 
 struct Tail2Kernel {
-  int jt, epi, asrc;
+  int jt, epi, asrc, store;
   Tail2Fn fn;
   int configured;  // dynamic shared memory the kernel has been allowed so far
 };
 
+#define TAIL2_INSTANCE(JT, EPI, ASRC, STORE) \
+  {JT, EPI, ASRC, STORE, tail2_kernel<JT, EPI, ASRC, STORE>, 0}
+
 // the instances: B1's two launches (deconv1; deconv2 + head at J <= 16 and
-// <= 32), B9's at the resident halo, B9a's and B2's streamed halo
+// <= 32), B5's one launch, B9's at the resident halo, B9a's, B2's and B6's
+// streamed halo
 static Tail2Kernel tail2_kernels[] = {
-    {0, kRelu, kHalo, tail2_kernel<0, kRelu, kHalo>, 0},
-    {2, kRelu, kHalo, tail2_kernel<2, kRelu, kHalo>, 0},
-    {4, kRelu, kHalo, tail2_kernel<4, kRelu, kHalo>, 0},
-    {0, kFolded, kHalo, tail2_kernel<0, kFolded, kHalo>, 0},
-    {2, kFolded, kHalo, tail2_kernel<2, kFolded, kHalo>, 0},
-    {4, kFolded, kHalo, tail2_kernel<4, kFolded, kHalo>, 0},
-    {0, kFolded, kHaloStream, tail2_kernel<0, kFolded, kHaloStream>, 0},
-    {0, kReluPhase, kHaloStream, tail2_kernel<0, kReluPhase, kHaloStream>, 0},
+    TAIL2_INSTANCE(0, kRelu, kHalo, kInterleaved),           // B1 deconv1
+    TAIL2_INSTANCE(2, kRelu, kHalo, kHeadPacked2),           // B1 deconv2 + head
+    TAIL2_INSTANCE(4, kRelu, kHalo, kHeadPacked2),
+    TAIL2_INSTANCE(2, kRelu, kHalo, kHeadPacked1),           // B5
+    TAIL2_INSTANCE(4, kRelu, kHalo, kHeadPacked1),
+    TAIL2_INSTANCE(0, kFolded, kHalo, kInterleaved),         // B9a deconv1
+    TAIL2_INSTANCE(2, kFolded, kHalo, kHeadRowMajor),        // B9b
+    TAIL2_INSTANCE(4, kFolded, kHalo, kHeadRowMajor),
+    TAIL2_INSTANCE(0, kFolded, kHaloStream, kInterleaved),   // B9a deconv0
+    TAIL2_INSTANCE(0, kReluPhase, kHaloStream, kPhaseMajor), // B2
+    TAIL2_INSTANCE(0, kReluPhase, kHaloStream, kNMinor),     // B6
 };
 
-static Tail2Kernel* find_kernel(int jt, int epi, int asrc) {
+static Tail2Kernel* find_kernel(int jt, int epi, int asrc, int store) {
   for (Tail2Kernel& k : tail2_kernels)
-    if (k.jt == jt && k.epi == epi && k.asrc == asrc) return &k;
+    if (k.jt == jt && k.epi == epi && k.asrc == asrc && k.store == store) return &k;
   return nullptr;
 }
 
@@ -489,17 +523,18 @@ static cudaError_t configure(Tail2Kernel& k, int smem) {
 using namespace posetpu;
 
 // One launch of the kernel. ``jt`` 0 runs a deconv into int8; 2 or 4 a deconv
-// and the head (J <= 8 jt). ``epi`` picks the epilogue (0 B1's, 1 B9's, 2 B2's),
-// ``asrc`` the design (0 the resident halo, 1 the streamed halo), ``sets``
-// the (phase, n-half) pairs a block takes
-// (a divisor of 4 NH; a multiple of NH with a head). The ring's shape and the
+// and the head (J <= 8 jt). ``epi`` picks the epilogue (Epilogue), ``asrc``
+// the design (0 the resident halo, 1 the streamed halo), ``store`` the
+// output's layout (Store); the four name an instance. ``sets`` the (phase,
+// n-half) pairs a block takes (a divisor of 4 NH; a multiple of NH with a
+// head). The ring's shape and the
 // shared-memory layout come planned from ops/phase_tail.py (plan_tail2).
 extern "C" int tail2(const void* x, const void* wt, const void* sc, const void* so,
                      const void* wh, const void* vh, void* out, int n, int h, int w, int cin,
-                     int cout, int joints, int jt, int epi, int asrc, int sets, int stages,
-                     int off_ring, int off_z, int off_wh, int off_sc, int off_bar, int smem,
-                     void* stream) {
-  Tail2Kernel* k = find_kernel(jt, epi, asrc);
+                     int cout, int joints, int jt, int epi, int asrc, int store, int sets,
+                     int stages, int off_ring, int off_z, int off_wh, int off_sc, int off_bar,
+                     int smem, void* stream) {
+  Tail2Kernel* k = find_kernel(jt, epi, asrc, store);
   const int nh = (cout + T2_BN - 1) / T2_BN;
   if (k == nullptr || sets < 1 || (4 * nh) % sets || (jt > 0 && sets % nh))
     return static_cast<int>(cudaErrorInvalidValue);
@@ -530,8 +565,8 @@ extern "C" int tail2(const void* x, const void* wt, const void* sc, const void* 
 
 // Blocks of one instance that fit one SM at ``smem`` bytes of dynamic shared
 // memory, or minus the CUDA error.
-extern "C" int tail2_blocks_per_sm(int jt, int epi, int asrc, int smem) {
-  Tail2Kernel* k = find_kernel(jt, epi, asrc);
+extern "C" int tail2_blocks_per_sm(int jt, int epi, int asrc, int store, int smem) {
+  Tail2Kernel* k = find_kernel(jt, epi, asrc, store);
   if (k == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
   cudaError_t e = configure(*k, smem);
   if (e != cudaSuccess) return -static_cast<int>(e);

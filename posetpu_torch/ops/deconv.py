@@ -12,7 +12,7 @@ Ports posetpu/ops/pallas/deconv.py with the same contracts:
   interleaved int8 rows, ``acc * vh[0] + vh[1]`` -> f32 [N, 4*H*W, J].
 
 (``ops/phase_tail.fused_subpixel_deconv`` is another function: B6, the
-phase-major deconv of the phase tail, with the two-step requant.) With Wf
+N-minor deconv of the phase tail, with the two-step requant.) With Wf
 the flipped [4, 4, I, O] kernel, output y[2i+a, 2j+b] =
 sum_{u,v in {0,1}} Wf[a+2u, b+2v] . x[i+a-1+u, j+b-1+v], x zero outside.
 
@@ -117,7 +117,7 @@ def _launch(x, args, h, w, head: bool, what):
                        epilogue="folded", design=design,
                        sets=stream_sets(n, h, w, cout, sm_count(x.device.index)) if stream
                        else None,
-                       stages=STREAM_STAGES if stream else None)
+                       stages=STREAM_STAGES if stream else None, what=what)
     return out if head else out.reshape(n, 4 * hw, cout)
 
 

@@ -1,7 +1,7 @@
 """The phase-domain deconvolution tail: an inner deconv (B2, B6), the last
-deconv + the 1x1 head (B5) and the last two deconvs + head (B1), each a
-hand-written CUDA kernel (``csrc/phase_tail.cu``; B1 and B2:
-``csrc/tail2.cu``) with its plain PyTorch version beside it.
+deconv + the 1x1 head (B5) and the last two deconvs + head (B1), each an
+instance of one hand-written CUDA kernel (``csrc/tail2.cu``) with its plain
+PyTorch version beside it.
 
 Ports posetpu/ops/pallas/phase_tail.py's kernels with the same contracts:
 
@@ -18,20 +18,22 @@ Ports posetpu/ops/pallas/phase_tail.py's kernels with the same contracts:
 A k4/s2/p1 transposed conv in phase form: output phase g = (a, b), tap
 t = (u, v) reads x[i + u - (1-a), j + v - (1-b)] (zero outside the image).
 
-B1 has a kernel of its own (``csrc/tail2.cu``): two launches, deconv1 into
-an interleaved z1, then deconv2 with the head, z2 kept in shared memory. A
-block takes a 16 x 8 tile of the input grid and its halo once and runs
-wgmma with A read from the halo; its shared memory is planned per shape by
-the pure :func:`plan_tail2`, and the weights arrive as the stage images
-:func:`tile_phase_weight` makes (``tail2_device_args``). The same kernel,
-with B9's folded per-phase epilogue and row-major head, and with the input
-streamed where its halo does not fit, is B9a and B9b (ops/deconv.py); with
-B1's requant on per-phase vectors, the phase-major store and the streamed
-halo (:data:`STREAM_DESIGN`, :func:`stream_sets`, :data:`STREAM_STAGES`) it
-is B2, whose arguments :func:`subpixel_device_args` makes (the streamed
-halo's stage images ``wt`` and the vectors ``svb`` beside the K-minor ``w``
-the plain version and B6 read). :func:`launch_tail2` launches every
-instance. B5 and B6 run ``phase_conv`` (+ ``phase_head``).
+The kernel (``csrc/tail2.cu``): a block takes a 16 x 8 tile of the input
+grid and its halo once and runs wgmma with A read from the halo; its shared
+memory is planned per shape by the pure :func:`plan_tail2`, and the weights
+arrive as the stage images :func:`tile_phase_weight` makes. Its instances
+are named by the epilogue (:data:`EPILOGUES`), the design (:data:`DESIGNS`)
+and the store (:data:`STORES`), and :func:`launch_tail2` launches each. B1
+is two launches, deconv1 into an interleaved z1, then deconv2 with the head,
+z2 kept in shared memory (``tail2_device_args``); B5 is B1's second launch
+with the levels=1 store (``tail_device_args``). The same kernel, with B9's
+folded per-phase epilogue and row-major head, and with the input streamed
+where its halo does not fit, is B9a and B9b (ops/deconv.py); with B1's
+requant on per-phase vectors and the streamed halo (:data:`STREAM_DESIGN`,
+:func:`stream_sets`, :data:`STREAM_STAGES`) it is B2 (the phase-major store)
+and B6 (the N-minor store), whose arguments :func:`subpixel_device_args`
+makes (the streamed halo's stage images ``wt`` and the vectors ``svb``
+beside the K-minor ``w`` the plain version reads).
 
 On a CUDA tensor the wrapper launches the kernel (and counts the launch in
 its ``launches`` attribute); on a CPU tensor it runs the plain version,
@@ -43,10 +45,9 @@ int8 tensor-core instruction); :func:`subpixel_device_args`,
 :func:`tail_device_args` and :func:`tail2_device_args` turn the ``build_*_args``
 functions' JAX-layout numpy args into that form on a device.
 
-Shapes the kernels take: Cin % 32 == 0 and Cout % 8 == 0 for the phase
-convs, C % 4 == 0 for the head (and even H, W of its input at levels=2);
-B1 also at most 32 joints and a 16 x 8 tile that fits a block; any
-batch and image size. A wrapper raises ``ValueError`` on anything else.
+Shapes the kernels take: Cin % 32 == 0, Cout % 8 == 0, at most 32 joints,
+even H and W of the levels=2 head's input; any batch and image size. A
+wrapper raises ``ValueError`` on anything else.
 """
 
 from __future__ import annotations
@@ -67,20 +68,14 @@ SUBPIX_BATCHED = True
 
 _PHASES = ((0, 0), (0, 1), (1, 0), (1, 1))
 
-# deconv0's design (Cin 2048: the resident halo does not fit), B9a's and
-# B2's: the streamed halo with a ring of 7 stages (one block an SM) and the
-# (phase, n-half) pairs a block of stream_sets, measured on the H100 at 128
-# and 256 images of 8x8 (tools/torch_kernel_sweep.py deconv; PERF.md)
+# deconv0's design (Cin 2048: the resident halo does not fit), B9a's, B2's
+# and B6's: the streamed halo with a ring of 7 stages (one block an SM) and
+# the (phase, n-half) pairs a block of stream_sets, measured on the H100 at
+# 32, 128 and 256 images of 8x8 (tools/torch_kernel_sweep.py deconv; PERF.md)
 STREAM_DESIGN, STREAM_STAGES = "stream", 7
 _P, _I = _build.P, _build.I
-_SIGNATURES = {
-    "phase_conv": [_P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-    "phase_head": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-}
-_TAIL2_SIGNATURES = {"tail2": [_P] * 7 + [_I] * 17 + [_P],
-                     "tail2_blocks_per_sm": [_I] * 4}
-# phase_conv output modes (csrc/phase_tail.cu)
-_PHASE_MAJOR, _INTERLEAVED, _N_MINOR = 0, 1, 2
+_TAIL2_SIGNATURES = {"tail2": [_P] * 7 + [_I] * 18 + [_P],
+                     "tail2_blocks_per_sm": [_I] * 5}
 
 
 def _np(a):
@@ -177,10 +172,6 @@ def phase_tail2_plain(x, args, *, h: int, w: int):
 # ------------------------------------------------------------ CUDA launches
 
 
-def _lib():
-    return _build.load("phase_tail", _SIGNATURES)
-
-
 # the current stream's raw handle without building a torch.cuda.Stream
 # object around it (a third of a small wrapper's host time)
 _raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None)
@@ -198,41 +189,7 @@ def check_cuda(name, **tensors):
             raise ValueError(f"{name}: {k} must be a contiguous CUDA tensor")
 
 
-def _launch_phase_conv(x4, wk, sv, bv, phase_stride, so, out_mode):
-    n, h, w, cin = x4.shape
-    cout = wk.shape[2]
-    if x4.dtype != torch.int8 or wk.dtype != torch.int8:
-        raise ValueError("phase_conv takes int8 activations and weights")
-    if wk.shape != (4, 4, cout, cin) or cin % 32 or cout % 8:
-        raise ValueError(f"phase_conv: unsupported shapes x {tuple(x4.shape)}, "
-                         f"w {tuple(wk.shape)} (Cin % 32 == 0, Cout % 8 == 0)")
-    check_cuda("phase_conv", x=x4, w=wk, sv=sv, bv=bv, so=so)
-    shape = {_PHASE_MAJOR: (4, n, h, w, cout), _INTERLEAVED: (n, 2 * h, 2 * w, cout),
-             _N_MINOR: (4, h, w, n, cout)}[out_mode]
-    out = torch.empty(shape, dtype=torch.int8, device=x4.device)
-    _build.check(_lib().phase_conv(
-        x4.data_ptr(), wk.data_ptr(), sv.data_ptr(), bv.data_ptr(),
-        phase_stride, so.data_ptr(), out.data_ptr(), n, h, w, cin, cout,
-        out_mode, stream_of(x4)), "phase_conv")
-    return out
-
-
-def _launch_phase_head(z, wh, vh, levels: int = 2):
-    _, n, h2, w2, c = z.shape
-    joints = wh.shape[0]
-    if z.dtype != torch.int8 or wh.shape != (joints, c) or c % 4 \
-            or (levels == 2 and (h2 % 2 or w2 % 2)):
-        raise ValueError(f"phase_head: unsupported shapes z {tuple(z.shape)}, "
-                         f"wh {tuple(wh.shape)}")
-    check_cuda("phase_head", z=z, wh=wh, vh=vh)
-    out = torch.empty((joints, n, 4 * h2 * w2), dtype=torch.float32, device=z.device)
-    _build.check(_lib().phase_head(
-        z.data_ptr(), wh.data_ptr(), vh.data_ptr(), out.data_ptr(), n, h2, w2,
-        c, joints, levels, stream_of(z)), "phase_head")
-    return out
-
-
-# ------------------------------------------------------------ B1's block shape
+# ------------------------------------------------------------ the kernel's block shape
 
 # csrc/tail2.cu: the resident halo's input tile (two warpgroups of 8 rows of 8
 # pixels), bytes of K a weight stage image, channels an n-half, a row of the
@@ -249,9 +206,18 @@ TAIL2_STAGES, _T2_IPS = 2, 2
 # shared memory; its planes streamed through the ring by TMA, an 8 x 8 tile
 # of one image a warpgroup (two planes of two images' halos a ring stage)
 DESIGNS = ("halo", "stream")
-# the epilogues (csrc/tail2.cu, Epilogue, in its order): B1's relu requant on
-# shared vectors, B9's folded per-phase one, B2's relu requant on per-phase rows
+# the epilogues (csrc/tail2.cu, Epilogue, in its order): B1's and B5's relu
+# requant on shared vectors, B9's folded per-phase one, B2's and B6's relu
+# requant on per-phase rows
 EPILOGUES = ("relu", "folded", "relu_phase")
+# the stores (csrc/tail2.cu, Store, in its order): the deconv's int8
+# [N, 2H, 2W, Cout] interleaved (B1's deconv1, B9a), [4, N, H, W, Cout]
+# phase-major (B2), [4, H, W, N, Cout] N-minor (B6); the head's f32
+# [J, N, 4 H W] in the levels=2 (B1) or levels=1 (B5) packed order, and
+# [N, 4 H W, J] row-major (B9b)
+STORES = ("interleaved", "phase_major", "n_minor", "head_packed2", "head_packed1",
+          "head_row_major")
+_HEAD_STORES = STORES[3:]
 _ASRC = {d: i for i, d in enumerate(DESIGNS)}
 _A_BYTES = {"halo": 0, "stream": 2 * 2 * 10 * 10 * 16}
 
@@ -372,78 +338,101 @@ def _tail2_lib():
     return _build.load("tail2", _TAIL2_SIGNATURES)
 
 
+def default_store(epilogue: str, head: bool) -> str:
+    """The store an epilogue's wrapper has always taken: with a head, B1's
+    levels=2 order (``"relu"``) or B9b's row-major one; without, B2's
+    phase-major maps (``"relu_phase"``) or the interleaved image."""
+    if head:
+        return "head_row_major" if epilogue == "folded" else "head_packed2"
+    return "phase_major" if epilogue == "relu_phase" else "interleaved"
+
+
 def tail2_blocks_per_sm(plan: Tail2Plan, jt: int, epilogue: str = "relu") -> int:
     """Blocks of the kernel the card puts on one SM for ``plan`` and the
-    instance of ``epilogue`` (one of :data:`EPILOGUES`)."""
+    instance of ``epilogue`` (one of :data:`EPILOGUES`) with its default
+    store (:func:`default_store`)."""
+    store = STORES.index(default_store(epilogue, jt > 0))
     blocks = _tail2_lib().tail2_blocks_per_sm(jt, EPILOGUES.index(epilogue),
-                                               _ASRC[plan.design], plan.smem)
+                                               _ASRC[plan.design], store, plan.smem)
     if blocks < 0:
         raise RuntimeError(f"tail2_blocks_per_sm: CUDA error {-blocks}")
     return blocks
 
 
-# the wrapper each epilogue serves, named in errors
-_EPILOGUE_OF = {"relu": "fused_phase_tail2", "folded": "fused_subpixel_deconv",
-                "relu_phase": "fused_subpixel_deconv_batched"}
-
-
-def launch_tail2(x4, wt, sc, so, wh=None, vh=None, *, epilogue="relu", stages=None,
-                 design="halo", sets=None):
+def launch_tail2(x4, wt, sc, so, wh=None, vh=None, *, epilogue="relu", store=None,
+                 stages=None, design="halo", sets=None, what="launch_tail2"):
     """One launch of the phase-form kernel over x4 [N, H, W, Cin] int8 with
     the stage images ``wt`` [4, NH, 4 Cin / 64, 128, 64]
     (:func:`tile_phase_weight`, ``chunked`` for the ``"stream"`` design).
-    ``epilogue`` (:data:`EPILOGUES`): ``"relu"``, B1's, ``sc`` [2, Cout] and
-    ``so`` [1, 1]; ``"folded"``, B9's, ``sc`` the per-phase v [2, 4 Cout] and
-    no ``so``; ``"relu_phase"``, B2's (the streamed halo, no head), B1's
-    arithmetic on per-phase ``sc`` [8, Cout] (the four phases' scales, then
-    their biases) and ``so``. Without a head, int8 [N, 2H, 2W, Cout]
-    (interleaved), or [4, N, H, W, Cout] (``"relu_phase"``, phase-major);
-    with the padded head ``wh`` [8 jt, NH * 128] and ``vh`` [2, J], f32
-    [J, N, 4 H W] in the levels=2 order of the 2H x 2W output (``"relu"``),
-    or [N, 4 H W, J] row-major (``"folded"``)."""
+    ``epilogue`` (:data:`EPILOGUES`): ``"relu"``, B1's and B5's, ``sc``
+    [2, Cout] and ``so`` [1, 1]; ``"folded"``, B9's, ``sc`` the per-phase v
+    [2, 4 Cout] and no ``so``; ``"relu_phase"``, B2's and B6's (the streamed
+    halo, no head), B1's arithmetic on per-phase ``sc`` [8, Cout] (the four
+    phases' scales, then their biases) and ``so``. ``store`` (:data:`STORES`,
+    by default :func:`default_store`'s): without a head, int8 [N, 2H, 2W,
+    Cout] (``"interleaved"``), [4, N, H, W, Cout] (``"phase_major"``) or
+    [4, H, W, N, Cout] (``"n_minor"``); with the padded head ``wh`` [8 jt,
+    NH * 128] and ``vh`` [2, J], f32 [J, N, 4 H W] in the levels=2
+    (``"head_packed2"``, even H and W) or levels=1 (``"head_packed1"``) order
+    of the 2H x 2W output, or [N, 4 H W, J] (``"head_row_major"``). ``what``
+    names the caller in errors."""
     n, h, w, cin = x4.shape
     nh = wt.shape[1]
-    what = _EPILOGUE_OF[epilogue]
+    head = wh is not None
+    store = default_store(epilogue, head) if store is None else store
     cout = sc.shape[-1] // 4 if epilogue == "folded" else sc.shape[-1]
     sc_shape = {"relu": (2, cout), "folded": (2, 4 * cout), "relu_phase": (8, cout)}[epilogue]
-    joints = 0 if wh is None else vh.shape[-1]
-    jt = 0 if wh is None else (2 if joints <= 16 else 4)
+    joints = vh.shape[-1] if head else 0
+    jt = (2 if joints <= 16 else 4) if head else 0
     if (x4.dtype != torch.int8 or wt.dtype != torch.int8 or cin % 32 or cout % 8
             or tuple(wt.shape) != (4, -(-cout // _T2_BN), 4 * cin // _T2_KB, _T2_BN, _T2_KB)
-            or joints > 32 or (wh is not None and tuple(wh.shape) != (8 * jt, nh * _T2_BN))
-            or tuple(sc.shape) != sc_shape
-            or (epilogue == "relu_phase" and (wh is not None or design != STREAM_DESIGN))):
+            or joints > 32 or (head and tuple(wh.shape) != (8 * jt, nh * _T2_BN))
+            or tuple(sc.shape) != sc_shape or store not in STORES
+            or head != (store in _HEAD_STORES)
+            or (store == "head_packed2" and (h % 2 or w % 2))
+            or (epilogue == "relu_phase" and (head or design != STREAM_DESIGN))):
         raise ValueError(f"{what}: unsupported shapes x {tuple(x4.shape)}, "
-                         f"w {tuple(wt.shape)}, Cout {cout}, {joints} joints (Cin % 32 == 0, "
-                         f"Cout % 8 == 0, J <= 32, tiled weights)")
+                         f"w {tuple(wt.shape)}, Cout {cout}, {joints} joints, store {store!r} "
+                         f"(Cin % 32 == 0, Cout % 8 == 0, J <= 32, tiled weights)")
     tensors = {"x": x4, "w": wt, "s": sc}
     if epilogue != "folded":
         tensors["so"] = so
-    if wh is not None:
+    if head:
         tensors.update(wh=wh, vh=vh)
     check_cuda(what, **tensors)
     plan = plan_tail2(h, w, cin, cout, jt, stages, design=design,
                       folded=epilogue != "relu", sets=sets)
-    if epilogue == "relu_phase":
-        out = torch.empty((4, n, h, w, cout), dtype=torch.int8, device=x4.device)
-    elif wh is None:
-        out = torch.empty((n, 2 * h, 2 * w, cout), dtype=torch.int8, device=x4.device)
-    elif epilogue == "folded":
-        out = torch.empty((n, 4 * h * w, joints), dtype=torch.float32, device=x4.device)
-    else:
-        out = torch.empty((joints, n, 4 * h * w), dtype=torch.float32, device=x4.device)
+    shape = {"interleaved": (n, 2 * h, 2 * w, cout), "phase_major": (4, n, h, w, cout),
+             "n_minor": (4, h, w, n, cout), "head_packed2": (joints, n, 4 * h * w),
+             "head_packed1": (joints, n, 4 * h * w),
+             "head_row_major": (n, 4 * h * w, joints)}[store]
+    out = torch.empty(shape, dtype=torch.float32 if head else torch.int8, device=x4.device)
     _build.check(_tail2_lib().tail2(
         x4.data_ptr(), wt.data_ptr(), sc.data_ptr(),
         0 if epilogue == "folded" else so.data_ptr(),
-        0 if wh is None else wh.data_ptr(), 0 if vh is None else vh.data_ptr(),
+        wh.data_ptr() if head else 0, vh.data_ptr() if head else 0,
         out.data_ptr(), n, h, w, cin, cout, joints, jt, EPILOGUES.index(epilogue),
-        _ASRC[design], plan.sets,
+        _ASRC[design], STORES.index(store), plan.sets,
         plan.stages, plan.off_ring, plan.off_z, plan.off_wh, plan.off_sc, plan.off_bar,
         plan.smem, stream_of(x4)), what)
     return out
 
 
 # ------------------------------------------------------------ the wrappers
+
+
+def _subpixel_launch(x, args, h, w, store, what):
+    """B2's and B6's launch: deconv0's relu requant on per-phase rows on the
+    streamed halo, into ``store``'s layout."""
+    n, hw, cin = x.shape
+    if "wt" not in args or "svb" not in args:
+        raise ValueError(f"{what}: args need the stage images and vectors of "
+                         f"subpixel_device_args (wt, svb)")
+    cout = args["svb"].shape[-1]
+    return launch_tail2(x.reshape(n, h, w, cin), args["wt"], args["svb"], args["so"],
+                        epilogue="relu_phase", store=store, design=STREAM_DESIGN,
+                        stages=STREAM_STAGES,
+                        sets=stream_sets(n, h, w, cout, sm_count(x.device.index)), what=what)
 
 
 def fused_subpixel_deconv_batched(x, args, *, h: int, w: int):
@@ -456,13 +445,7 @@ def fused_subpixel_deconv_batched(x, args, *, h: int, w: int):
         raise ValueError(f"x has {hw} pixels per image, not {h}x{w}")
     if not x.is_cuda:
         return subpixel_deconv_plain(x, args, h=h, w=w)
-    if "wt" not in args or "svb" not in args:
-        raise ValueError("fused_subpixel_deconv_batched: args need the stage images and "
-                         "vectors of subpixel_device_args (wt, svb)")
-    cout = args["svb"].shape[-1]
-    out = launch_tail2(x.reshape(n, h, w, cin), args["wt"], args["svb"], args["so"],
-                       epilogue="relu_phase", design=STREAM_DESIGN, stages=STREAM_STAGES,
-                       sets=stream_sets(n, h, w, cout, sm_count(x.device.index)))
+    out = _subpixel_launch(x, args, h, w, "phase_major", "fused_subpixel_deconv_batched")
     fused_subpixel_deconv_batched.launches += 1
     return out
 
@@ -475,15 +458,14 @@ def fused_subpixel_deconv(x, args, *, h: int, w: int):
     [4, H, W, N, Cout] (phase (a, b) major, image-minor), requantized with
     per-phase scales: the per-pair kernel's contract, for
     :func:`subpixel_interleave_packed`. ``args`` from
-    :func:`subpixel_device_args`."""
+    :func:`subpixel_device_args`. On the card: B2's launch with the N-minor
+    store."""
     n, hw, cin = x.shape
     if hw != h * w:
         raise ValueError(f"x has {hw} pixels per image, not {h}x{w}")
     if not x.is_cuda:
         return subpixel_deconv_pairs_plain(x, args, h=h, w=w)
-    cout = args["w"].shape[2]
-    out = _launch_phase_conv(x.reshape(n, h, w, cin), args["w"], args["sv"],
-                             args["bv"], cout, args["so"], _N_MINOR)
+    out = _subpixel_launch(x, args, h, w, "n_minor", "fused_subpixel_deconv")
     fused_subpixel_deconv.launches += 1
     return out
 
@@ -495,16 +477,18 @@ def fused_phase_tail(x, args, *, h: int, w: int):
     """x: [N, H*W, Cin] int8 (the last deconv's input, row-major) -> f32
     phase-packed heatmaps [J, N, 4*H*W] in the ``phase_index_tables
     (levels=1)`` order: column g*H*W + r is phase g, pixel r. ``args`` from
-    :func:`tail_device_args`."""
+    :func:`tail_device_args`. On the card: one launch of ``csrc/tail2.cu``,
+    B1's deconv2 + head with the levels=1 store."""
     n, hw, cin = x.shape
     if hw != h * w:
         raise ValueError(f"x has {hw} pixels per image, not {h}x{w}")
     if not x.is_cuda:
         return phase_tail_plain(x, args, h=h, w=w)
-    sv = args["sv"]
-    z = _launch_phase_conv(x.reshape(n, h, w, cin), args["w"], sv[0], sv[1], 0,
-                           args["so"], _PHASE_MAJOR)
-    out = _launch_phase_head(z, args["wh"], args["vh"], levels=1)
+    if "wt" not in args or "wht" not in args:
+        raise ValueError("fused_phase_tail: args need the stage images and padded head of "
+                         "tail_device_args (wt, wht)")
+    out = launch_tail2(x.reshape(n, h, w, cin), args["wt"], args["sv"], args["so"],
+                       args["wht"], args["vh"], store="head_packed1", what="fused_phase_tail")
     fused_phase_tail.launches += 1
     return out
 
@@ -522,8 +506,10 @@ def fused_phase_tail2(x, args, *, h: int, w: int):
         raise ValueError(f"x has {hw} pixels per image, not an even {h}x{w}")
     if not x.is_cuda:
         return phase_tail2_plain(x, args, h=h, w=w)
-    z1 = launch_tail2(x.reshape(n, h, w, cin), args["w1t"], args["s1"], args["so1"])
-    out = launch_tail2(z1, args["w2t"], args["s2"], args["so2"], args["wht"], args["vh"])
+    z1 = launch_tail2(x.reshape(n, h, w, cin), args["w1t"], args["s1"], args["so1"],
+                      what="fused_phase_tail2")
+    out = launch_tail2(z1, args["w2t"], args["s2"], args["so2"], args["wht"], args["vh"],
+                       what="fused_phase_tail2")
     fused_phase_tail2.launches += 1
     return out
 
@@ -651,29 +637,35 @@ def _k_minor(a, device):
 
 def subpixel_device_args(args: dict, device) -> dict:
     """JAX-layout subpixel args (numpy or arrays) -> the kernels' tensors:
-    w [4, 4, Cout, Cin] int8 (K-minor, what B6 and the plain version read),
-    sv/bv [4, Cout] f32, so [1, 1] f32, and B2's (:func:`with_subpixel_weights`).
-    Both kernels' tensors are made whatever :data:`SUBPIX_BATCHED` says, as
-    the forward reads it per call: a B6 route carries B2's 8.4 MB of stage
-    images at deconv0 unread, a B2 route the K-minor ``w``."""
+    w [4, 4, Cout, Cin] int8 (K-minor, what the plain versions read), sv/bv
+    [4, Cout] f32, so [1, 1] f32, and the kernel's (:func:`with_subpixel_weights`),
+    which B2 and B6 both read."""
     return with_subpixel_weights(
         {"w": _k_minor(args["w"], device),
          **{k: _to(args[k], device) for k in ("sv", "bv", "so")}})
 
 
 def with_subpixel_weights(args: dict) -> dict:
-    """``args`` (the K-minor tensors) with B2's beside them: ``wt`` the
-    streamed halo's stage images (:func:`tile_phase_weight`, chunked; 8.4 MB
-    at deconv0's 2048 -> 256) and ``svb`` [8, Cout], sv's rows then bv's."""
+    """``args`` (the K-minor tensors) with B2's and B6's beside them: ``wt``
+    the streamed halo's stage images (:func:`tile_phase_weight`, chunked; 8.4
+    MB at deconv0's 2048 -> 256) and ``svb`` [8, Cout], sv's rows then bv's."""
     return dict(args, wt=tile_phase_weight(args["w"], chunked=True),
                 svb=torch.cat([args["sv"], args["bv"]]).contiguous())
 
 
 def tail_device_args(args: dict, device) -> dict:
     """JAX-layout phase-tail args -> the kernels' tensors: w [4, 4, Cout, Cin]
-    and wh [J, C] int8 (K-minor), sv [2, Cout], so [1, 1], vh [2, J] f32."""
-    return {**{k: _k_minor(args[k], device) for k in ("w", "wh")},
-            **{k: _to(args[k], device) for k in ("sv", "so", "vh")}}
+    and wh [J, C] int8 (K-minor, what the plain version reads), sv [2, Cout],
+    so [1, 1], vh [2, J] f32, and B5's (:func:`with_tail_weights`)."""
+    return with_tail_weights(
+        {**{k: _k_minor(args[k], device) for k in ("w", "wh")},
+         **{k: _to(args[k], device) for k in ("sv", "so", "vh")}})
+
+
+def with_tail_weights(args: dict) -> dict:
+    """``args`` (the K-minor tensors) with B5's stage images ``wt`` and padded
+    head ``wht`` beside them, as :func:`with_tail2_weights` gives B1."""
+    return dict(args, wt=tile_phase_weight(args["w"]), wht=pad_head(args["wh"]))
 
 
 def tile_phase_weight(wk, chunked: bool = False):

@@ -269,6 +269,17 @@ def test_aggregation_s4_every_ring(cuda, stages):
     assert torch.equal(got, ref)
 
 
+def _tail_args(gen, c, joints, dev):
+    """Random B5 arguments in the kernels' layout (stage images included)."""
+    args = {"w": _i8(gen, 4, 4, c, c),
+            "sv": torch.stack([torch.rand(c, generator=gen) * 8e-3 / c ** 0.5 + 1e-4,
+                               torch.rand(c, generator=gen) * 4 - 2]),
+            "so": torch.tensor([[0.3]]), "wh": _i8(gen, joints, c),
+            "vh": torch.stack([torch.rand(joints, generator=gen) * 1e-3,
+                               torch.rand(joints, generator=gen) - 0.5])}
+    return tpt.with_tail_weights({k: v.to(dev) for k, v in args.items()})
+
+
 @pytest.mark.parametrize("n,h,w,c,joints", [(2, 4, 4, 32, 4), (3, 8, 8, 64, 16),
                                             (5, 3, 5, 96, 7)])
 def test_phase_tail_kernel_equals_plain(cuda, n, h, w, c, joints):
@@ -276,13 +287,7 @@ def test_phase_tail_kernel_equals_plain(cuda, n, h, w, c, joints):
     constraint)."""
     gen = torch.Generator().manual_seed(4)
     x = _i8(gen, n, h * w, c, lo=0)
-    args = {"w": _i8(gen, 4, 4, c, c),
-            "sv": torch.stack([torch.rand(c, generator=gen) * 8e-3 / c ** 0.5 + 1e-4,
-                               torch.rand(c, generator=gen) * 4 - 2]),
-            "so": torch.tensor([[0.3]]), "wh": _i8(gen, joints, c),
-            "vh": torch.stack([torch.rand(joints, generator=gen) * 1e-3,
-                               torch.rand(joints, generator=gen) - 0.5])}
-    dev = {k: v.to(cuda) for k, v in args.items()}
+    dev = _tail_args(gen, c, joints, cuda)
     before = tpt.fused_phase_tail.launches
     got = tpt.fused_phase_tail(x.to(cuda), dev, h=h, w=w)
     assert tpt.fused_phase_tail.launches == before + 1
@@ -290,6 +295,38 @@ def test_phase_tail_kernel_equals_plain(cuda, n, h, w, c, joints):
     torch.cuda.synchronize()
     assert got.shape == (joints, n, 4 * h * w)
     assert torch.equal(got, ref) and float(ref.std()) > 0
+
+
+@pytest.mark.parametrize("n", [32, 128])
+def test_phase_tail_kernel_serving_shapes(cuda, n):
+    """B5 (tail2_kernel's levels=1 head instance) at path 3's 32 images of
+    32x32x256 with 16 joints, and at 128: one launch, equal to the plain
+    version."""
+    gen = torch.Generator().manual_seed(8)
+    x = _i8(gen, n, 32 * 32, 256, lo=0).to(cuda)
+    dev = _tail_args(gen, 256, 16, cuda)
+    before = tpt.fused_phase_tail.launches
+    got = tpt.fused_phase_tail(x, dev, h=32, w=32)
+    assert tpt.fused_phase_tail.launches == before + 1
+    ref = tpt.phase_tail_plain(x, dev, h=32, w=32)
+    torch.cuda.synchronize()
+    assert got.shape == (16, n, 4 * 32 * 32)
+    assert torch.equal(got, ref) and float(ref.std()) > 0
+
+
+@pytest.mark.parametrize("stages", [2, 3, 4])
+def test_phase_tail_kernel_every_ring(cuda, stages):
+    """B5's instance at each ring depth, on a grid the 16 x 8 tiles overhang,
+    with a partial second n-half and 17 joints: equal to the plain version."""
+    gen = torch.Generator().manual_seed(9)
+    n, h, w, c, joints = 3, 6, 10, 160, 17
+    x = _i8(gen, n, h * w, c, lo=0).to(cuda)
+    dev = _tail_args(gen, c, joints, cuda)
+    got = tpt.launch_tail2(x.reshape(n, h, w, c), dev["wt"], dev["sv"], dev["so"], dev["wht"],
+                           dev["vh"], store="head_packed1", stages=stages)
+    ref = tpt.phase_tail_plain(x, dev, h=h, w=w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("n,h,w,cin,cout", [(3, 4, 4, 64, 32), (8, 8, 8, 256, 128),
@@ -302,7 +339,7 @@ def test_subpixel_deconv_pairs_kernel_equals_plain(cuda, n, h, w, cin, cout):
             "sv": torch.rand(4, cout, generator=gen) * 2e-3 / cin ** 0.5,
             "bv": torch.rand(4, cout, generator=gen) * 40 - 20,
             "so": torch.tensor([[0.5]])}
-    dev = {k: v.to(cuda) for k, v in args.items()}
+    dev = tpt.with_subpixel_weights({k: v.to(cuda) for k, v in args.items()})
     before = tpt.fused_subpixel_deconv.launches
     got = tpt.fused_subpixel_deconv(x.to(cuda), dev, h=h, w=w)
     assert tpt.fused_subpixel_deconv.launches == before + 1
@@ -313,6 +350,44 @@ def test_subpixel_deconv_pairs_kernel_equals_plain(cuda, n, h, w, cin, cout):
     assert torch.equal(tpt.subpixel_interleave_packed(got),
                        tpt.subpixel_interleave_packed_nmajor(
                            tpt.subpixel_deconv_plain(x.to(cuda), dev, h=h, w=w)))
+
+
+@pytest.mark.parametrize("n", [32, 128])
+def test_subpixel_deconv_pairs_serving_shapes(cuda, n):
+    """B6 (tail2_kernel's N-minor instance on the streamed halo) at path 3's
+    deconv0, 32 images of 8x8x2048 -> 256, and at 128: one launch, equal to
+    the plain version and interleaving to B2's image."""
+    gen = torch.Generator().manual_seed(23)
+    x = _i8(gen, n, 64, 2048, lo=0).to(cuda)
+    dev = _subpixel_args(gen, 2048, 256, cuda)
+    before = tpt.fused_subpixel_deconv.launches
+    got = tpt.fused_subpixel_deconv(x, dev, h=8, w=8)
+    assert tpt.fused_subpixel_deconv.launches == before + 1
+    ref = tpt.subpixel_deconv_pairs_plain(x, dev, h=8, w=8)
+    torch.cuda.synchronize()
+    assert got.shape == (4, 8, 8, n, 256)
+    assert torch.equal(got, ref) and len(torch.unique(ref)) > 50
+    assert torch.equal(tpt.subpixel_interleave_packed(got),
+                       tpt.subpixel_interleave_packed_nmajor(
+                           tpt.fused_subpixel_deconv_batched(x, dev, h=8, w=8)))
+
+
+@pytest.mark.parametrize("sets,stages", [(1, 2), (1, 7), (2, 3), (2, 5), (4, 2), (4, 7),
+                                         (8, 4), (8, 7)])
+def test_subpixel_deconv_pairs_every_ring_and_sets(cuda, sets, stages):
+    """B6's instance at every (phase, n-half) run a block and ring depths
+    from 2 to the wrapper's 7, on an image past N: equal to the plain
+    version."""
+    gen = torch.Generator().manual_seed(24)
+    n, h, w, cin, cout = 7, 8, 8, 256, 256
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    dev = _subpixel_args(gen, cin, cout, cuda)
+    got = tpt.launch_tail2(x.reshape(n, h, w, cin), dev["wt"], dev["svb"], dev["so"],
+                           epilogue="relu_phase", store="n_minor", design=tpt.STREAM_DESIGN,
+                           sets=sets, stages=stages)
+    ref = tpt.subpixel_deconv_pairs_plain(x, dev, h=h, w=w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref)
 
 
 @pytest.mark.parametrize("shape,post", [((3, 8, 16, 16), True), ((2, 4, 16, 64, 64), True),
@@ -420,19 +495,22 @@ def test_s4_tail_pairs_decode_refuse_unsupported_shapes(cuda):
         tagg.aggregation_grouped_s4(q, torch.zeros(2, 2, 4, 64, device=cuda))
     with pytest.raises(ValueError):
         tagg.aggregation_grouped_s4(q, torch.zeros(2, 2, 3, 64, device=cuda))
-    # B5: Cin % 32 != 0; pixel count that is not h*w
+    # B5: Cin % 32 != 0; pixel count that is not h*w; args without the
+    # stage images
     args = {"w": z(4, 4, 48, 48), "sv": torch.ones(2, 48, device=cuda),
             "so": torch.ones(1, 1, device=cuda), "wh": z(4, 48),
             "vh": torch.ones(2, 4, device=cuda)}
-    with pytest.raises(ValueError):
-        tpt.fused_phase_tail(z(2, 16, 48), args, h=4, w=4)
+    for a in (tpt.with_tail_weights(args), args):
+        with pytest.raises(ValueError, match="fused_phase_tail"):
+            tpt.fused_phase_tail(z(2, 16, 48), a, h=4, w=4)
     with pytest.raises(ValueError):
         tpt.fused_phase_tail(z(2, 15, 48), args, h=4, w=4)
-    # B6: Cout % 8 != 0
+    # B6: Cout % 8 != 0; args without the stage images
     args = {"w": z(4, 4, 12, 32), "sv": torch.ones(4, 12, device=cuda),
             "bv": torch.zeros(4, 12, device=cuda), "so": torch.ones(1, 1, device=cuda)}
-    with pytest.raises(ValueError):
-        tpt.fused_subpixel_deconv(z(2, 16, 32), args, h=4, w=4)
+    for a in (tpt.with_subpixel_weights(args), args):
+        with pytest.raises(ValueError, match="fused_subpixel_deconv"):
+            tpt.fused_subpixel_deconv(z(2, 16, 32), a, h=4, w=4)
     # B7: no map axes; an empty map
     with pytest.raises(ValueError):
         tdec.decode_heatmaps_kernel(torch.zeros(5, device=cuda))

@@ -186,7 +186,7 @@ def _kernel_args(rng, cin, cout, joints=0, chunked=False):
 
 
 def b9_kernel_emulation(x4, args, *, design="halo", sets=None, stages=None,
-                        epilogue="folded"):
+                        epilogue="folded", store="phase_major"):
     """One launch of csrc/tail2.cu with B9's folded, per-phase epilogue on the
     CPU, block by block as the kernel walks it: the planned grid (tiles x
     images x groups of ``sets`` (phase, n-half) pairs), each block's flat
@@ -198,7 +198,8 @@ def b9_kernel_emulation(x4, args, *, design="halo", sets=None, stages=None,
     half and its phase stored row-major at pixel (2y + a, 2x + b).
     ``epilogue="relu_phase"``: B2's instance instead, B1's relu requant with 1 / so on the
     per-phase rows of ``args["svb"]`` [8, Cout] and the phase-major store,
-    pixel (y, x) of phase g at [g, img, y, x]."""
+    pixel (y, x) of phase g at [g, img, y, x]; with ``store="n_minor"``
+    B6's instance, the same at [g, y, x, img]."""
     n, h, w, cin = x4.shape
     phases = epilogue == "relu_phase"
     wt = args["wt"]
@@ -222,7 +223,8 @@ def b9_kernel_emulation(x4, args, *, design="halo", sets=None, stages=None,
     if head:
         out = torch.full((n, 2 * h, 2 * w, joints), float("nan"))
     elif phases:
-        out = torch.full((4, n, h, w, cout), -128, dtype=torch.int8)  # -128: never stored
+        shape = (4, h, w, n, cout) if store == "n_minor" else (4, n, h, w, cout)
+        out = torch.full(shape, -128, dtype=torch.int8)  # -128: never stored
         inv_so = 1.0 / args["so"].reshape(())
     else:
         out = torch.zeros(n, 2 * h, 2 * w, cout, dtype=torch.int8)
@@ -270,7 +272,10 @@ def b9_kernel_emulation(x4, args, *, design="halo", sets=None, stages=None,
                     keep = inside.nonzero()[0]
                     if phases:
                         o = slice(half * 128, min(cout, half * 128 + 128))
-                        out[g, img[keep], y[keep], x[keep], o] = z[keep, :o.stop - o.start]
+                        if store == "n_minor":
+                            out[g, y[keep], x[keep], img[keep], o] = z[keep, :o.stop - o.start]
+                        else:
+                            out[g, img[keep], y[keep], x[keep], o] = z[keep, :o.stop - o.start]
                         continue
                     if not head:
                         o = slice(half * 128, min(cout, half * 128 + 128))
@@ -335,6 +340,36 @@ def test_b2_kernel_emulation_equals_plain(n, h, w, cin, cout, sets, stages):
                               stages=tpt.STREAM_STAGES if stages is None else stages,
                               epilogue="relu_phase")
     assert got.shape == ref.shape == (4, n, h, w, cout)
+    assert len(torch.unique(ref)) > 50 and bool((ref < 0).any() or (ref == 0).any())
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,sets,stages", [
+    (3, 8, 8, 64, 24, None, None),       # the wrapper's sets and ring, one partial n-half
+    (5, 3, 7, 96, 136, None, None),      # an image past N, tiles past the grid, 2 n-halves
+    (3, 9, 12, 128, 24, 2, 3),           # two 8 x 8 tiles a row and a column, other sets
+    (2, 8, 8, 64, 136, 8, 2),            # all eight pairs in one block
+    (4, 8, 8, 32, 136, 1, 4),            # one pair a block, as at path 3's 32 images
+])
+def test_b6_kernel_emulation_equals_plain(n, h, w, cin, cout, sets, stages):
+    """B6's decomposition, tail2_kernel's N-minor instance on the streamed
+    halo (B2's grid, K order and relu requant on the rows of ``svb``, the
+    store at [g, y, x, img]): equal to subpixel_deconv_pairs_plain exactly,
+    every element stored once."""
+    rng = np.random.default_rng(60 + cin + cout)
+    w8 = torch.from_numpy(rng.integers(-127, 128, (4, 4, cout, cin)).astype(np.int8))
+    sv = rng.uniform(0.5, 1.5, (4, cout)) * 0.6 / cin ** 0.5 / 127
+    args = tpt.with_subpixel_weights({
+        "w": w8, "sv": torch.from_numpy(sv.astype(np.float32)),
+        "bv": torch.from_numpy(rng.uniform(-20, 20, (4, cout)).astype(np.float32)),
+        "so": torch.tensor([[0.37]])})
+    x = torch.from_numpy(rng.integers(0, 128, (n, h * w, cin)).astype(np.int8))
+    ref = tpt.subpixel_deconv_pairs_plain(x, args, h=h, w=w)
+    got = b9_kernel_emulation(x.reshape(n, h, w, cin), args, design=tpt.STREAM_DESIGN,
+                              sets=tpt.stream_sets(n, h, w, cout, 132) if sets is None else sets,
+                              stages=tpt.STREAM_STAGES if stages is None else stages,
+                              epilogue="relu_phase", store="n_minor")
+    assert got.shape == ref.shape == (4, h, w, n, cout)
     assert len(torch.unique(ref)) > 50 and bool((ref < 0).any() or (ref == 0).any())
     assert torch.equal(got, ref)
 

@@ -1,4 +1,4 @@
-"""posetpu_torch.ops.phase_tail (B1, B2) against the JAX package's Pallas
+"""posetpu_torch.ops.phase_tail (B1, B2, B5) against the JAX package's Pallas
 kernels run in interpret mode, on the same numpy inputs.
 
 On the CPU each wrapper runs its kernel's plain version, so these tests pin
@@ -224,14 +224,15 @@ def _requant(acc, s, b, inv_so):
                        ).to(torch.int8)
 
 
-def tail2_kernel_emulation(x4, wt, sc, so, wh=None, vh=None):
+def tail2_kernel_emulation(x4, wt, sc, so, wh=None, vh=None, store="head_packed2"):
     """One launch of csrc/tail2.cu on the CPU, block by block as the kernel
     walks it: the planned tile and its zero-padded halo, the flat k-steps
     (phase, n-half, 64-byte stage) with each 32-byte step's A rows at the
     tap's constant offset into the halo and its B rows read through the
     stage images' swizzle, the half requantised (zeros past Cout), then
     z1 stored interleaved, or the head summed half by half and stored in
-    the levels=2 packed order."""
+    the levels=2 packed order (B1), or with ``store="head_packed1"`` in the
+    levels=1 order, column g h w + y w + x (B5)."""
     n, h, w, cin = x4.shape
     nh, cout = wt.shape[1], sc.shape[-1]
     joints = 0 if wh is None else vh.shape[-1]
@@ -290,8 +291,11 @@ def tail2_kernel_emulation(x4, wt, sc, so, wh=None, vh=None):
                 if wh is not None:
                     keep = inside.nonzero()[0]
                     yk, xk = y[keep], x[keep]
-                    pk = ((4 * g + 2 * (yk & 1) + (xk & 1)) * (h // 2) * (w // 2)
-                          + (yk >> 1) * (w // 2) + (xk >> 1))
+                    if store == "head_packed1":
+                        pk = (g * h + yk) * w + xk
+                    else:
+                        pk = ((4 * g + 2 * (yk & 1) + (xk & 1)) * (h // 2) * (w // 2)
+                              + (yk >> 1) * (w // 2) + (xk >> 1))
                     acc_h = hacc[keep, :joints].round().to(torch.int32)
                     out[:, img, pk] = (acc_h.float() * vh[0] + vh[1]).t()
     return out
@@ -323,3 +327,89 @@ def test_tail2_tile_emulation_equals_plain(rng, n, h, w, cin, c1, c2, joints):
     assert torch.equal(z1, z1_ref) and len(torch.unique(z1)) > 20
     got = tail2_kernel_emulation(z1, dev["w2t"], dev["s2"], dev["so2"], dev["wht"], dev["vh"])
     assert got.shape == ref.shape and torch.equal(got, ref) and float(ref.std()) > 0
+
+
+@pytest.mark.parametrize("n,h,w,cin,cout,joints", [(2, 4, 4, 32, 32, 4), (3, 3, 5, 96, 96, 7),
+                                                   (1, 6, 10, 64, 136, 17)])
+def test_b5_kernel_emulation_equals_plain(rng, n, h, w, cin, cout, joints):
+    """B5's decomposition, B1's deconv2 + head instance with the levels=1
+    store (odd h and w with tiles overhanging them, odd J, a Cout that is no
+    multiple of 128 and a partial second n-half): equal to phase_tail_plain's
+    heatmaps exactly, every element stored once."""
+    args = {"w": _i8(rng, 4, 4, cin, cout),
+            "sv": np.stack([_scales(rng, cout, lo=2e-3, hi=8e-3) * 32 / cin,
+                            rng.uniform(-20, 20, cout).astype(np.float32)]),
+            "so": np.asarray([[0.91]], np.float32),
+            "wh": _i8(rng, cout, joints),
+            "vh": np.stack([_scales(rng, joints, lo=1e-4, hi=1e-3),
+                            rng.uniform(-1, 1, joints).astype(np.float32)])}
+    dev = tpt.tail_device_args(args, "cpu")
+    x = torch.from_numpy(_i8(rng, n, h * w, cin))
+    ref = tpt.phase_tail_plain(x, dev, h=h, w=w)
+    z = tpt._phase_conv_plain(x.reshape(n, h, w, cin), dev["w"], dev["sv"][0], dev["sv"][1],
+                              dev["so"], interleave=False)
+    assert len(torch.unique(z)) > 20
+    got = tail2_kernel_emulation(x.reshape(n, h, w, cin), dev["wt"], dev["sv"], dev["so"],
+                                 dev["wht"], dev["vh"], store="head_packed1")
+    assert got.shape == ref.shape == (joints, n, 4 * h * w)
+    assert not got.isnan().any() and torch.equal(got, ref) and float(ref.std()) > 0
+
+
+def test_tail_device_args_stage_images_untile_to_the_weights(rng):
+    """tail_device_args gives B5 its stage images and padded head beside the
+    K-minor w and wh: untiled, they hold them exactly, zeros elsewhere."""
+    cin, cout, joints = 64, 136, 7
+    args = {"w": _i8(rng, 4, 4, cin, cout), "sv": np.zeros((2, cout), np.float32),
+            "so": np.ones((1, 1), np.float32), "wh": _i8(rng, cout, joints),
+            "vh": np.zeros((2, joints), np.float32)}
+    dev = tpt.tail_device_args(args, "cpu")
+    assert tuple(dev["wt"].shape) == (4, 2, 4 * cin // 64, 128, 64)
+    for g in range(4):
+        full = trb.untile_weight(dev["wt"][g], 256, 4 * cin)
+        assert not full[cout:].any()
+        np.testing.assert_array_equal(
+            full[:cout].reshape(cout, 4, cin).permute(1, 0, 2).numpy(), dev["w"][g].numpy())
+    assert tuple(dev["wht"].shape) == (16, 256)
+    np.testing.assert_array_equal(dev["wht"][:joints, :cout].numpy(), dev["wh"].numpy())
+    assert not dev["wht"][joints:].any() and not dev["wht"][:, cout:].any()
+
+
+def test_plan_tail2_path3_shapes():
+    """Path 3's two launches at its 32 images: B5 (32x32, 256 -> 256 -> 16)
+    takes B1's deconv2 + head plan, 8 tiles an image (256 blocks), two blocks
+    an SM; B6 (deconv0, 8x8, 2048 -> 256) takes one (phase, n-half) pair a
+    block on the streamed halo, 16 image pairs x 8 pairs = 128 blocks, one
+    wave on the H100's 132 SMs (4 pairs at 128 images, as B2)."""
+    plan = tpt.plan_tail2(32, 32, 256, 256, 2)
+    assert plan.tiles_x * plan.tiles_y * 32 == 256 and plan.sets == 8
+    assert 228 * 1024 // (plan.smem + 1024) == 2
+    assert tpt.stream_sets(32, 8, 8, 256, 132) == 1
+    assert tpt.stream_sets(128, 8, 8, 256, 132) == 4
+    p6 = tpt.plan_tail2(8, 8, 2048, 256, 0, tpt.STREAM_STAGES, design=tpt.STREAM_DESIGN,
+                        folded=True, sets=1)
+    assert (p6.tiles_x, p6.tiles_y, p6.sets) == (1, 1, 1) and 16 * 8 // p6.sets <= 132
+
+
+def test_launch_tail2_store_contract(rng):
+    """launch_tail2's ``store``: by default the one each epilogue's wrapper
+    always took; a head store exactly when a head is given, the levels=2
+    order only on an even grid; every refusal (and the CUDA check, which a
+    CPU tensor fails) names the caller given as ``what``."""
+    assert [tpt.default_store(e, head) for e in tpt.EPILOGUES for head in (False, True)] == [
+        "interleaved", "head_packed2", "interleaved", "head_row_major", "phase_major",
+        "head_packed2"]
+    args = tpt.tail_device_args({
+        "w": _i8(rng, 4, 4, 32, 32), "sv": np.ones((2, 32), np.float32),
+        "so": np.ones((1, 1), np.float32), "wh": _i8(rng, 32, 5),
+        "vh": np.ones((2, 5), np.float32)}, "cpu")
+    x4 = torch.zeros(2, 3, 5, 32, dtype=torch.int8)
+    head = (args["wht"], args["vh"])
+    for store, extra in (("head_packed1", ()), ("n_minor", head), ("levels1", head),
+                         ("head_packed2", head)):  # the last: a 3 x 5 grid
+        with pytest.raises(ValueError, match=f"caller: unsupported .*store '{store}'"):
+            tpt.launch_tail2(x4, args["wt"], args["sv"], args["so"], *extra, store=store,
+                             what="caller")
+    for store, extra in (("head_packed1", head), ("interleaved", ())):
+        with pytest.raises(ValueError, match="caller: x must be a contiguous CUDA tensor"):
+            tpt.launch_tail2(x4, args["wt"], args["sv"], args["so"], *extra, store=store,
+                             what="caller")

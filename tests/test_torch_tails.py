@@ -99,7 +99,8 @@ def test_phase_tail_args_match_jax(rng):
     ref = jpt.build_phase_tail_args(q, "deconv2", 0.0123)
     got = tpt.build_phase_tail_args(q, "deconv2", 0.0123)
     dev = tpt.tail_device_args(got, "cpu")
-    assert set(got) == set(ref) == set(dev)
+    # the device args also carry B5's stage images and padded head
+    assert set(got) == set(ref) == set(dev) - {"wt", "wht"}
     for k in ref:
         assert got[k].dtype == np.asarray(ref[k]).dtype, k
         np.testing.assert_array_equal(got[k], np.asarray(ref[k]), err_msg=k)

@@ -5,9 +5,9 @@
     python3 tools/torch_kernel_sweep.py sweep        # B8a: ms per layer and per th
     python3 tools/torch_kernel_sweep.py decode       # B7: device, wrapper, host split
     python3 tools/torch_kernel_sweep.py imma         # mma.sync and wgmma int8 rates
-    python3 tools/torch_kernel_sweep.py tail2        # B1: per launch and ring shape
+    python3 tools/torch_kernel_sweep.py tail2        # B1, B5: per launch and ring shape
     python3 tools/torch_kernel_sweep.py agg          # B3, B4: quantize, GEMM, rings
-    python3 tools/torch_kernel_sweep.py deconv       # B9a, B9b, B2: designs, rings, sets
+    python3 tools/torch_kernel_sweep.py deconv       # B9a, B9b, B2, B6: designs, rings, sets
 
 ``check`` builds ``csrc/resblock.cu`` and ``csrc/decode.cu``, prints ptxas'
 register report and holds B8a (``ops/resblock.fused_bottleneck``) equal to
@@ -25,9 +25,10 @@ the TOP/s the card reaches with ``mma.sync.m16n8k32.s8`` and with
 ``wgmma.m64n128k32.s8`` when nothing but the instruction is in the loop.
 ``tail2`` times B1 at 128 images of 16x16 at C = 256, J = 16: deconv1 and
 deconv2 + head alone for each ring depth (each held equal to its plain
-version), the wrapper, and the parent's design on the same inputs
-(``phase_conv`` x2 + ``phase_head``, which B2 and B5 still run), with the
-device time by kernel from torch.profiler. ``agg`` times B3 at J*N = 512, S = 4096: the quantize
+version), the wrapper, and the device time by kernel from torch.profiler;
+then B5 (B1's deconv2 + head instance with the levels=1 store) on deconv1's
+output at 32 and 128 images of 32x32: each ring depth, the wrapper and its
+device time. ``agg`` times B3 at J*N = 512, S = 4096: the quantize
 pass and the GEMM alone, the wrapper, the plain quantize, ``torch._int_mm``
 on pre-gathered operands, and the kernels' device time by torch.profiler;
 then B4 at the same shape on a random 4-bit bank: its kernel alone on the
@@ -45,8 +46,10 @@ phase operands (the GEMMs alone), and the device time by kernel. Then B2
 (``fused_subpixel_deconv_batched``, tail2_kernel's phase-major instance on
 the streamed halo) at 128 and 256 images of deconv0's 8x8, 2048 -> 256: every
 ring depth for 1, 2, 4 or 8 (phase, n-half) pairs a block, each launch held
-equal to its plain version, then its wrapper and the device time by kernel.
-Inputs are random from a seed; nothing is read from disk. Every line of
+equal to its plain version, then its wrapper and the device time by kernel;
+then B6 (the same launch with the N-minor store) at 32 and 128 images: 1, 2,
+4 or 8 pairs a block at rings 4 and 7, and its wrapper beside B2's on the same
+input. Inputs are random from a seed; nothing is read from disk. Every line of
 numbers ends with the card's name and power limit.
 """
 
@@ -298,7 +301,7 @@ def tail2_inputs(rs, n, h, c, joints, dev):
 
 
 def tail2(dev, n=128, h=16, c=256, joints=16):
-    ptxas(["tail2", "phase_tail"])
+    ptxas(["tail2"])
     rs = np.random.RandomState(0)
     x, a = tail2_inputs(rs, n, h, c, joints, dev)
     x4 = x.reshape(n, h, h, c)
@@ -327,34 +330,54 @@ def tail2(dev, n=128, h=16, c=256, joints=16):
                   f"{plan.tiles_x * plan.tiles_y * n} | {card()}", flush=True)
     ok = torch.equal(pt.fused_phase_tail2(x, a, h=h, w=h), ref)
     wrapper_ms = cuda_ms(lambda: pt.fused_phase_tail2(x, a, h=h, w=h))
-
-    def parent():  # the parent's B1: phase_conv x2 + phase_head, z2 through device memory
-        z1 = pt._launch_phase_conv(x4, a["w1"], a["s1"][0], a["s1"][1], 0, a["so1"],
-                                   pt._INTERLEAVED)
-        z2 = pt._launch_phase_conv(z1, a["w2"], a["s2"][0], a["s2"][1], 0, a["so2"],
-                                   pt._PHASE_MAJOR)
-        return pt._launch_phase_head(z2, a["wh"], a["vh"])
-    ok_parent = torch.equal(parent(), ref)
-    parent_ms = cuda_ms(parent)
-    print(f"B1 wrapper: {wrapper_ms:.4f} ms ({'equal' if ok else 'DIFFERS'}); the parent's "
-          f"design on the same inputs {parent_ms:.4f} ms ({'equal' if ok_parent else 'DIFFERS'}); "
+    print(f"B1 wrapper: {wrapper_ms:.4f} ms ({'equal' if ok else 'DIFFERS'}); "
           f"bound {2 * (macs1 + macs2) / 1.979e15 * 1e3:.4f} ms | {card()}", flush=True)
+    print(f"B1 device ms a call by kernel: "
+          f"{device_by_kernel(lambda: pt.fused_phase_tail2(x, a, h=h, w=h))} | {card()}",
+          flush=True)
+
+    # B5: B1's deconv2 + head instance with the levels=1 store, at path 3's
+    # 32 images of 32x32 and at 128
+    b5 = {"w": a["w2"], "sv": a["s2"], "so": a["so2"], "wh": a["wh"], "vh": a["vh"]}
+    b5 = pt.with_tail_weights(b5)
+    for n5 in (32, 128):
+        x5 = z1_ref[:n5].reshape(n5, 4 * h * h, c)
+        ref5 = pt.phase_tail_plain(x5, b5, h=2 * h, w=2 * h)
+        macs5 = 16 * n5 * 4 * h * h * c * c + n5 * 16 * h * h * joints * c
+        for stages in (2, 3, 4):
+            def run(st=stages):
+                return pt.launch_tail2(x5.reshape(n5, 2 * h, 2 * h, c), b5["wt"], b5["sv"],
+                                       b5["so"], b5["wht"], b5["vh"], store="head_packed1",
+                                       stages=st)
+            ok = torch.equal(run(), ref5)
+            ms, b_ms = cuda_ms(run), burst_ms(run)
+            mark = " (planned)" if stages == pt.TAIL2_STAGES else ""
+            print(f"B5 {n5} images ring {stages} x 128 B{mark}: {ms:.4f} ms, back to back "
+                  f"{b_ms:.4f} ms ({2 * macs5 / b_ms / 1e9:.1f} TOP/s), "
+                  f"{'equal' if ok else 'DIFFERS'} | {card()}", flush=True)
+        fn = lambda: pt.fused_phase_tail(x5, b5, h=2 * h, w=2 * h)
+        ok = torch.equal(fn(), ref5)
+        print(f"B5 {n5} images wrapper: {cuda_ms(fn):.4f} ms ({'equal' if ok else 'DIFFERS'}); "
+              f"bound {2 * macs5 / 1.979e15 * 1e3:.4f} ms; device ms a call by kernel "
+              f"{device_by_kernel(fn)} | {card()}", flush=True)
+
+
+def device_by_kernel(fn, reps=5):
+    """Device milliseconds a call of ``fn`` by kernel name, from torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
-    for label, fn in (("change", lambda: pt.fused_phase_tail2(x, a, h=h, w=h)),
-                      ("parent", parent)):
-        fn()
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(5):
-                fn()
-            torch.cuda.synchronize()
-        by = {}
-        for e in prof.events():
-            if e.device_type.name == "CUDA":
-                by[e.name[:40]] = by.get(e.name[:40], 0.0) + (e.time_range.end - e.time_range.start) / 5e3
-        print(f"B1 {label} device ms a call by kernel: "
-              f"{ {k: round(v, 4) for k, v in sorted(by.items(), key=lambda kv: -kv[1])} } | {card()}",
-              flush=True)
+    by = {}
+    for e in prof.events():
+        if e.device_type.name == "CUDA":
+            k = e.name.split("(")[0].replace("void ", "").replace("posetpu::", "")[-40:]
+            by[k] = by.get(k, 0.0) + (e.time_range.end - e.time_range.start) / (reps * 1e3)
+    return {k: round(v, 4) for k, v in sorted(by.items(), key=lambda kv: -kv[1])}
 
 
 def aggregation(dev, j=16, ng=32, s=4096):
@@ -609,6 +632,35 @@ def deconv(dev, n=128):
         dev_ms = sum(e.time_range.end - e.time_range.start for e in prof.events()
                      if "tail2_kernel" in e.name) / 10e3
         print(f"B2 {n2} images device ms a call: {dev_ms:.4f} | {card()}", flush=True)
+
+    # B6: the same launch with the N-minor store, at path 3's 32 images and at
+    # 128, beside B2 on the same input
+    for n6 in (32, 128):
+        x = torch.from_numpy(rs.randint(0, 128, (n6, h * h, cin)).astype(np.int8)).to(dev)
+        ref = pt.subpixel_deconv_pairs_plain(x, a, h=h, w=h)
+        macs = 16 * n6 * h * h * cin * cout
+        x4 = x.reshape(n6, h, h, cin)
+        for sets in (1, 2, 4, 8):
+            for stages in (4, pt.STREAM_STAGES):
+                def run(st=stages, sets=sets):
+                    return pt.launch_tail2(x4, a["wt"], a["svb"], a["so"], epilogue="relu_phase",
+                                           store="n_minor", design="stream", sets=sets, stages=st)
+                ok = torch.equal(run(), ref)
+                chosen = (stages, sets) == (pt.STREAM_STAGES,
+                                            pt.stream_sets(n6, h, h, cout, pt.sm_count(0)))
+                b_ms = burst_ms(run)
+                print(f"B6 {n6} images sets {sets} ring {stages} x 128 B"
+                      f"{' (planned)' if chosen else ''}: {cuda_ms(run):.4f} ms, back to back "
+                      f"{b_ms:.4f} ms ({2 * macs / b_ms / 1e9:.1f} TOP/s), "
+                      f"{'equal' if ok else 'DIFFERS'}, grid "
+                      f"{-(-n6 // 2) * (8 // sets)} | {card()}", flush=True)
+        b6 = lambda: pt.fused_subpixel_deconv(x, a, h=h, w=h)
+        b2 = lambda: pt.fused_subpixel_deconv_batched(x, a, h=h, w=h)
+        ok = torch.equal(b6(), ref)
+        print(f"B6 {n6} images wrapper: {cuda_ms(b6):.4f} ms ({'equal' if ok else 'DIFFERS'}), "
+              f"B2's on the same input {cuda_ms(b2):.4f} ms; bound "
+              f"{2 * macs / 1.979e15 * 1e3:.4f} ms; device ms a call by kernel: B6 "
+              f"{device_by_kernel(b6)}, B2 {device_by_kernel(b2)} | {card()}", flush=True)
 
 
 def main() -> int:
