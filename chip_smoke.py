@@ -49,7 +49,9 @@ Phases, each of which fails the run on its own:
      profiled, and must show each B9 launch under its instance's name;
    - path 5c: path 5b with the 12 identity blocks sent to B8b (``imgs=2``)
      by this script (no entry point of the package routes there): the A/B of
-     the two bottleneck kernels end to end;
+     the two bottleneck kernels end to end; its profiled request must show
+     12 launches of ``bottleneck_v2_kernel`` and one of
+     ``bottleneck_rows_kernel``;
    - the int8 runner's own forward on the same input, for frames/s beside
      5a-5c, and the fused forwards' heatmaps and decoded joints against it;
 4. each kernel against its plain PyTorch version on the card, on the inputs
@@ -58,10 +60,12 @@ Phases, each of which fails the run on its own:
    plain version, and where PyTorch computes the same products a
    yardstick (B3, B4: 4 ``torch._int_mm`` calls on pre-gathered operands,
    the 4-bit bank widened to int8, both also their GEMM kernel alone; the
-   phase-form deconvs B2, B5, B6, B9a and B9b: per phase one
+   phase-form deconvs B1, B2, B5, B6, B9a and B9b: per phase one
    ``torch._int_mm`` on the four shifted taps gathered beforehand, and for
-   a head one more on its int8 input: the GEMMs alone; B7: ``torch.max``
-   over the maps flattened, from the same input). B7 runs
+   a head one more on its int8 input: the GEMMs alone; B8a and B8b: one
+   each for conv1 on x, conv2 on h1's im2col patches, conv3 on h2 (and the
+   projection), gathered beforehand; B7: ``torch.max`` over the maps
+   flattened, from the same input). B7 runs
    at path 4's 512 maps (the numbers of its ``kernels`` entry) and at path
    5b's 2,048, with the wrapper's host time per call beside ``torch.max``'s.
    B8a runs on each of the 13 block inputs path 5b gives it (its time is
@@ -74,8 +78,9 @@ Phases, each of which fails the run on its own:
    images (its entry's numbers) and on the same input four times over (128
    images, B9b's shape, timed beside B9b); B9a on both its deconvs
    (the kernels line carries each call's case, with its design, and their
-   sum); B8b on
-   path 5c's 12 inputs, equal to its plain version and to B8a's output;
+   sum); B8b on path 5c's 12 inputs, equal to its plain version and to
+   B8a's output, each line with the block its planner chose, then per
+   layer B8b's, B8a's and the yardstick's ms on the same inputs;
 5. card vs CPU on one group through the same port on ``device="cpu"`` with
    the same params, for path 1 and path 2 (the s4 bank): maxvals equal,
    preds within atol 1e-4 (the inverse affine's tiny matmul may round
@@ -95,7 +100,7 @@ import statistics
 import subprocess
 import sys
 import time
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from pathlib import Path
 
 import numpy as np
@@ -246,7 +251,7 @@ def profile_request(fn) -> dict:
                                                          "aggregation_w4_kernel",
                                                          "quantize_kernel"),
                 "decode (B7)": ("decode_kernel",),
-                "bottleneck (B8a, B8b)": ("bottleneck_rows_kernel", "bottleneck_im2col_kernel"),
+                "bottleneck (B8a, B8b)": ("bottleneck_rows_kernel", "bottleneck_v2_kernel"),
                 "f32 convolutions and GEMMs (float path)": (
                     "cudnn", "conv", "sgemm", "gemv", "f32f32", "fft",
                     "pointwise_mult_and_sum"),
@@ -628,14 +633,16 @@ def main() -> int:
             ("path 3", lambda: pipe.prepare(images[:g]), serve3, False),
             ("path 4", lambda: pipe4.prepare(views_f32),
              serve_with(pipe4, g, cams_small), True),
-            ("path 5b", make_x5, serve5(fwd5b, p5b), True)):
+            ("path 5b", make_x5, serve5(fwd5b, p5b), True),
+            ("path 5c", make_x5, serve5(fwd5b, p5b), True)):
         t = time.perf_counter()
         x = prepare()
         torch.cuda.synchronize()
         prepare_ms = (time.perf_counter() - t) * 1e3
         pt.SUBPIX_BATCHED = batched
         try:
-            prof = profile_request(lambda: serve(x))
+            with identity_blocks_through_v2() if label == "path 5c" else nullcontext():
+                prof = profile_request(lambda: serve(x))
         finally:
             pt.SUBPIX_BATCHED = True
         log(f"profile {label}: " + json.dumps({"prepare_ms": prepare_ms, **prof}))
@@ -661,6 +668,10 @@ def main() -> int:
                             tail2_instance(2, "folded", "halo", "head_row_major"): 1}
                   and rows == 13 and hand.get("decode_kernel") == 1,
                   f"path 5b: hand kernel launches {hand}")
+        if label == "path 5c":  # B8b's wgmma kernel for the 12 identity blocks, B8a for one
+            v2 = sum(v for k, v in hand.items() if k.startswith("bottleneck_v2_kernel"))
+            rows = sum(v for k, v in hand.items() if k.startswith("bottleneck_rows_kernel"))
+            check(v2 == 12 and rows == 1, f"path 5c: hand kernel launches {hand}")
 
     # one more request per path to take each kernel's inputs for phase 4 (the
     # callers look the kernels up on their modules at call time)
@@ -808,11 +819,25 @@ def main() -> int:
     macs1 = (16 * n * hw * cmid * cin + 16 * n * 4 * hw * cout * cmid
              + n * 16 * hw * joints * cout)
 
-    # each weight counts once: the kernel reads the stage images (w1t, w2t, wht)
+    # each weight counts once: the kernel reads the stage images (w1t, w2t, wht).
+    # Its yardstick: deconv1's phase GEMMs on x, deconv2's on z1 and the
+    # head's on z2 (both the plain version's, gathered beforehand)
     once1 = {k: v for k, v in a1.items() if not k.endswith("t")}
+    x14 = x4_of(x1, kw1)
+    z1_lib = pt._phase_conv_plain(x14, a1["w1"], a1["s1"][0], a1["s1"][1], a1["so1"],
+                                  interleave=True)
+    z2_lib = pt._phase_conv_plain(z1_lib, a1["w2"], a1["s2"][0], a1["s2"][1], a1["so2"],
+                                  interleave=False)
+    lib1 = {"deconv1": phase_gemms(x14, a1["w1"]),
+            "deconv2 + head": phase_gemms(z1_lib, a1["w2"], z2_lib, a1["wh"])}
+    del z2_lib
     compare("fused_phase_tail2", "posetpu_torch/csrc/tail2.cu",
             "posetpu/ops/pallas/phase_tail.py:384", pt.phase_tail2_plain,
-            (x1, a1), kw1, 2 * macs1, nbytes(x1, once1) + 4 * joints * n * 16 * hw)
+            (x1, a1), kw1, 2 * macs1, nbytes(x1, once1) + 4 * joints * n * 16 * hw,
+            library=lambda: [f() for f in lib1.values()])
+    log("kernel fused_phase_tail2: library by launch: " + ", ".join(
+        f"{k} {cuda_ms(f):.4f} ms" for k, f in lib1.items()) + f" | {card}")
+    del lib1, z1_lib
 
     def gathered_operands(qagg, hm, bank_ok):
         """The library yardstick's operands: per target one int8 GEMM
@@ -992,6 +1017,22 @@ def main() -> int:
         log(f"fused block {name} vs the runner's block on the same input: max step "
             f"{int(d.max())}, {share:.2e} of the values differ")
 
+    def block_gemms(x, a, kw):
+        """The fused block's library yardstick: one ``torch._int_mm`` each for
+        conv1 on x, conv2 on the im2col patches of h1, conv3 on h2 and the
+        projection on x where there is one, operands gathered beforehand (h1
+        and h2 the plain version's): the GEMMs alone."""
+        n, hw, cin = x.shape
+        cm = a["w1"].shape[0]
+        x2 = x.reshape(n * hw, cin)
+        h1 = rb._requant(torch._int_mm(x2, a["w1"].t().contiguous()), a["v1"])
+        patches = torch.cat(rb._taps(h1.reshape(n, kw["h"], kw["w"], cm)), dim=1).contiguous()
+        h2 = rb._requant(torch._int_mm(patches, a["w2"].t().contiguous()), a["v2"])
+        ops = [(x2, a["w1"]), (patches, a["w2"]), (h2, a["w3"])] + (
+            [(x2, a["wd"])] if "wd" in a else [])
+        ops = [(m, wk.t().contiguous()) for m, wk in ops]
+        return lambda: [torch._int_mm(m, wk) for m, wk in ops]
+
     block_cases = [(f" {name}", a, kw, *block_work(a[0], a[1]))
                    for name, (a, kw) in zip(blocks5, seen5["fused_bottleneck"])]
     regs = kernel_registers(_build.build_log("resblock"), "bottleneck_rows_kernel")
@@ -1009,16 +1050,42 @@ def main() -> int:
 
     compare_cases("fused_bottleneck", "posetpu_torch/csrc/resblock.cu",
                   "posetpu/ops/pallas/resblock.py:157", rb.bottleneck_plain, block_cases,
+                  library={tag: block_gemms(a[0], a[1], kw) for tag, a, kw, _, _ in block_cases},
                   also=within_one_step_of_the_runner, note=block_shape)
+    b8a_cases = {c["case"]: c for c in results[-1]["cases"]}
+
+    def v2_shape(args, kw):
+        """The block B8b's planner gives this layer."""
+        x, a = args
+        cm = a["w1"].shape[0]
+        plan = rb.plan_v2(kw["h"], kw["w"], x.shape[2], cm, a["w3"].shape[0])
+        return (f"form {plan.form}, ring {plan.stages} stages of {plan.ips} image(s), "
+                f"{plan.smem} bytes of shared memory, {rb.v2_blocks_per_sm(plan, cm)} block(s) "
+                f"per SM, {plan.tiles_x * plan.tiles_y * x.shape[0]} jobs")
 
     # B8b on the 12 identity blocks' inputs, imgs=2: also equal to B8a's output
+    v2_cases = [(tag, a, {**kw, "imgs": 2}, ops, nb)
+                for tag, a, kw, ops, nb in block_cases if "wd" not in a[1]]
     compare_cases("fused_bottleneck_v2", "posetpu_torch/csrc/resblock.cu",
-                  "posetpu/ops/pallas/resblock.py:269", rb.bottleneck_v2_plain,
-                  [(tag, a, {**kw, "imgs": 2}, ops, nb)
-                   for tag, a, kw, ops, nb in block_cases if "wd" not in a[1]],
+                  "posetpu/ops/pallas/resblock.py:269", rb.bottleneck_v2_plain, v2_cases,
+                  library={tag: block_gemms(a[0], a[1], kw) for tag, a, kw, _, _ in v2_cases},
                   also=lambda tag, out, a, kw: check(
                       torch.equal(out, rb.fused_bottleneck(*a, h=kw["h"], w=kw["w"])),
-                      f"fused_bottleneck_v2{tag}: differs from fused_bottleneck"))
+                      f"fused_bottleneck_v2{tag}: differs from fused_bottleneck"),
+                  note=v2_shape)
+    # per layer on the same inputs: B8b, B8a and the yardstick, summed over
+    # the layer's identity blocks (from the two compares above)
+    layers = {}
+    for c in results[-1]["cases"]:
+        a_case = b8a_cases[c["case"]]
+        tot = layers.setdefault(c["case"].split("_")[0], [0, 0.0, 0.0, 0.0, 0.0])
+        for i, v in enumerate((1, c["ms"], a_case["ms"], c["library_ms"], c["bound_ms"]), 0):
+            tot[i] += v
+    for layer, (nb, v2_ms, rows_ms, lib_ms, b_ms) in layers.items():
+        log(f"bottleneck {layer}, {nb} identity block(s): B8b {v2_ms:.4f} ms, B8a "
+            f"{rows_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
+            f"(a block: B8b {v2_ms / nb:.4f}, B8a {rows_ms / nb:.4f}) | {card}")
+    del v2_cases, b8a_cases
 
     def deconv_work(x, a, joints=0):
         n, hw, cin = x.shape

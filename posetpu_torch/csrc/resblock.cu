@@ -6,15 +6,14 @@
 //       requant -> conv3 1x1 + residual -> ReLU -> requant, with the identity
 //       residual or a 1x1 projection requantised to int8 (no ReLU) first;
 //   B8b fused_bottleneck_v2 (_bottleneck_kernel_v2) — the same function,
-//       identity residual only, several images per block and the 3x3 conv as
-//       one K = 9*Cm product over im2col patches held in shared memory.
+//       identity residual only, several images per grid step and the 3x3
+//       conv as one K = 9*Cm product over im2col patches.
 //
-// The TPU kernels hold a whole image in VMEM; a thread block has 227 KB. A
-// block here takes ``th`` output rows of one image (B8b: of ``imgs`` images),
-// computes conv1 on th + 2 rows (the halo rows are recomputed by the
-// neighbour blocks), keeps h1 and h2 in shared memory and reads x and writes
-// out once. All products are mma.sync.m16n8k32 with exact int32 sums, so
-// B8b's output equals B8a's.
+// The TPU kernels hold a whole image in VMEM; a thread block has 227 KB. B8a
+// takes ``th`` output rows of one image, B8b a tile of 128 output pixels;
+// each computes conv1 on its tile's halo (recomputed by the neighbours),
+// keeps h1 and h2 in shared memory and reads x and writes out once. All sums
+// are exact int32, so B8b's output equals B8a's.
 //
 // B8a, bottleneck_rows_kernel. The H100's bound (1,979 TOP/s int8 dense, 3.35
 // TB/s) at 128 images of 256^2 input: layer1 (7.0e4 MAC per pixel x 4096
@@ -65,10 +64,46 @@
 // Output rows of a row tile are contiguous in device memory (pixel = first
 // + m), so no epilogue divides.
 //
-// B8b, bottleneck_im2col_kernel, keeps the first design (int8_mma.cuh's
-// two-stage loops, K-minor weights): it first copies a [128, kch] chunk of the im2col matrix
-// into shared memory and multiplies from that; kch is all of 9*Cm where it
-// fits and a divisor of it where it does not.
+// B8b, bottleneck_v2_kernel: three chained wgmma GEMMs on an h1 halo that
+// stays in shared memory. Its bound is B8a's (the same function and bytes).
+// A job is one image's tile of output pixels in one of two forms
+// (ops/resblock.plan_v2): "tile", 16 x 8 pixels and their 18 x 10 halo, two
+// warpgroups of 8 rows of 8 pixels; "split", 8 x 8 pixels and their 10 x 10
+// halo, which both warpgroups compute, each half of every conv's columns.
+// Ragged tiles are masked at the store. The grid is persistent: as
+// many blocks as fit the card at once, each walking its share of the jobs.
+//   - a producer warp keeps one ring of stages full across convs, n-tiles
+//     and jobs (full and empty mbarriers, ``stages`` - 1 steps ahead, the
+//     consumers never wait for each other a step): a stage is IPS weight
+//     images (64 bytes of K each: B8a's stage images, tile_weight, 64-byte
+//     swizzled, B by descriptor) by cp.async.bulk, and in conv1 beside each
+//     the same 64 channels of x's halo by TMA through a 4D tensor map over
+//     x [N][H][W][Cin] (zero fill outside the tensor; its 64-byte swizzle
+//     lands the rows as wgmma's K-major A).
+//   - conv1: each warpgroup runs two m64 slices of consecutive halo pixels
+//     from its own 10 x 10 halo on (the rows past it are thrown away). The
+//     epilogue writes h1 as [Cm / 16][halo pixel][16 bytes] and writes 0 at
+//     a pixel outside the image: conv2's padding is on h1, and a zero x
+//     pixel gives requant(bias), not 0.
+//   - conv2: 9 taps x Cm / 32 k32 instructions, A the h1 planes at the tap's
+//     constant offset (8 pixels x 16 bytes a core matrix, 160 bytes to the
+//     next tile row), picked instruction by instruction (at Cm = 32 or 96 a
+//     64-byte k-step spans two taps); in the split form even and odd
+//     instructions into two accumulators (two chains in the tensor pipe).
+//     The epilogue writes h2 as [Cm / 16][output pixel][16 bytes].
+//   - conv3: A is h2, B w3t in 128-column n-tiles; an n-tile's residual and
+//     its v3 / vr slices arrive by cp.async into one of two staging tiles
+//     (over h1, which conv3 no longer reads) an n-tile ahead; B8a's epilogue
+//     arithmetic; 16-byte stores.
+//   - a warpgroup keeps a step's products in flight while the next step's
+//     are issued (wgmma.wait_group 1), as tail2_kernel does.
+//   - an epilogue computes its values in registers and stores them after:
+//     a shared-memory store between its loads orders them pair by pair.
+// Measured (PERF.md, tools/torch_kernel_sweep.py v2, the clock64 counters
+// of the kernel's timed instances, bottleneck_v2_clocked): the two warpgroups reach their epilogues together and the
+// tensor pipe idles through them, a third to a half of the cycles at
+// layer1-3; the rest is the products and the ring's waits, which at layer4
+// are the weight stream (all weights from L2 per 64-pixel job).
 //
 // Exactness: each epilogue is clip(round(acc * s + b)) with the multiply and
 // the add rounded separately (__fmul_rn/__fadd_rn, --fmad=false), rintf
@@ -77,14 +112,14 @@
 
 #include <type_traits>
 
-#include "gather.cuh"
 #include "ring.cuh"
+#include "wgmma.cuh"
 
 namespace posetpu {
 
 struct BottleneckArgs {
   const int8_t* x;    // [N, H, W, Cin]
-  // B8b: K-minor matrices; B8a: the same as stage images (tile_weight)
+  // stage images of the K-minor weights (tile_weight)
   const int8_t* w1;   // [Cm, Cin]
   const int8_t* w2;   // [Cm, 9 * Cm], tap-major depth
   const int8_t* w3;   // [Cout, Cm]
@@ -96,7 +131,7 @@ struct BottleneckArgs {
   const float* vr;    // [2, Cout]: the residual's dequant scale, bias
   int8_t* out;        // [N, H, W, Cout]
   int n, h, w, cin, cm, cout;
-  int th, imgs, kch;  // rows and images per block; B8b: im2col depth per chunk
+  int th;             // output rows per block
 };
 
 // ---------------------------------------------------------------------------
@@ -585,174 +620,500 @@ static cudaError_t configure_rows(RowsKernel& k, int smem) {
 // ---------------------------------------------------------------------------
 // B8b
 
-// Tile pixel lists. Halo pixel hp = (k * (th+2) + lr) * w + c is image
-// img0 + k, row r0 - 1 + lr, column c; output pixel m = (k * th + ro) * w + c
-// is row r0 + ro.
-struct BlockTile {
-  int w, h, n, th, imgs, r0, img0;
-  __device__ int m_halo() const { return imgs * (th + 2) * w; }
-  __device__ int m_out() const { return imgs * th * w; }
-  // image, row, column of halo pixel hp; false outside the batch or image
-  __device__ bool halo(int hp, int& img, int& r, int& c) const {
-    const int per = (th + 2) * w;
-    const int k = hp / per, rem = hp - k * per;
-    const int lr = rem / w;
-    c = rem - lr * w;
-    img = img0 + k;
-    r = r0 - 1 + lr;
-    return hp < m_halo() && img < n && r >= 0 && r < h;
-  }
-  // output pixel m -> its image, row, column and its centre halo pixel
-  __device__ bool out(int m, int& img, int& r, int& c, int& hp) const {
-    const int per = th * w;
-    const int k = m / per, rem = m - k * per;
-    const int ro = rem / w;
-    c = rem - ro * w;
-    img = img0 + k;
-    r = r0 + ro;
-    hp = (k * (th + 2) + ro + 1) * w + c;
-    return m < m_out() && img < n && r < h;
-  }
+constexpr int V2_IMG = BM * KB;  // a weight image's slot in a ring stage (conv3's 128 rows)
+constexpr int V2_HW = 10;        // halo pixels a row: a tile row of 8 and its neighbours
+constexpr int V2_KEEP = 100;     // halo pixels a warpgroup's conv1 keeps: a 10 x 10 halo
+constexpr int V2_S_DATA = BM * S_LD;  // a staging tile's rows, then v3 and vr slices
+constexpr int V2_STG = V2_S_DATA + 4 * P_SLICE;  // a staging tile; there are two
+constexpr int V2_THREADS = THREADS + 32;  // two consumer warpgroups and a producer warp
+
+struct V2Args {
+  const int8_t* x;    // [N, H, W, C]
+  const int8_t* w1t;  // stage images (tile_weight): [Cm / BN12][Cin / 64][BN12][64]
+  const int8_t* w2t;  // [Cm / BN12][9 Cm / 64][BN12][64], tap-major depth
+  const int8_t* w3t;  // [Cout / 128][Cm / 64][128][64]
+  const float* v1;    // [2, Cm]: scale, bias
+  const float* v2;    // [2, Cm]
+  const float* v3;    // [2, Cout]
+  const float* vr;    // [2, Cout]: the residual's dequant scale, bias
+  int8_t* out;        // [N, H, W, C]
+  unsigned long long* clocks;  // the timed instances' cycle counters (ops/resblock.V2_CLOCK_SLOTS)
+  int n, h, w, cin, cm, cout;
+  int tiles_x, tile_h, stages, a_img;  // the form (ops/resblock.plan_v2)
+  int jobs;           // tiles x images; block b takes jobs b, b + gridDim.x, ...
 };
 
-// Rows of a resident [rows][ld] int8 tile, from row m0 on.
-struct TileRows {
-  const int8_t* buf;
-  int ld, m0, m_lim;
-  struct Row {
-    int off;
-    bool ok;
-  };
-  __device__ Row row(int r) const { return {(m0 + r) * ld, m0 + r < m_lim}; }
-  __device__ const int8_t* ptr(Row rw, int ks, bool& ok) const {
-    ok = rw.ok;
-    return buf + rw.off + ks * BK;
-  }
+// where the block's shared memory regions start (ops/resblock.plan_v2): h1
+// at 0, and over it from conv3 on the two staging tiles; the ring's weight
+// images; its halo images; h2; a zero weight image (IPS = 2); v1 and v2;
+// the ring's full and empty mbarriers
+struct V2Layout {
+  int off_ring_b, off_ring_a, off_h2, off_zero, off_pv, off_bar;
 };
 
-// Rows of the 3x3 conv's im2col matrix, gathered from the h1 halo tile:
-// depth k = tap * Cm + c with tap (dy, dx) reads the pixel one row and one
-// column over, zero beyond the image's left and right border (the rows above
-// and below the image are zeros in h1).
-struct Conv3x3Rows {
-  const int8_t* h1;
-  BlockTile t;
-  int ld, cm, m0;
-  struct Row {
-    int off, c;
-    bool ok;
-  };
-  __device__ Row row(int r) const {
-    int img, rr, c, hp;
-    t.out(m0 + r, img, rr, c, hp);  // every tile row is computed, also past the image
-    return {hp * ld, c, m0 + r < t.m_out()};
-  }
-  __device__ const int8_t* at(Row rw, int k, bool& ok) const {
-    const int tap = k / cm, kc = k - tap * cm;
-    const int dy = tap / 3 - 1, dx = tap - (tap / 3) * 3 - 1;
-    const int cc = rw.c + dx;
-    ok = rw.ok && cc >= 0 && cc < t.w;
-    return h1 + rw.off + (dy * t.w + dx) * ld + kc;
-  }
-};
-
-__global__ void __launch_bounds__(THREADS) bottleneck_im2col_kernel(BottleneckArgs p) {
+// R12, R3: accumulator registers a thread in conv1/conv2 and in conv3
+// (wgmma n = 2 R). R3 = 32: the warpgroups split N (the "split" form). IPS:
+// weight images (64 bytes of K) a ring stage. A step's wgmma instructions
+// run straight through, with no branch between them (ptxas serialises
+// wgmma behind a branch, C7520): an image past an n-tile's last reads B
+// from a zero image, a depth past K the padded zeros of its image.
+// CLOCKS: a timed instance, a measurement only (bottleneck_v2_clocked).
+template <int R12, int R3, int IPS, bool CLOCKS>
+__global__ void __launch_bounds__(V2_THREADS, 1) bottleneck_v2_kernel(
+    const __grid_constant__ V2Args p, const __grid_constant__ V2Layout lay,
+    const __grid_constant__ CUtensorMap tm_x) {  // x [N][H][W][Cin], a box 64 channels of a halo
+  constexpr bool kSplit = R3 == 32;
+  constexpr int NW12 = 2 * R12, NW3 = 2 * R3;        // columns a warpgroup
+  constexpr int BN12 = kSplit ? 2 * NW12 : NW12;     // rows of a conv1/conv2 stage image
+  constexpr int IMG12 = BN12 * KB;
+  // a second accumulator chain for conv2 and conv3 where registers allow
+  // (the split form's 32-register chains); beside conv1's 128 accumulators
+  // the spills it brought cost more than it gained
+  constexpr bool kTwoChains = kSplit;
   extern __shared__ __align__(1024) int8_t smem[];
-  __shared__ __align__(16) int8_t sB[RESIDENT_SB];
-  const BlockTile t{p.w, p.h, p.n, p.th, p.imgs,
-                    static_cast<int>(blockIdx.x) * p.th,
-                    static_cast<int>(blockIdx.y) * p.imgs};
-  const int ld = p.cm + 16;  // padded row: a warp's fragment loads hit 32 banks
-  const int m_halo = t.m_halo(), m_out = t.m_out();
-  int8_t* h1 = smem;               // [m_halo][ld]
-  int8_t* h2 = h1 + m_halo * ld;   // [m_out][ld]
-  int8_t* im = h2 + m_out * ld;    // [BM][kch + 16]
-  const int lrow = threadIdx.x >> 1;
-  Acc acc;
-
-  // 1. conv1 over the halo tile -> h1 (rows outside the image as zeros)
-  for (int m0 = 0; m0 < m_halo; m0 += BM)
-    for (int n0 = 0; n0 < p.cm; n0 += BN) {
-      int img, r, c;
-      const bool ok = t.halo(m0 + lrow, img, r, c);
-      const PixelARow la{
-          p.x + (ok ? ((static_cast<size_t>(img) * p.h + r) * p.w + c) * p.cin : 0), ok};
-      const KMinorBRow lb{p.w1, n0 + lrow, p.cm, p.cin, 0};
-      mma_mainloop(la, lb, p.cin / BK, acc);
-      for_each_pair(acc, [&](int row, int col, int v0, int v1) {
-        const int hp = m0 + row, o = n0 + col;
-        if (hp >= m_halo || o >= p.cm) return;
-        int img2, r2, c2;
-        char2 q = make_char2(0, 0);
-        if (t.halo(hp, img2, r2, c2)) {
-          q.x = requant_folded(v0, p.v1[o], p.v1[p.cm + o], 0.0f);
-          q.y = requant_folded(v1, p.v1[o + 1], p.v1[p.cm + o + 1], 0.0f);
-        }
-        *reinterpret_cast<char2*>(h1 + hp * ld + o) = q;
-      });
+  const long long t_start = CLOCKS ? clock64() : 0;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5, wg = warp >> 2;
+  const int gid = lane >> 2, tig = lane & 3;
+  const int tiles = p.tiles_x * ((p.h + p.tile_h - 1) / p.tile_h);
+  const int hp_img = (p.tile_h + 2) * V2_HW;    // halo pixels
+  const int plane_h1 = hp_img * 16;             // a 16-channel plane of h1
+  const int out_px = kSplit ? 64 : BM;          // a tile's output pixels
+  const int plane_h2 = out_px * 16;
+  // weight images (64 bytes of K) an n-tile of each conv, and ring steps of
+  // IPS images each
+  const int k1 = (p.cin + KB - 1) / KB, k2 = (9 * p.cm + KB - 1) / KB, k3 = (p.cm + KB - 1) / KB;
+  const int s1 = (k1 + IPS - 1) / IPS, s2 = (k2 + IPS - 1) / IPS, s3 = (k3 + IPS - 1) / IPS;
+  const int nt12 = (p.cm + BN12 - 1) / BN12, nt3 = (p.cout + BN - 1) / BN;
+  const int q1 = nt12 * s1, q2 = q1 + nt12 * s2, per_job = q2 + nt3 * s3;
+  // a ring stage: IPS weight images, and in conv1 for each a 64-channel
+  // image of x's halo, [halo pixel][64 bytes] swizzled as wgmma's 64-byte
+  // K-major layout (TMA writes it so)
+  const int b_stage = IPS * V2_IMG, a_stage = IPS * p.a_img;
+  const unsigned smem_s = smem_addr(smem);
+  const unsigned full0 = smem_s + lay.off_bar, empty0 = full0 + 8 * p.stages;
+  float* pv = reinterpret_cast<float*>(smem + lay.off_pv);  // v1 [2][cm], then v2 [2][cm]
+  const unsigned zero_s = smem_s + lay.off_zero;
+  // the timed instances: a warpgroup's first thread (and the producer's)
+  // adds the cycles between its marks to a counter
+  const bool timed = CLOCKS && (tid & 127) == 0;
+  long long mark = t_start;
+  auto lap = [&](int slot) {
+    if (timed) {
+      const long long now = clock64();
+      atomicAdd(p.clocks + slot, static_cast<unsigned long long>(now - mark));
+      mark = now;
     }
+  };
+
+  if (tid == 0) {
+    for (int s = 0; s < p.stages; ++s) {
+      mbar_init(full0 + 8 * s, 1);   // the producer's arrive, and the bytes
+      mbar_init(empty0 + 8 * s, 8);  // one arrive per consumer warp
+    }
+    mbar_init_fence();
+  }
+  for (int i = tid; i < 2 * p.cm; i += V2_THREADS) {
+    pv[i] = p.v1[i];
+    pv[2 * p.cm + i] = p.v2[i];
+  }
+  if (IPS == 2) {
+    for (int i = tid * 16; i < V2_IMG; i += V2_THREADS * 16)
+      *reinterpret_cast<int4*>(smem + lay.off_zero + i) = make_int4(0, 0, 0, 0);
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  }
   __syncthreads();
 
-  // 2. conv2 (3x3) over im2col chunks of h1 -> h2
-  for (int m0 = 0; m0 < m_out; m0 += BM)
-    for (int n0 = 0; n0 < p.cm; n0 += BN) {
-      const int n_lim = min(BN, p.cm - n0);
-      const WarpTile wt = warp_tile(n_lim <= 64);
-      const Conv3x3Rows gather{h1, t, ld, p.cm, m0};
-      acc_zero(acc);
-      const int ldi = p.kch + 16, segs = p.kch / 16;
-      for (int k0 = 0; k0 < 9 * p.cm; k0 += p.kch) {
-        for (int e = threadIdx.x; e < BM * segs; e += THREADS) {
-          const int row = e / segs, seg = e - row * segs;
-          bool ok;
-          const int8_t* src = gather.at(gather.row(row), k0 + seg * 16, ok);
-          int4 v = make_int4(0, 0, 0, 0);
-          if (ok) v = *reinterpret_cast<const int4*>(src);
-          *reinterpret_cast<int4*>(im + row * ldi + seg * 16) = v;
+  // ---- the producer: its lane 0 walks the block's jobs' steps, (job, conv,
+  // n-tile, k) in the weight images' order, and asks for each step's images
+  // and, in conv1, the same 64 channels of x's halo (zeros outside the
+  // tensor) into the next stage once the consumers have freed it
+  if (warp == THREADS / 32) {
+    if (lane == 0) {
+      int g = 0;
+      for (int job = blockIdx.x; job < p.jobs; job += gridDim.x) {
+        const int y0 = (job % tiles) / p.tiles_x * p.tile_h, x0 = (job % tiles) % p.tiles_x * 8;
+        const int img = job / tiles;
+        for (int q = 0; q < per_job; ++q, ++g) {
+          const int st = g % p.stages;
+          if (g >= p.stages) {
+            if (CLOCKS) mark = clock64();
+            mbar_wait(empty0 + 8 * st, (g / p.stages - 1) & 1);
+            lap(8);
+          }
+          const unsigned bar = full0 + 8 * st, dst = smem_s + lay.off_ring_b + st * b_stage;
+          const int8_t* w;
+          int kimg, img_bytes, ks, nt;
+          if (q < q1) {
+            nt = q / s1, ks = q - nt * s1, kimg = k1, img_bytes = IMG12, w = p.w1t;
+          } else if (q < q2) {
+            nt = (q - q1) / s2, ks = q - q1 - nt * s2, kimg = k2, img_bytes = IMG12, w = p.w2t;
+          } else {
+            nt = (q - q2) / s3, ks = q - q2 - nt * s3, kimg = k3, img_bytes = V2_IMG, w = p.w3t;
+          }
+          const int i0 = ks * IPS, imgs_here = min(IPS, kimg - i0);
+          const int boxes = q < q1 ? imgs_here : 0;  // x's halo, 64 channels each
+          mbar_expect_tx(bar, imgs_here * img_bytes + boxes * 64 * hp_img);
+          for (int i = 0; i < imgs_here; ++i)
+            bulk_copy(dst + i * V2_IMG, w + static_cast<size_t>(nt * kimg + i0 + i) * img_bytes,
+                      img_bytes, bar);
+          for (int i = 0; i < boxes; ++i)
+            tma_load_4d(smem_s + lay.off_ring_a + st * a_stage + i * p.a_img, &tm_x,
+                        64 * (i0 + i), x0 - 1, y0 - 1, img, bar);
         }
-        __syncthreads();
-        const TileRows ar{im, ldi, 0, m_out - m0};
-        const KMinorBRow lb{p.w2, n0 + lrow, p.cm, 9 * p.cm, k0};
-        mma_resident(ar, lb, p.kch / BK, m_out - m0, n_lim, wt, sB, acc);
       }
-      for_each_pair_at(acc, wt, [&](int, int row, int col, int v0, int v1) {
-        const int m = m0 + row, o = n0 + col;
-        if (m >= m_out || o >= p.cm) return;
-        char2 q;
-        q.x = requant_folded(v0, p.v2[o], p.v2[p.cm + o], 0.0f);
-        q.y = requant_folded(v1, p.v2[o + 1], p.v2[p.cm + o + 1], 0.0f);
-        *reinterpret_cast<char2*>(h2 + m * ld + o) = q;
-      });
     }
-  __syncthreads();
+    return;
+  }
 
-  // 3. conv3 from h2 + the identity residual -> out
-  for (int m0 = 0; m0 < m_out; m0 += BM)
-    for (int n0 = 0; n0 < p.cout; n0 += BN) {
-      const int n_lim = min(BN, p.cout - n0);
-      const WarpTile wt = warp_tile(n_lim <= 64);
-      const TileRows ar{h2, ld, m0, m_out};
-      const KMinorBRow lb{p.w3, n0 + lrow, p.cout, p.cm, 0};
-      acc_zero(acc);
-      mma_resident(ar, lb, p.cm / BK, m_out - m0, n_lim, wt, sB, acc);
-      for_each_pair_at(acc, wt, [&](int, int row, int col, int v0, int v1) {
-        const int o = n0 + col;
-        int img, r, c, hp;
-        if (!t.out(m0 + row, img, r, c, hp) || o >= p.cout) return;
-        const size_t pix = (static_cast<size_t>(img) * p.h + r) * p.w + c;
-        const char2 res = *reinterpret_cast<const char2*>(p.x + pix * p.cin + o);
-        const float y0 = scale_bias(v0, p.v3[o], p.v3[p.cout + o]);
-        const float y1 = scale_bias(v1, p.v3[o + 1], p.v3[p.cout + o + 1]);
-        const float r0 = scale_bias(res.x, p.vr[o], p.vr[p.cout + o]);
-        const float r1 = scale_bias(res.y, p.vr[o + 1], p.vr[p.cout + o + 1]);
-        char2 q;
-        q.x = static_cast<signed char>(static_cast<int>(
-            fminf(fmaxf(rintf(__fadd_rn(y0, r0)), 0.0f), 127.0f)));
-        q.y = static_cast<signed char>(static_cast<int>(
-            fminf(fmaxf(rintf(__fadd_rn(y1, r1)), 0.0f), 127.0f)));
-        *reinterpret_cast<char2*>(p.out + pix * p.cout + o) = q;
-      });
+  // ---- the consumers. A k-step: its stage has landed, its products are
+  // issued; then the step before it is done and its stage is freed
+  int g = 0, st = 0, parity = 0;
+  auto step_begin = [&](int slot) {
+    mbar_wait(full0 + 8 * st, parity);
+    lap(slot);
+    wgmma_fence();
+  };
+  auto step_end = [&](auto&... acc) {
+    wgmma_commit();
+    wgmma_wait<1>();
+    (keep_in_registers(acc), ...);
+    lap(2);
+    if (g > 0 && lane == 0) mbar_arrive(empty0 + 8 * (st == 0 ? p.stages - 1 : st - 1));
+    ++g;
+    if (++st == p.stages) {
+      st = 0;
+      parity ^= 1;
     }
+  };
+  auto sync_consumers = []() { asm volatile("bar.sync 1, 256;\n" ::: "memory"); };
+  // what an epilogue wrote to h1 or h2 is visible to the tensor cores' reads
+  auto publish = [&]() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    sync_consumers();
+  };
+  auto clear = [](auto& a) {
+#pragma unroll
+    for (int i = 0; i < static_cast<int>(sizeof(a) / sizeof(int)); ++i) a[i] = 0;
+  };
+  // this thread's rows of a 64-row slice (+ 8 for the odd pairs) and columns
+  // (+ 8 per two pairs): d[2 k], d[2 k + 1] are row row_w + 8 (k & 1),
+  // columns 8 (k >> 1) + 2 tig and the next
+  const int row_w = 16 * (warp & 3) + gid;
+  // conv1: each warpgroup computes two 64-row slices from its 10 x 10 halo's
+  // first pixel on (split: both the same halo, half the columns each) and
+  // keeps its own pixels (the tile form's warpgroup 1 leaves rows 8 and 9 to
+  // warpgroup 0); the rows past its halo are thrown away
+  const int region0 = kSplit ? 0 : wg * 8 * V2_HW;  // in h1 and in the x image
+  const int own0 = kSplit ? 0 : wg * V2_KEEP;
+  const int col12 = kSplit ? wg * NW12 : 0;
+  const int centre = region0 + V2_HW + 1;  // halo pixel of the warpgroup's first output pixel
+  const int row2 = kSplit ? 0 : 64 * wg;   // and its first row of h2 (and of the output tile)
+  const int col3 = kSplit ? wg * NW3 : 0;
+  // conv3's n-tiles pass through two staging tiles over h1 in turn, an
+  // n-tile's residual asked for one n-tile ahead, the job's first as conv3
+  // starts
+  int ntg = 0;  // conv3 n-tiles so far: the staging tile's parity
+  lap(6);
+
+  for (int job = blockIdx.x; job < p.jobs; job += gridDim.x) {
+    const int y0 = (job % tiles) / p.tiles_x * p.tile_h, x0 = (job % tiles) % p.tiles_x * 8;
+    const int8_t* x_img = p.x + static_cast<size_t>(job / tiles) * p.h * p.w * p.cin;
+    int8_t* out_img = p.out + static_cast<size_t>(job / tiles) * p.h * p.w * p.cout;
+    if (timed && wg == 0) atomicAdd(p.clocks + 9, 1ull);
+    // output pixel r of the tile: its place in the image, or -1 outside it
+    auto out_pixel = [&](int r) {
+      const int y = y0 + (r >> 3), x = x0 + (r & 7);
+      return y < p.h && x < p.w ? y * p.w + x : -1;
+    };
+    // n-tile nt's residual tile (x at its pixels) and its v3 / vr slices ->
+    // staging tile ``buf``, 16 bytes a copy
+    auto load_res = [&](int nt, int buf) {
+      int8_t* sb = smem + buf * V2_STG;
+      for (int e = tid; e < out_px * (BN / 16); e += THREADS) {
+        const int r = e >> 3, ch = e & 7, o = nt * BN + ch * 16, px = out_pixel(r);
+        if (px >= 0 && o < p.cout)
+          cp_async16(sb + r * S_LD + ch * 16, x_img + static_cast<size_t>(px) * p.cin + o, true);
+      }
+      if (tid < 128) {  // slices v3 scale, v3 bias, vr scale, vr bias: four columns a thread
+        const int sl = tid >> 5, o = nt * BN + lane * 4;
+        if (o < p.cout)
+          cp_async16(sb + V2_S_DATA + sl * P_SLICE + lane * 16,
+                     (sl < 2 ? p.v3 : p.vr) + (sl & 1) * p.cout + o, true);
+      }
+    };
+    // ---- conv1 over the halo -> h1 [Cm / 16][halo pixel][16 bytes]
+    for (int nt = 0; nt < nt12; ++nt) {
+      int d0[R12], d1[R12];
+      clear(d0);
+      clear(d1);
+      for (int ks = 0; ks < s1; ++ks) {
+        step_begin(10);
+        const unsigned a = smem_s + lay.off_ring_a + st * a_stage + region0 * 64;
+        const unsigned b = smem_s + lay.off_ring_b + st * b_stage + col12 * KB;
+#pragma unroll
+        for (int i = 0; i < IPS; ++i) {
+          const unsigned bi = ks * IPS + i < k1 ? b + i * V2_IMG : zero_s;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const uint64_t db = desc_sw64(bi + 32 * j);
+            const unsigned aj = a + i * p.a_img + 32 * j;
+            wgmma_s8(d0, desc_sw64(aj), db);
+            wgmma_s8(d1, desc_sw64(aj + 64 * 64), db);
+          }
+        }
+        step_end(d0, d1);
+      }
+      wgmma_wait<0>();
+      keep_in_registers(d0);
+      keep_in_registers(d1);
+      lap(14);
+      // this thread's four rows of conv1's two slices: their halo pixels,
+      // whether each is this warpgroup's to keep and whether it lies inside
+      // the image
+      int hp1[4];
+      bool keep1[4], in1[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const int lp = 64 * (u >> 1) + row_w + 8 * (u & 1);
+        hp1[u] = region0 + lp;
+        keep1[u] = lp < V2_KEEP && hp1[u] >= own0;
+        const int hr = hp1[u] / V2_HW, y = y0 - 1 + hr, x = x0 - 1 + hp1[u] - hr * V2_HW;
+        in1[u] = y >= 0 && y < p.h && x >= 0 && x < p.w;
+      }
+      // per slice, the requantised values replace the sums in registers and
+      // are stored after: a store between the loads of pv would order them
+      // pair by pair
+#pragma unroll
+      for (int slice = 0; slice < 2; ++slice) {
+        int (&d)[R12] = slice == 0 ? d0 : d1;  // unrolled: registers, not memory
+#pragma unroll
+        for (int k = 0; k < R12 / 2; ++k) {
+          const int u = 2 * slice + (k & 1);
+          const int o = min(nt * BN12 + col12 + 8 * (k >> 1) + 2 * tig, p.cm - 2);
+          // conv2's zero padding is on h1: a pixel outside the image is 0,
+          // not the requantised bias its zero input gives
+          const int v0 = requant_folded(d[2 * k], pv[o], pv[p.cm + o], 0.0f);
+          const int v1 = requant_folded(d[2 * k + 1], pv[o + 1], pv[p.cm + o + 1], 0.0f);
+          d[2 * k] = in1[u] ? v0 : 0;
+          d[2 * k + 1] = in1[u] ? v1 : 0;
+        }
+#pragma unroll
+        for (int k = 0; k < R12 / 2; ++k) {
+          const int u = 2 * slice + (k & 1);
+          const int o = nt * BN12 + col12 + 8 * (k >> 1) + 2 * tig;
+          if (keep1[u] && o < p.cm)
+            *reinterpret_cast<char2*>(smem + (o >> 4) * plane_h1 + hp1[u] * 16 + (o & 15)) =
+                make_char2(static_cast<signed char>(d[2 * k]),
+                           static_cast<signed char>(d[2 * k + 1]));
+        }
+      }
+      publish();
+      lap(3);
+    }
+
+    // ---- conv2 (3x3) from h1 -> h2 [Cm / 16][output pixel][16 bytes]: the
+    // warpgroup's 8 x 8 pixels (160 bytes from one tile row to the next) at
+    // each tap's constant offset; a k32 instruction's 32 channels lie in one
+    // tap (Cm % 32 == 0), picked instruction by instruction. Where registers
+    // allow, the even and the odd k32 instructions sum into two accumulators
+    // (two independent chains in the tensor pipe), added in the epilogue
+    for (int nt = 0; nt < nt12; ++nt) {
+      int d2[R12], e2[kTwoChains ? R12 : 1];
+      clear(d2);
+      clear(e2);
+      for (int ks = 0; ks < s2; ++ks) {
+        step_begin(1);
+        const unsigned b = smem_s + lay.off_ring_b + st * b_stage + col12 * KB;
+#pragma unroll
+        for (int i = 0; i < IPS; ++i) {
+          const int kimg = ks * IPS + i;
+          const unsigned bi = kimg < k2 ? b + i * V2_IMG : zero_s;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int kk = kimg * KB + 32 * j < 9 * p.cm ? kimg * KB + 32 * j : 0;
+            const int tap = kk / p.cm, c = kk - tap * p.cm, ty = tap / 3;
+            const int off = (ty - 1) * V2_HW + tap - 3 * ty - 1;
+            const uint64_t da = desc_plain(smem_s + (c >> 4) * plane_h1 + (centre + off) * 16,
+                                           plane_h1, V2_HW * 16);
+            const uint64_t db = desc_sw64(bi + 32 * j);
+            if constexpr (kTwoChains) {
+              if (j == 0) {
+                wgmma_s8(d2, da, db);
+              } else {
+                wgmma_s8(e2, da, db);
+              }
+            } else {
+              wgmma_s8(d2, da, db);
+            }
+          }
+        }
+        step_end(d2, e2);
+      }
+      wgmma_wait<0>();
+      keep_in_registers(d2);
+      keep_in_registers(e2);
+      lap(15);
+      if constexpr (kTwoChains) {
+#pragma unroll
+        for (int i = 0; i < R12; ++i) d2[i] += e2[kTwoChains ? i : 0];  // the chains' sum
+      }
+#pragma unroll
+      for (int k = 0; k < R12 / 2; ++k) {  // in registers first, as conv1's
+        const int o = min(nt * BN12 + col12 + 8 * (k >> 1) + 2 * tig, p.cm - 2);
+        d2[2 * k] = requant_folded(d2[2 * k], pv[2 * p.cm + o], pv[3 * p.cm + o], 0.0f);
+        d2[2 * k + 1] =
+            requant_folded(d2[2 * k + 1], pv[2 * p.cm + o + 1], pv[3 * p.cm + o + 1], 0.0f);
+      }
+#pragma unroll
+      for (int k = 0; k < R12 / 2; ++k) {
+        const int r = row2 + row_w + 8 * (k & 1);
+        const int o = nt * BN12 + col12 + 8 * (k >> 1) + 2 * tig;
+        if (o < p.cm)
+          *reinterpret_cast<char2*>(smem + lay.off_h2 + (o >> 4) * plane_h2 + r * 16 + (o & 15)) =
+              make_char2(static_cast<signed char>(d2[2 * k]),
+                         static_cast<signed char>(d2[2 * k + 1]));
+      }
+      publish();
+      lap(4);
+    }
+
+    // ---- conv3 from h2 + the identity residual -> out, a 128-column n-tile
+    // at a time through a staging tile (the residual and v3 / vr slices
+    // arrive by cp.async while the products run; the epilogue adds in place
+    // and the tile leaves 16 bytes a store); two accumulators as in conv2
+    for (int nt = 0; nt < nt3; ++nt) {
+      if (nt == 0) {
+        load_res(0, ntg & 1);
+        cp_async_commit();
+      }
+      if (nt + 1 < nt3) load_res(nt + 1, (ntg + 1) & 1);
+      cp_async_commit();  // possibly empty: the n-tile's own residual is the group before
+      int d3[R3], e3[kTwoChains ? R3 : 1];
+      clear(d3);
+      clear(e3);
+      for (int ks = 0; ks < s3; ++ks) {
+        step_begin(1);
+        const unsigned b = smem_s + lay.off_ring_b + st * b_stage + col3 * KB;
+#pragma unroll
+        for (int i = 0; i < IPS; ++i) {
+          const int kimg = ks * IPS + i;
+          const unsigned bi = kimg < k3 ? b + i * V2_IMG : zero_s;
+#pragma unroll
+          for (int j = 0; j < 2; ++j) {
+            const int kk = kimg * KB + 32 * j < p.cm ? kimg * KB + 32 * j : 0;
+            const uint64_t da = desc_plain(smem_s + lay.off_h2 + (kk >> 4) * plane_h2 + row2 * 16,
+                                           plane_h2, 128);
+            const uint64_t db = desc_sw64(bi + 32 * j);
+            if constexpr (kTwoChains) {
+              if (j == 0) {
+                wgmma_s8(d3, da, db);
+              } else {
+                wgmma_s8(e3, da, db);
+              }
+            } else {
+              wgmma_s8(d3, da, db);
+            }
+          }
+        }
+        step_end(d3, e3);
+      }
+      wgmma_wait<0>();
+      keep_in_registers(d3);
+      keep_in_registers(e3);
+      lap(11);
+      if constexpr (kTwoChains) {
+#pragma unroll
+        for (int i = 0; i < R3; ++i) d3[i] += e3[kTwoChains ? i : 0];
+      }
+      cp_async_wait1();
+      sync_consumers();
+      lap(12);
+      int8_t* sb = smem + (ntg & 1) * V2_STG;
+      const float* par = reinterpret_cast<const float*>(sb + V2_S_DATA);
+      // the results wait in registers (over the sums) and are stored after
+      // the loop: a store between the loads would order them one pair at a
+      // time
+#pragma unroll
+      for (int k = 0; k < R3 / 2; ++k) {
+        const int r = row2 + row_w + 8 * (k & 1), c = col3 + 8 * (k >> 1) + 2 * tig;
+        const char2 res = *reinterpret_cast<const char2*>(sb + r * S_LD + c);
+        const float2 s = *reinterpret_cast<const float2*>(par + c);
+        const float2 bb = *reinterpret_cast<const float2*>(par + BN + c);
+        const float2 rs = *reinterpret_cast<const float2*>(par + 2 * BN + c);
+        const float2 rb = *reinterpret_cast<const float2*>(par + 3 * BN + c);
+        d3[2 * k] = round_clip(__fadd_rn(scale_bias(d3[2 * k], s.x, bb.x),
+                                         scale_bias(res.x, rs.x, rb.x)), 0);
+        d3[2 * k + 1] = round_clip(__fadd_rn(scale_bias(d3[2 * k + 1], s.y, bb.y),
+                                             scale_bias(res.y, rs.y, rb.y)), 0);
+      }
+#pragma unroll
+      for (int k = 0; k < R3 / 2; ++k) {
+        const int r = row2 + row_w + 8 * (k & 1), c = col3 + 8 * (k >> 1) + 2 * tig;
+        *reinterpret_cast<char2*>(sb + r * S_LD + c) =
+            make_char2(static_cast<signed char>(d3[2 * k]), static_cast<signed char>(d3[2 * k + 1]));
+      }
+      sync_consumers();
+      lap(13);
+      for (int e = tid; e < out_px * (BN / 16); e += THREADS) {
+        const int r = e >> 3, ch = e & 7, o = nt * BN + ch * 16, px = out_pixel(r);
+        if (px >= 0 && o < p.cout)
+          *reinterpret_cast<int4*>(out_img + static_cast<size_t>(px) * p.cout + o) =
+              *reinterpret_cast<const int4*>(sb + r * S_LD + ch * 16);
+      }
+      sync_consumers();  // the staging tile is free for the n-tile after next
+      ++ntg;
+      lap(5);
+    }
+  }
+  if (timed) {
+    atomicAdd(p.clocks, static_cast<unsigned long long>(clock64() - t_start));
+    atomicAdd(p.clocks + 7, static_cast<unsigned long long>(g));
+  }
+}
+
+using V2Fn = void (*)(V2Args, V2Layout, CUtensorMap);
+
+struct V2Kernel {
+  int r12, r3, ips;
+  bool clocks;
+  V2Fn fn;
+  int configured;     // dynamic shared memory the kernel has been allowed so far
+  int blocks_per_sm;  // at that size
+};
+
+#define V2_INSTANCE(R12, R3, IPS, CLOCKS) \
+  {R12, R3, IPS, CLOCKS, bottleneck_v2_kernel<R12, R3, IPS, CLOCKS>, 0, 0}
+#define V2_INSTANCES(CLOCKS)                                                            \
+  V2_INSTANCE(64, 64, 1, CLOCKS), V2_INSTANCE(32, 64, 1, CLOCKS),                      \
+      V2_INSTANCE(32, 32, 1, CLOCKS), V2_INSTANCE(16, 32, 1, CLOCKS),                  \
+      V2_INSTANCE(64, 64, 2, CLOCKS), V2_INSTANCE(32, 64, 2, CLOCKS),                  \
+      V2_INSTANCE(32, 32, 2, CLOCKS), V2_INSTANCE(16, 32, 2, CLOCKS)
+
+// the instances: conv1/conv2 128 or 64 columns a warpgroup (Cm > 64 or not),
+// conv3 128; the same with the warpgroups splitting N; each with one or two
+// weight images a ring stage; and each once more timed
+static V2Kernel v2_kernels[] = {V2_INSTANCES(false), V2_INSTANCES(true)};
+
+static V2Kernel* find_v2(int cm, int split, int ips, bool clocks) {
+  const int bn12 = cm <= 64 ? 64 : BN;
+  const int r12 = (split ? bn12 / 2 : bn12) / 2, r3 = split ? 32 : 64;
+  for (V2Kernel& k : v2_kernels)
+    if (k.r12 == r12 && k.r3 == r3 && k.ips == ips && k.clocks == clocks) return &k;
+  return nullptr;
+}
+
+// The attribute and the blocks an SM at ``smem`` bytes, set when a launch
+// asks for more than any before it.
+static cudaError_t configure_v2(V2Kernel& k, int smem) {
+  if (smem <= k.configured) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(k.fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(k.fn, cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&k.blocks_per_sm, k.fn, V2_THREADS, smem);
+  if (e == cudaSuccess) k.configured = smem;
+  return e;
 }
 
 }  // namespace posetpu
@@ -763,14 +1124,14 @@ static BottleneckArgs pack_args(const void* x, const void* w1, const void* w2,
                                 const void* w3, const void* wd, const void* v1,
                                 const void* v2, const void* v3, const void* vd,
                                 const void* vr, void* out, int n, int h, int w,
-                                int cin, int cm, int cout, int th, int imgs, int kch) {
+                                int cin, int cm, int cout, int th) {
   return BottleneckArgs{
       static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1),
       static_cast<const int8_t*>(w2), static_cast<const int8_t*>(w3),
       static_cast<const int8_t*>(wd), static_cast<const float*>(v1),
       static_cast<const float*>(v2), static_cast<const float*>(v3),
       static_cast<const float*>(vd), static_cast<const float*>(vr),
-      static_cast<int8_t*>(out), n, h, w, cin, cm, cout, th, imgs, kch};
+      static_cast<int8_t*>(out), n, h, w, cin, cm, cout, th};
 }
 
 // B8a. ``th`` rows per block and the shared-memory layout come planned from
@@ -783,7 +1144,7 @@ extern "C" int bottleneck_rows(const void* x, const void* w1, const void* w2,
                                int off_ring_a, int off_ring_b, int off_pv, int off_bar,
                                int ns, int smem, void* stream) {
   const BottleneckArgs p =
-      pack_args(x, w1, w2, w3, wd, v1, v2, v3, vd, vr, out, n, h, w, cin, cm, cout, th, 1, 0);
+      pack_args(x, w1, w2, w3, wd, v1, v2, v3, vd, vr, out, n, h, w, cin, cm, cout, th);
   RowsKernel& k = rows_kernels[cm <= 64 ? 1 : 0];
   cudaError_t e = configure_rows(k, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
@@ -804,30 +1165,79 @@ extern "C" int bottleneck_rows_blocks_per_sm(int cm, int smem) {
   return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }
 
-// Static shared memory B8b's kernel uses beside its dynamic tile (the two
-// main loops' staging buffers): the wrapper sizes its tiles against the rest.
-extern "C" int bottleneck_static_smem() {
-  cudaFuncAttributes a;
-  if (cudaFuncGetAttributes(&a, bottleneck_im2col_kernel) != cudaSuccess) return -1;
-  return static_cast<int>(a.sharedSizeBytes);
+// B8b. The form (``tile_h`` rows of 8 pixels of one image a job, ``split``:
+// the warpgroups split N), the ring (``stages`` of ``ips`` weight images)
+// and the shared-memory layout come planned from ops/resblock.py (plan_v2).
+// The grid is persistent: at most as many blocks as fit the card at once,
+// each walking its share of the jobs. ``clocks``: null, or the counters of a
+// timed instance.
+static int launch_v2(const void* x, const void* w1t, const void* w2t, const void* w3t,
+                     const void* v1, const void* v2, const void* v3, const void* vr, void* out,
+                     void* clocks, int n, int h, int w, int cin, int cm, int cout, int tile_h,
+                     int split, int stages, int ips, int a_img, int off_ring_b, int off_ring_a,
+                     int off_h2, int off_zero, int off_pv, int off_bar, int smem, int sms,
+                     void* stream) {
+  V2Kernel* k = find_v2(cm, split, ips, clocks != nullptr);
+  if (k == nullptr || stages < 2) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = configure_v2(*k, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (k->blocks_per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+  CUtensorMap tm_x{};
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(w),
+                              static_cast<cuuint64_t>(h), static_cast<cuuint64_t>(n)};
+  const cuuint64_t pitch[3] = {static_cast<cuuint64_t>(cin), static_cast<cuuint64_t>(w) * cin,
+                               static_cast<cuuint64_t>(h) * w * cin};
+  const cuuint32_t box[4] = {64, V2_HW, static_cast<cuuint32_t>(tile_h + 2), 1};
+  if (!uint8_map(&tm_x, x, 4, dims, pitch, box, CU_TENSOR_MAP_SWIZZLE_64B))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles_x = (w + 7) / 8, tiles_y = (h + tile_h - 1) / tile_h;
+  const int jobs = tiles_x * tiles_y * n;
+  const V2Args p{static_cast<const int8_t*>(x), static_cast<const int8_t*>(w1t),
+                 static_cast<const int8_t*>(w2t), static_cast<const int8_t*>(w3t),
+                 static_cast<const float*>(v1), static_cast<const float*>(v2),
+                 static_cast<const float*>(v3), static_cast<const float*>(vr),
+                 static_cast<int8_t*>(out), static_cast<unsigned long long*>(clocks),
+                 n, h, w, cin, cm, cout, tiles_x, tile_h, stages, a_img, jobs};
+  const V2Layout lay{off_ring_b, off_ring_a, off_h2, off_zero, off_pv, off_bar};
+  const int blocks = jobs < sms * k->blocks_per_sm ? jobs : sms * k->blocks_per_sm;
+  k->fn<<<blocks, V2_THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p, lay, tm_x);
+  return static_cast<int>(cudaGetLastError());
 }
 
-// B8b. The attribute is set when a launch asks for more than any before it.
-extern "C" int bottleneck_im2col(const void* x, const void* w1, const void* w2,
-                                 const void* w3, const void* v1, const void* v2,
-                                 const void* v3, const void* vr, void* out, int n,
-                                 int h, int w, int cin, int cm, int cout, int th,
-                                 int imgs, int kch, int smem, void* stream) {
-  static int configured = 0;
-  const BottleneckArgs p = pack_args(x, w1, w2, w3, nullptr, v1, v2, v3, nullptr, vr, out,
-                                     n, h, w, cin, cm, cout, th, imgs, kch);
-  if (smem > configured) {
-    cudaError_t e = cudaFuncSetAttribute(bottleneck_im2col_kernel,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (e != cudaSuccess) return static_cast<int>(e);
-    configured = smem;
-  }
-  dim3 grid((h + th - 1) / th, (n + imgs - 1) / imgs);
-  bottleneck_im2col_kernel<<<grid, THREADS, smem, static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+extern "C" int bottleneck_v2(const void* x, const void* w1t, const void* w2t, const void* w3t,
+                             const void* v1, const void* v2, const void* v3, const void* vr,
+                             void* out, int n, int h, int w, int cin, int cm, int cout,
+                             int tile_h, int split, int stages, int ips, int a_img,
+                             int off_ring_b, int off_ring_a, int off_h2, int off_zero,
+                             int off_pv, int off_bar, int smem, int sms, void* stream) {
+  return launch_v2(x, w1t, w2t, w3t, v1, v2, v3, vr, out, nullptr, n, h, w, cin, cm, cout,
+                   tile_h, split, stages, ips, a_img, off_ring_b, off_ring_a, off_h2, off_zero,
+                   off_pv, off_bar, smem, sms, stream);
+}
+
+// The same launch on the timed instance (a measurement): it adds its cycle
+// marks to ``clocks``, the int64 counters ops/resblock.V2_CLOCK_SLOTS names.
+extern "C" int bottleneck_v2_clocked(const void* x, const void* w1t, const void* w2t,
+                                     const void* w3t, const void* v1, const void* v2,
+                                     const void* v3, const void* vr, void* out, void* clocks,
+                                     int n, int h, int w, int cin, int cm, int cout, int tile_h,
+                                     int split, int stages, int ips, int a_img, int off_ring_b,
+                                     int off_ring_a, int off_h2, int off_zero, int off_pv,
+                                     int off_bar, int smem, int sms, void* stream) {
+  if (clocks == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_v2(x, w1t, w2t, w3t, v1, v2, v3, vr, out, clocks, n, h, w, cin, cm, cout,
+                   tile_h, split, stages, ips, a_img, off_ring_b, off_ring_a, off_h2, off_zero,
+                   off_pv, off_bar, smem, sms, stream);
+}
+
+// Blocks of B8b's instance for (``cm``, ``split``, ``ips``) that fit one SM at
+// ``smem`` bytes of dynamic shared memory, or minus the CUDA error.
+extern "C" int bottleneck_v2_blocks_per_sm(int cm, int split, int ips, int smem) {
+  V2Kernel* k = find_v2(cm, split, ips, false);
+  if (k == nullptr) return -static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t e = configure_v2(*k, smem);
+  if (e != cudaSuccess) return -static_cast<int>(e);
+  int blocks = 0;
+  e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k->fn, V2_THREADS, smem);
+  return e == cudaSuccess ? blocks : -static_cast<int>(e);
 }

@@ -9,8 +9,10 @@ Ports posetpu/ops/pallas/resblock.py with the same contracts:
   with ``wd`` in the args, a 1x1 projection of x requantised to int8 with no
   ReLU before it is dequantised into the add;
 - ``fused_bottleneck_v2(..., imgs=2)`` (B8b): the same function for the
-  identity residual, ``imgs`` images per block and the 3x3 conv as one
-  K = 9*Cm product over im2col patches. Its output equals B8a's.
+  identity residual (the TPU kernel: ``imgs`` images a grid step, the 3x3
+  conv as one K = 9*Cm product over im2col patches). Its kernel is three
+  chained wgmma GEMMs on an h1 halo kept in shared memory, 128 output pixels
+  a block (:func:`plan_v2`); its output equals B8a's.
 
 Every requant is ``clip(round(acc * scale + bias))`` in f32 with the scales
 folded beforehand (:func:`build_bottleneck_args`, numpy, the JAX package's
@@ -21,17 +23,16 @@ elements.
 
 On a CUDA tensor a wrapper launches its kernel (counted in its ``launches``
 attribute) or raises; on a CPU tensor it runs the plain version. Weights
-feed B8b and the plain versions K-minor and B8a as stage images of its
-shared-memory ring (:func:`bottleneck_device_args`, :func:`tile_weight`).
+feed the plain versions K-minor and the kernels as stage images of their
+shared-memory rings (:func:`bottleneck_device_args`, :func:`tile_weight`).
 Shapes the kernels take: Cin % 32 == 0, Cm % 32 == 0, Cout % 8 == 0, Cin ==
-Cout for the identity residual, a tile of one image row that fits a block's
-shared memory; N % imgs == 0 for B8b.
+Cout for the identity residual, a block that fits shared memory (B8a: one
+image row; B8b: its h1 halo and h2); N % imgs == 0 for B8b.
 
 A launch costs the host little: the block shape is planned once per layer
-shape by a pure, cached function (:func:`plan_rows`, :func:`plan_im2col`),
+shape by a pure, cached function (:func:`plan_rows`, :func:`plan_v2`),
 the C side sets a kernel's shared-memory attribute only when a launch asks
-for more than any before it, and the library and its static share are
-fetched once.
+for more than any before it, and the library is loaded once.
 """
 
 from __future__ import annotations
@@ -44,7 +45,7 @@ import torch
 
 from posetpu_torch.ops import _build
 from posetpu_torch.ops.int_mm import int_mm
-from posetpu_torch.ops.phase_tail import _k_minor, _np, _to, check_cuda, stream_of
+from posetpu_torch.ops.phase_tail import _k_minor, _np, _to, check_cuda, sm_count, stream_of
 
 # 3x3 taps in (dy, dx) row-major order, matching the HWIO kernel's rows
 _TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
@@ -52,8 +53,9 @@ _TAPS = tuple((dy, dx) for dy in (-1, 0, 1) for dx in (-1, 0, 1))
 _P, _I = _build.P, _build.I
 _SIGNATURES = {"bottleneck_rows": [_P] * 11 + [_I] * 14 + [_P],
                "bottleneck_rows_blocks_per_sm": [_I, _I],
-               "bottleneck_im2col": [_P] * 9 + [_I] * 10 + [_P],
-               "bottleneck_static_smem": []}
+               "bottleneck_v2": [_P] * 9 + [_I] * 19 + [_P],
+               "bottleneck_v2_clocked": [_P] * 10 + [_I] * 19 + [_P],
+               "bottleneck_v2_blocks_per_sm": [_I] * 4}
 _SMEM_PER_BLOCK = 232448  # bytes a block can use on sm_90
 _SMEM_PER_SM = 233472     # bytes of shared memory the blocks of one SM share
 _SMEM_BLOCK_RESERVED = 1024  # taken from the SM's share for every resident block
@@ -194,36 +196,99 @@ def plan_rows(h: int, w: int, cin: int, cm: int, cout: int, has_wd: bool,
                                       min(pl.blocks_per_sm, 2), pl.th, pl.ns))
 
 
-class Im2colPlan(NamedTuple):
-    """B8b's block shape: rows per block, im2col depth per chunk, bytes."""
-    th: int
-    kch: int
+# B8b (csrc/resblock.cu, bottleneck_v2_kernel): a job is one image's tile,
+# 16 x 8 output pixels ("tile") or 8 x 8 whose warpgroups split every conv's
+# columns ("split"); the tile rows of each
+V2_FORMS = {"tile": 16, "split": 8}
+# the ring: (weight images a stage, stages), the first that fits a block
+# (measured on the H100 at ResNet-50's identity blocks within 2-3 % of the
+# best ring each: tools/torch_kernel_sweep.py v2, PERF.md)
+V2_RINGS = ((2, 4), (2, 3), (1, 4), (1, 3), (1, 2), (2, 2))
+_V2_HW = 10              # halo pixels a row
+_V2_OVERREAD = 2048      # conv1's last slice reads past the last halo image
+_V2_STAGING = _BM * (128 + 16) + 4 * 128 * 4  # a staging tile: the residual, v3 / vr slices
+# the clock64 counters of csrc/resblock.cu's timed instances (a measurement:
+# _launch_v2(clocks=)): cycles a warpgroup's first thread spent in each part,
+# summed over threads
+V2_CLOCK_SLOTS = ("total", "full wait", "wgmma issue + wait", "conv1 epilogue",
+                  "conv2 epilogue", "conv3 stores", "prologue", "steps",
+                  "producer empty wait", "jobs", "conv1 full wait", "conv3 drain",
+                  "conv3 residual wait", "conv3 epilogue", "conv1 drain", "conv2 drain")
+
+
+class V2Plan(NamedTuple):
+    """B8b's block for one layer (csrc/resblock.cu, V2Args and V2Layout): the
+    form (:data:`V2_FORMS`), its tiles across and down the image, the ring
+    (``stages`` of ``ips`` 64-byte weight images, and in conv1 beside each
+    the same 64 channels of x's halo, ``a_img`` bytes: [halo pixel][64
+    bytes], 1024-byte aligned), and where the regions of dynamic shared
+    memory start: h1 at 0 (and over it, from conv3 on, conv3's two staging
+    tiles), the ring's weight images, its halo planes, h2, a zero weight
+    image (two images a stage: the B of a step past an n-tile's last image),
+    v1 and v2, the mbarriers."""
+    form: str
+    tile_h: int
+    tiles_x: int
+    tiles_y: int
+    stages: int
+    ips: int
+    a_img: int
+    h1: int     # bytes of h1 [Cm / 16][halo pixels][16]
+    h2: int     # bytes of h2 [Cm / 16][output pixels][16]
+    off_ring_b: int
+    off_ring_a: int
+    off_h2: int
+    off_zero: int
+    off_pv: int
+    off_bar: int
     smem: int
 
 
-def _im2col_bytes(rows: int, imgs: int, w: int, cm: int, kch: int) -> int:
-    """Dynamic shared memory of a B8b block of ``rows`` output rows of
-    ``imgs`` images: the conv1 halo tile, the conv2 output tile, and the
-    im2col chunk (csrc/resblock.cu)."""
-    return imgs * (2 * rows + 2) * w * (cm + 16) + _BM * (kch + 16)
+def _v2_layout(form: str, h: int, w: int, cm: int, ips: int, stages: int) -> V2Plan:
+    tile_h = V2_FORMS[form]
+    hp = (tile_h + 2) * _V2_HW
+    a_img = _up(hp * 64, 1024)
+    h1, h2 = cm * hp, cm * (64 if form == "split" else _BM)
+    off_ring_b = _up(max(h1, 2 * _V2_STAGING), 1024)
+    off_ring_a = off_ring_b + stages * ips * _BM * _KB
+    off_h2 = off_ring_a + _up(stages * ips * a_img + _V2_OVERREAD)
+    off_zero = _up(off_h2 + h2, 1024)
+    off_pv = off_zero + (_BM * _KB if ips == 2 else 0)
+    off_bar = _up(off_pv + 16 * cm, 16)
+    return V2Plan(form, tile_h, -(-w // 8), -(-h // tile_h), stages, ips, a_img, h1, h2,
+                  off_ring_b, off_ring_a, off_h2, off_zero, off_pv, off_bar,
+                  off_bar + 16 * stages)
 
 
 @functools.lru_cache(maxsize=None)
-def plan_im2col(h: int, w: int, cm: int, imgs: int, static_smem: int) -> Im2colPlan:
-    """B8b: about 128 tile pixels per block, fewer where the tiles would not
-    fit beside ``static_smem`` bytes of the kernel's own; the im2col chunk
-    takes the largest divisor of 9*Cm that fits."""
-    budget = _SMEM_PER_BLOCK - static_smem
-    rows = max(1, min(h, 128 // (imgs * w)))
-    while rows > 1 and _im2col_bytes(rows, imgs, w, cm, 32) > budget:
-        rows -= 1
-    kch = max((d for d in range(32, 9 * cm + 1, 32)
-               if (9 * cm) % d == 0 and _im2col_bytes(rows, imgs, w, cm, d) <= budget),
-              default=0)
-    if not kch:
-        raise ValueError(f"fused_bottleneck_v2: one row of {imgs} image(s) of width {w} "
-                         f"at Cm {cm} does not fit a block's shared memory")
-    return Im2colPlan(rows, kch, _im2col_bytes(rows, imgs, w, cm, kch))
+def plan_v2(h: int, w: int, cin: int, cm: int, cout: int, *, form: str | None = None,
+            stages: int | None = None, ips: int | None = None) -> V2Plan:
+    """B8b's block for one layer, a pure function of its shapes (cached: a
+    launch looks it up). ``form`` defaults to "split" for an image of at
+    most 8 x 8 pixels and "tile" otherwise (at 8 x 8 the split form
+    measured faster than a tile of two images, one a warpgroup: PERF.md).
+    The ring defaults to the first of :data:`V2_RINGS` that fits; ``ips``
+    (1 or 2) and ``stages`` (>= 2) pin it. A shape that does not fit is an
+    error that names it."""
+    if form is None:
+        form = "split" if h <= 8 and w <= 8 else "tile"
+    if form not in V2_FORMS:
+        raise ValueError(f"fused_bottleneck_v2: no form {form!r}")
+    if ips not in (None, 1, 2) or (stages is not None and stages < 2):
+        raise ValueError(f"fused_bottleneck_v2: a ring of {stages} stages of {ips} images")
+    if stages is not None:
+        rings = [(i, stages) for i in ((2, 1) if ips is None else (ips,))]
+    else:
+        rings = [(i, s) for i, s in V2_RINGS if ips in (None, i)]
+    plans = [_v2_layout(form, h, w, cm, i, s) for i, s in rings]
+    plans = [pl for pl in plans if pl.smem <= _SMEM_PER_BLOCK]
+    if not plans:
+        raise ValueError(f"fused_bottleneck_v2: a {form} block of {h}x{w} images at Cin {cin}, "
+                         f"Cm {cm}, Cout {cout} with a ring of "
+                         f"{'any' if stages is None else stages} stage(s) of "
+                         f"{'any' if ips is None else ips} image(s) does not fit a block's "
+                         f"shared memory")
+    return plans[0]
 
 
 # ------------------------------------------------------------ CUDA launches
@@ -232,11 +297,6 @@ def plan_im2col(h: int, w: int, cm: int, imgs: int, static_smem: int) -> Im2colP
 @functools.lru_cache(maxsize=None)
 def _lib():
     return _build.load("resblock", _SIGNATURES)
-
-
-@functools.lru_cache(maxsize=None)
-def _static_smem() -> int:
-    return _lib().bottleneck_static_smem()
 
 
 def _checked(x, args, h, w, what):
@@ -262,9 +322,10 @@ def _checked(x, args, h, w, what):
     return n, cin, cm, cout
 
 
-def _tiled_weights(args, cin, cm, cout):
-    """B8a's stage images out of ``args``, each of the shape its weight and
-    tile height give (:func:`with_tiled_weights`), or an error."""
+def _tiled_weights(args, cin, cm, cout, what="fused_bottleneck"):
+    """The stage images out of ``args`` (B8a's and B8b's), each of the shape
+    its weight and tile height give (:func:`with_tiled_weights`), or an
+    error."""
     bn12 = 64 if cm <= 64 else _BM
     want = {"w1t": (cm, cin, bn12), "w2t": (cm, 9 * cm, bn12), "w3t": (cout, cm, _BM)}
     if "wd" in args:
@@ -274,10 +335,10 @@ def _tiled_weights(args, cin, cm, cout):
         t = args.get(key)
         if (t is None or t.dtype != torch.int8
                 or tuple(t.shape) != (-(-n // bn), -(-k // _KB), bn, _KB)):
-            raise ValueError(f"fused_bottleneck: args lack the tiled weight {key} that "
+            raise ValueError(f"{what}: args lack the tiled weight {key} that "
                              f"bottleneck_device_args makes (with_tiled_weights)")
         tiled[key] = t
-    check_cuda("fused_bottleneck", **tiled)
+    check_cuda(what, **tiled)
     return tiled
 
 
@@ -297,15 +358,26 @@ def _launch_rows(x, args, h, w, th=None):
     return out
 
 
-def _launch_im2col(x, args, h, w, imgs):
+def _launch_v2(x, args, h, w, form=None, stages=None, ips=None, clocks=None):
+    """One launch of B8b's kernel at the planned block (or the one pinned by
+    ``form``, ``stages``, ``ips``); ``clocks`` (a measurement): an int64 CUDA
+    tensor of len(:data:`V2_CLOCK_SLOTS`) that the kernel's timed instance
+    adds its cycle counts to."""
     n, cin, cm, cout = _checked(x, args, h, w, "fused_bottleneck_v2")
-    plan = plan_im2col(h, w, cm, imgs, _static_smem())
+    tiled = _tiled_weights(args, cin, cm, cout, "fused_bottleneck_v2")
+    plan = plan_v2(h, w, cin, cm, cout, form=form, stages=stages, ips=ips)
     out = torch.empty((n, h * w, cout), dtype=torch.int8, device=x.device)
-    _build.check(_lib().bottleneck_im2col(
-        x.data_ptr(), args["w1"].data_ptr(), args["w2"].data_ptr(), args["w3"].data_ptr(),
-        args["v1"].data_ptr(), args["v2"].data_ptr(), args["v3"].data_ptr(),
-        args["vr"].data_ptr(), out.data_ptr(), n, h, w, cin, cm, cout, plan.th, imgs,
-        plan.kch, plan.smem, stream_of(x)), "fused_bottleneck_v2")
+    head = [x.data_ptr(), tiled["w1t"].data_ptr(), tiled["w2t"].data_ptr(),
+            tiled["w3t"].data_ptr(), args["v1"].data_ptr(), args["v2"].data_ptr(),
+            args["v3"].data_ptr(), args["vr"].data_ptr(), out.data_ptr()]
+    tail = [n, h, w, cin, cm, cout, plan.tile_h, int(plan.form == "split"), plan.stages,
+            plan.ips, plan.a_img, plan.off_ring_b, plan.off_ring_a, plan.off_h2, plan.off_zero,
+            plan.off_pv, plan.off_bar, plan.smem, sm_count(x.device.index), stream_of(x)]
+    if clocks is None:
+        rc = _lib().bottleneck_v2(*head, *tail)
+    else:
+        rc = _lib().bottleneck_v2_clocked(*head, clocks.data_ptr(), *tail)
+    _build.check(rc, "fused_bottleneck_v2")
     return out
 
 
@@ -315,6 +387,15 @@ def rows_blocks_per_sm(cm: int, smem: int) -> int:
     blocks = _lib().bottleneck_rows_blocks_per_sm(cm, smem)
     if blocks < 0:
         raise RuntimeError(f"bottleneck_rows_blocks_per_sm: CUDA error {-blocks}")
+    return blocks
+
+
+def v2_blocks_per_sm(plan: V2Plan, cm: int) -> int:
+    """Blocks of B8b's instance for ``plan`` the card puts on one SM."""
+    blocks = _lib().bottleneck_v2_blocks_per_sm(cm, int(plan.form == "split"), plan.ips,
+                                                 plan.smem)
+    if blocks < 0:
+        raise RuntimeError(f"bottleneck_v2_blocks_per_sm: CUDA error {-blocks}")
     return blocks
 
 
@@ -335,15 +416,18 @@ fused_bottleneck.launches = 0
 
 
 def fused_bottleneck_v2(x, args, *, h: int, w: int, imgs: int = 2):
-    """The fused block with the identity residual, ``imgs`` images per block
-    and the 3x3 conv over im2col patches. x: [N, H*W, Cin] int8, N a multiple
-    of ``imgs`` -> [N, H*W, Cout] int8."""
+    """The fused block with the identity residual. x: [N, H*W, Cin] int8, N a
+    multiple of ``imgs`` -> [N, H*W, Cout] int8, equal to
+    :func:`fused_bottleneck`'s. The result does not depend on ``imgs`` (the
+    TPU kernel's images a grid step): the plain version takes the images
+    ``imgs`` at a time, and the kernel's planner (:func:`plan_v2`) does not
+    use it: a job is one image's tile whatever ``imgs`` is."""
     if x.shape[0] % imgs or "wd" in args:
         raise ValueError(f"fused_bottleneck_v2: identity residual only, and "
                          f"{x.shape[0]} images do not split into groups of {imgs}")
     if not x.is_cuda:
         return bottleneck_v2_plain(x, args, h=h, w=w, imgs=imgs)
-    out = _launch_im2col(x, args, h, w, imgs)
+    out = _launch_v2(x, args, h, w)
     fused_bottleneck_v2.launches += 1
     return out
 
@@ -437,8 +521,8 @@ def with_tiled_weights(args: dict) -> dict:
 def bottleneck_device_args(args: dict, device) -> dict:
     """JAX-layout bottleneck args (numpy or arrays) -> the kernels' tensors:
     w1 [Cm, Cin], w2 [Cm, 9*Cm] (tap-major depth), w3 [Cout, Cm], wd
-    [Cout, Cin] int8 (K-minor, what the plain versions and B8b read); w1t,
-    w2t, w3t, wdt the same as B8a's stage images (:func:`tile_weight`); v*
+    [Cout, Cin] int8 (K-minor, what the plain versions read); w1t, w2t, w3t,
+    wdt the same as the kernels' stage images (:func:`tile_weight`); v*
     [2, C] f32 as given."""
     cm = args["w1"].shape[1]
     out = {k: _k_minor(args[k], device) for k in ("w1", "w3", "wd") if k in args}

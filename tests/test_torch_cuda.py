@@ -613,11 +613,13 @@ def test_bottleneck_kernel_needs_tiled_weights(cuda):
 @pytest.mark.parametrize("n,h,w,cin,cm,imgs", [
     (4, 8, 8, 64, 32, 2), (6, 5, 7, 96, 32, 3), (4, 10, 16, 64, 32, 2),
     (4, 64, 64, 256, 64, 2),
-    (2, 32, 32, 512, 128, 2), (4, 16, 16, 1024, 256, 2), (4, 8, 8, 2048, 512, 2)])
+    (2, 32, 32, 512, 128, 2), (4, 16, 16, 1024, 256, 2), (4, 8, 8, 2048, 512, 2),
+    (2, 10, 10, 2048, 512, 2), (2, 12, 12, 2048, 512, 2)])
 def test_bottleneck_v2_kernel_equals_plain_and_v1(cuda, n, h, w, cin, cm, imgs):
-    """B8b at small, odd, ragged (10 rows in tiles of 4) and full-width shapes
-    (at Cm = 512 the im2col depth is cut into chunks): equal to its plain
-    version and to B8a."""
+    """B8b at small, odd (5x7 at Cm 32, whose k-steps span two taps), ragged
+    (10 rows in 16 x 8 tiles) and full-width shapes, layer4's at 256^2, 320^2
+    and 384^2 input (8x8, 10x10, 12x12): equal to its plain version and to
+    B8a."""
     gen = torch.Generator().manual_seed(9)
     x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
     args = _block_args(gen, cin, cm, cin, False, cuda)
@@ -628,6 +630,57 @@ def test_bottleneck_v2_kernel_equals_plain_and_v1(cuda, n, h, w, cin, cm, imgs):
     torch.cuda.synchronize()
     assert torch.equal(got, ref) and len(torch.unique(ref)) > 50
     assert torch.equal(got, trb.fused_bottleneck(x, args, h=h, w=w))
+
+
+@pytest.mark.parametrize("n,h,w,cin,cm", [(4, 8, 8, 2048, 512), (4, 8, 8, 64, 32),
+                                          (2, 6, 5, 96, 96), (2, 16, 16, 1024, 256),
+                                          (2, 12, 12, 256, 64)])
+def test_bottleneck_v2_every_form_and_ring(cuda, n, h, w, cin, cm):
+    """B8b in every tile form its planner could pick for the shape (at 8x8
+    the warpgroups splitting N; the 16 x 8 tile) at every ring (stages of one
+    or two weight images) that fits: equal to its plain version and to B8a."""
+    gen = torch.Generator().manual_seed(16)
+    x = _i8(gen, n, h * w, cin, lo=0).to(cuda)
+    args = _block_args(gen, cin, cm, cin, False, cuda)
+    ref = trb.bottleneck_plain(x, args, h=h, w=w)
+    assert torch.equal(trb.bottleneck_v2_plain(x, args, h=h, w=w, imgs=2), ref)
+    runs = 0
+    for form in trb.V2_FORMS:
+        for ips in (1, 2):
+            for stages in range(2, 9):
+                try:
+                    trb.plan_v2(h, w, cin, cm, cin, form=form, stages=stages, ips=ips)
+                except ValueError:
+                    continue
+                got = trb._launch_v2(x, args, h, w, form, stages, ips)
+                torch.cuda.synchronize()
+                assert torch.equal(got, ref), (form, stages, ips)
+                runs += 1
+    assert runs >= 6 and len(torch.unique(ref)) > 50
+
+
+def test_bottleneck_v2_timed_instance_equals_plain(cuda):
+    """The timed instance the sweep measures with computes the same block
+    and counts a step for every k-step of every job."""
+    gen = torch.Generator().manual_seed(18)
+    x = _i8(gen, 2, 100, 256, lo=0).to(cuda)
+    args = _block_args(gen, 256, 64, 256, False, cuda)
+    clocks = torch.zeros(len(trb.V2_CLOCK_SLOTS), dtype=torch.int64, device=cuda)
+    got = trb._launch_v2(x, args, 10, 10, clocks=clocks)
+    torch.cuda.synchronize()
+    assert torch.equal(got, trb.bottleneck_plain(x, args, h=10, w=10))
+    counts = dict(zip(trb.V2_CLOCK_SLOTS, clocks.tolist()))
+    assert counts["jobs"] == 2 * 2 and counts["total"] > counts["steps"] > 0
+
+
+def test_bottleneck_v2_needs_tiled_weights(cuda):
+    gen = torch.Generator().manual_seed(17)
+    x = torch.zeros(2, 16, 64, dtype=torch.int8, device=cuda)
+    for key in ("w1t", "w2t", "w3t"):
+        args = _block_args(gen, 64, 32, 64, False, cuda)
+        del args[key]
+        with pytest.raises(ValueError, match="tiled"):
+            trb.fused_bottleneck_v2(x, args, h=4, w=4)
 
 
 def _deconv_args(gen, cin, cout, joints, dev):

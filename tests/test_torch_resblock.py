@@ -201,17 +201,208 @@ def test_plan_rows_refuses_heights_outside_the_image():
             trb.plan_rows(8, 8, 64, 32, 64, False, th)
 
 
-@pytest.mark.parametrize("h,w,cm,imgs", [(64, 64, 64, 2), (32, 32, 128, 2), (16, 16, 256, 2),
-                                         (8, 8, 512, 2), (5, 7, 32, 3)])
-def test_plan_im2col_fits_beside_the_static_share(h, w, cm, imgs):
-    """B8b's planner: within 232,448 bytes less the kernel's static share,
-    the chunk a divisor of 9 Cm."""
-    static = 36864
-    plan = trb.plan_im2col(h, w, cm, imgs, static)
-    assert plan.th >= 1 and (9 * cm) % plan.kch == 0 and plan.kch % 32 == 0
-    assert plan.smem == trb._im2col_bytes(plan.th, imgs, w, cm, plan.kch) <= 232448 - static
-    with pytest.raises(ValueError):
-        trb.plan_im2col(h, 40 * w, 8 * cm, imgs, static)
+# ------------------------------------------------------------ B8b's block
+
+# the identity bottlenecks of ResNet-50 and ResNet-152 (the same four shapes,
+# more of them) at 256^2, 320^2 and 384^2 input: h (= w), Cin (= Cout), Cm
+V2_SHAPES = [(size // stride, 4 * cm, cm) for size in (256, 320, 384)
+             for stride, cm in ((4, 64), (8, 128), (16, 256), (32, 512))]
+V2_ODD = [("5x7 Cm 32 imgs 3", 5, 7, 32, 32), ("10x16", 10, 16, 64, 32)]
+
+
+def _v2_regions(plan, cm):
+    """(name, start, end, used while) of each region csrc/resblock.cu lays out
+    for ``plan``; ``used while``: the phases of a job that touch it (1-3:
+    the convs, 0: all of them)."""
+    stg = 2 * trb._V2_STAGING
+    a_stage = plan.ips * plan.a_img
+    regions = [("h1", 0, plan.h1, {1, 2}),
+               ("staging", 0, stg, {3}),
+               ("ring B", plan.off_ring_b, plan.off_ring_b + plan.stages * plan.ips * 128 * 64,
+                {0}),
+               ("ring A", plan.off_ring_a,
+                plan.off_ring_a + plan.stages * a_stage + trb._V2_OVERREAD, {0}),
+               ("h2", plan.off_h2, plan.off_h2 + plan.h2, {2, 3}),
+               ("v1 v2", plan.off_pv, plan.off_pv + 16 * cm, {0}),
+               ("mbarriers", plan.off_bar, plan.off_bar + 16 * plan.stages, {0})]
+    if plan.ips == 2:
+        regions.append(("zero image", plan.off_zero, plan.off_zero + 128 * 64, {0}))
+    return regions
+
+
+def _check_v2_plan(plan, h, w, cm):
+    tile_h = trb.V2_FORMS[plan.form]
+    assert plan.tile_h == tile_h
+    assert plan.tiles_x * 8 >= w and plan.tiles_y * tile_h >= h
+    assert plan.smem <= 232448 and plan.ips in (1, 2) and plan.stages >= 2
+    assert plan.a_img % 1024 == 0 and plan.a_img >= 64 * (tile_h + 2) * 10
+    assert plan.off_ring_b % 1024 == 0 and plan.off_ring_a % 1024 == 0  # 64-byte swizzle atoms
+    assert plan.off_bar % 8 == 0 and plan.smem >= plan.off_bar + 16 * plan.stages
+    regions = _v2_regions(plan, cm)
+    for i, (na, a0, a1, ua) in enumerate(regions):
+        assert 0 <= a0 <= a1 <= plan.smem, na
+        for nb, b0, b1, ub in regions[i + 1:]:
+            if (ua & ub) or 0 in ua or 0 in ub:  # in use at the same time: apart
+                assert a1 <= b0 or b1 <= a0, (na, nb)
+
+
+@pytest.mark.parametrize("h,c,cm", V2_SHAPES, ids=[f"{h}x{h} Cm {cm}" for h, _, cm in V2_SHAPES])
+def test_plan_v2_fits_a_block(h, c, cm):
+    """B8b's planner at every identity bottleneck of ResNet-50 and -152 at
+    256^2, 320^2 and 384^2 input: the planned block and every form and ring
+    it accepts fit 232,448 bytes with the regions in use at one time apart;
+    a shape that fits nothing raises and names itself."""
+    plan = trb.plan_v2(h, h, c, cm, c)
+    assert plan.form == ("split" if h <= 8 else "tile")
+    _check_v2_plan(plan, h, h, cm)
+    assert plan == trb.plan_v2(h, h, c, cm, c)
+    fitted = 0
+    for form in trb.V2_FORMS:
+        for ips in (1, 2):
+            for stages in range(2, 9):
+                try:
+                    forced = trb.plan_v2(h, h, c, cm, c, form=form, stages=stages, ips=ips)
+                except ValueError as e:
+                    assert "shared memory" in str(e)
+                    continue
+                assert (forced.form, forced.stages, forced.ips) == (form, stages, ips)
+                _check_v2_plan(forced, h, h, cm)
+                fitted += 1
+    assert fitted >= 3
+    with pytest.raises(ValueError, match=f"{h}x{h} images at Cin {c}, Cm {cm}"):
+        trb.plan_v2(h, h, c, cm, c, stages=40)
+
+
+@pytest.mark.parametrize("name,h,w,c,cm", V2_ODD, ids=[o[0] for o in V2_ODD])
+def test_plan_v2_odd_shapes(name, h, w, c, cm):
+    """The card tests' odd shapes: a 5 x 7 image at Cm 32 (the batch in
+    groups of three, which the plan does not depend on), a 10 x 16 image in
+    16 x 8 tiles that overhang it; a form the kernel lacks and a channel
+    count that fits no block raise."""
+    plan = trb.plan_v2(h, w, c, cm, c)
+    _check_v2_plan(plan, h, w, cm)
+    assert (plan.ips, plan.stages) == trb.V2_RINGS[0]  # the deepest ring fits these
+    with pytest.raises(ValueError, match="no form 'square'"):
+        trb.plan_v2(h, w, c, cm, c, form="square")
+    with pytest.raises(ValueError, match="shared memory"):
+        trb.plan_v2(h, w, 16 * c, 64 * cm, 16 * c)
+
+
+def v2_kernel_emulation(x, args, h, w, plan, pad="zero"):
+    """One launch of csrc/resblock.cu's bottleneck_v2_kernel on the CPU, job by
+    job as the kernel walks them: x's halo zero-filled outside the tensor
+    (TMA's fill) as [halo pixel][channel] with rows of garbage past it (the
+    last slice's overread); per warpgroup conv1 on two 64-row slices from its
+    halo's first pixel, keeping its own pixels, h1 0 outside the image
+    (``pad="bias"``: the requantised bias there instead, the trap); conv2's
+    k32 instructions, each 32 channels of one tap read at the tap's constant
+    offset in h1, into two accumulators (even and odd instructions), the
+    steps of ``plan.ips`` images past an n-tile's last reading a zero image;
+    conv3 on h2 plus the residual, stored where the tile lies inside the
+    image. Split form: each warpgroup half the columns of every conv.
+    Weights are read back from the stage images."""
+    n, hw, cin = x.shape
+    cm, cout = args["w1"].shape[0], args["w3"].shape[0]
+    bn12 = 64 if cm <= 64 else 128
+    k2 = -(-9 * cm // 64)
+    w1 = trb.untile_weight(args["w1t"], cm, cin).long()
+    w2img = trb.untile_weight(args["w2t"], cm, 64 * k2)  # K padded to whole images
+    assert not w2img[:, 9 * cm:].any()  # a k32 past 9 Cm multiplies zeros
+    w2 = w2img.long()
+    w3 = trb.untile_weight(args["w3t"], cout, cm).long()
+    tile_h = plan.tile_h
+    hp = (tile_h + 2) * 10
+    split = plan.form == "split"
+    gen = torch.Generator().manual_seed(0)
+    x4 = x.reshape(n, h, w, cin)
+    out = torch.zeros(n, h, w, cout, dtype=torch.int8)
+    for job in range(plan.tiles_x * plan.tiles_y * n):
+        tile = job % (plan.tiles_x * plan.tiles_y)
+        y0, x0 = tile // plan.tiles_x * tile_h, tile % plan.tiles_x * 8
+        img = job // (plan.tiles_x * plan.tiles_y)
+        rows = torch.randint(-127, 128, (hp + 128, cin), generator=gen, dtype=torch.int8).long()
+        inside = torch.zeros(hp, dtype=torch.bool)
+        for hr in range(tile_h + 2):
+            for hc in range(10):
+                y, xx = y0 - 1 + hr, x0 - 1 + hc
+                inside[hr * 10 + hc] = 0 <= y < h and 0 <= xx < w
+                rows[hr * 10 + hc] = x4[img, y, xx].long() if inside[hr * 10 + hc] else 0
+        h1 = torch.full((hp, cm), -1, dtype=torch.int8)  # every pixel is written
+        for wg in range(2):
+            region0 = 0 if split else wg * 80  # in h1 and in the x rows
+            own0 = 0 if split else wg * 100
+            cols = (slice(wg * bn12 // 2, (wg + 1) * bn12 // 2) if split else slice(0, bn12))
+            for nt in range(-(-cm // bn12)):
+                o = torch.arange(nt * bn12, (nt + 1) * bn12)[cols]
+                o = o[o < cm]
+                acc = rows[region0:region0 + 128] @ w1[o].t()  # two 64-row slices
+                for lp in range(100):
+                    hpx = region0 + lp
+                    if hpx < own0:
+                        continue
+                    if inside[hpx] or pad == "bias":
+                        h1[hpx, o] = trb._requant(acc[lp], args["v1"][:, o])
+                    else:
+                        h1[hpx, o] = 0
+        assert (h1 != -1).all()  # each halo pixel kept by exactly one warpgroup (ReLU: >= 0)
+        h1l = h1.long()
+        r = torch.arange(64)
+        for wg in range(2 if not split else 1):
+            centre = (0 if split else wg * 80) + 11
+            px = centre + (r // 8) * 10 + r % 8
+            acc2 = [torch.zeros(64, cm, dtype=torch.long) for _ in range(2)]
+            for kk in range(0, 64 * k2, 32):
+                kq = kk if kk < 9 * cm else 0
+                tap, c = kq // cm, kq % cm
+                off = (tap // 3 - 1) * 10 + tap % 3 - 1
+                acc2[(kk // 32) % 2] += h1l[px + off, c:c + 32] @ w2[:, kk:kk + 32].t()
+            h2 = trb._requant(acc2[0] + acc2[1], args["v2"])
+            acc3 = h2.long() @ w3.t()
+            for i in range(64):
+                y = y0 + (i // 8 if split else 8 * wg + i // 8)
+                xx = x0 + i % 8
+                if y < h and xx < w:
+                    res = x4[img, y, xx]
+                    yv = acc3[i].float() * args["v3"][0] + args["v3"][1]
+                    rv = res.float() * args["vr"][0] + args["vr"][1]
+                    out[img, y, xx] = torch.clamp(torch.round(yv + rv), 0.0, 127.0).to(torch.int8)
+    return out.reshape(n, hw, cout)
+
+
+V2_EMULATED = [("8x8 split Cm 32", 2, 8, 8, 64, 32, "split"),
+               ("8x8 split", 2, 8, 8, 64, 64, "split"), ("8x8 tile", 1, 8, 8, 64, 64, "tile"),
+               ("5x7 Cm 32 split", 3, 5, 7, 32, 32, "split"),
+               ("5x7 Cm 32 tile", 2, 5, 7, 32, 32, "tile"),
+               ("12x12 tile", 1, 12, 12, 64, 96, "tile"), ("10x16 tile", 1, 10, 16, 64, 32, "tile"),
+               ("6x5 Cm 96 split", 2, 6, 5, 96, 96, "split")]
+
+
+@pytest.mark.parametrize("name,n,h,w,c,cm,form", V2_EMULATED, ids=[e[0] for e in V2_EMULATED])
+def test_v2_kernel_emulation_equals_plain(name, n, h, w, c, cm, form):
+    """B8b's tiling (the halo with h1 zeroed outside the image, the taps as
+    offsets into h1's planes, the warpgroups splitting N at 8x8 or a 16 x 8
+    tile, ragged 5x7 and 12x12 tiles, Cm = 32 and 96 where a 64-byte step
+    spans two taps) gives the plain version's block, bit for bit."""
+    _, _, x, _, args = _case(h * w + cm, n, h, w, c, cm, c, False)
+    xt = torch.from_numpy(x)
+    plan = trb.plan_v2(h, w, c, cm, c, form=form)
+    ref = trb.bottleneck_v2_plain(xt, args, h=h, w=w, imgs=n)
+    assert torch.equal(v2_kernel_emulation(xt, args, h, w, plan), ref)
+    assert ref.float().std() > 1.0
+
+
+@pytest.mark.parametrize("form", ["tile", "split"])
+def test_v2_padding_is_zero_on_h1_not_requantised_bias(form):
+    """The trap: conv2's zero padding is on h1. Writing the requantised bias
+    (what conv1 gives a zero x pixel) at the halo pixels outside the image
+    changes the block."""
+    _, _, x, _, args = _case(7, 2, 8, 8, 64, 64, 64, False)
+    xt = torch.from_numpy(x)
+    plan = trb.plan_v2(8, 8, 64, 64, 64, form=form)
+    ref = trb.bottleneck_v2_plain(xt, args, h=8, w=8, imgs=2)
+    bias = trb._requant(torch.zeros(64, dtype=torch.int32), args["v1"])
+    assert bias.any()  # the bias does not requantise to 0 everywhere
+    assert not torch.equal(v2_kernel_emulation(xt, args, 8, 8, plan, pad="bias"), ref)
 
 
 @pytest.mark.parametrize("n,k,bn", [(64, 64, 64), (64, 576, 64), (96, 160, 128), (32, 288, 64),

@@ -3,6 +3,7 @@
 
     python3 tools/torch_kernel_sweep.py check        # build, ptxas, kernel == plain
     python3 tools/torch_kernel_sweep.py sweep        # B8a: ms per layer and per th
+    python3 tools/torch_kernel_sweep.py v2           # B8b: every form and ring, beside B8a
     python3 tools/torch_kernel_sweep.py decode       # B7: device, wrapper, host split
     python3 tools/torch_kernel_sweep.py imma         # mma.sync and wgmma int8 rates
     python3 tools/torch_kernel_sweep.py tail2        # B1, B5: per launch and ring shape
@@ -15,6 +16,15 @@ its plain version on ResNet-50's five stride-1 block shapes at 256x256 input
 and on ragged shapes, and B7 equal on edge cases. ``sweep`` times B8a at 128
 images on each shape for every row-tile height ``th`` that fits (CUDA events,
 median of 20 after 3 warm-ups) with the blocks per SM the card reports.
+``v2`` times B8b (``ops/resblock.fused_bottleneck_v2``) at 128 images on
+ResNet-50's identity block shapes at 256x256 input and layer4's at 320x320
+and 384x384 (10x10, 12x12), in every tile form (``plan_v2``: "tile",
+"split") and ring (stages x weight images a stage) that fits, each held
+equal to the plain version, beside B8a on the same input and
+``torch._int_mm`` on the block's products gathered beforehand, with the
+blocks per SM the card reports and back-to-back device time a call; then
+where the planned block's cycles go (the clock64 counters of the kernel's
+timed instance, ``V2_CLOCK_SLOTS``, as shares of a warpgroup's cycles).
 ``decode`` times B7 at 512 and 2,048 maps of 64x64: the kernel alone on the
 device (torch.profiler's kernel time, and events around 50 back-to-back
 launches), the wrapper, ``torch.max``
@@ -207,6 +217,62 @@ def sweep(dev, n=128):
                   f"{'equal' if ok else 'DIFFERS'}, smem {plan.smem}, blocks/SM "
                   f"{rb.rows_blocks_per_sm(cm, plan.smem)}, grid {-(-h // th) * n} | {card()}",
                   flush=True)
+
+
+V2_LAYERS = {"layer1_1": (64, 64, 256, 64), "layer2_1": (32, 32, 512, 128),
+             "layer3_1": (16, 16, 1024, 256), "layer4_1": (8, 8, 2048, 512),
+             "layer4 320": (10, 10, 2048, 512), "layer4 384": (12, 12, 2048, 512)}
+
+
+def v2(dev, n=128):
+    ptxas(["resblock"])
+    rs = np.random.RandomState(0)
+    for name, (h, w, c, cm) in V2_LAYERS.items():
+        x, a = block_inputs(rs, n, h, w, c, cm, c, False, dev)
+        ref = rb.bottleneck_plain(x, a, h=h, w=w)
+        macs = n * h * w * (2 * c * cm + 9 * cm * cm)
+        nbytes = 2 * x.numel() + sum(a[k].numel() for k in ("w1", "w2", "w3"))
+        bound = max(2 * macs / 1.979e15, nbytes / 3.35e12) * 1e3
+        rows_ms = cuda_ms(lambda: rb.fused_bottleneck(x, a, h=h, w=w))
+        x2 = x.reshape(-1, c)
+        h1 = rb._requant(torch._int_mm(x2, a["w1"].t().contiguous()), a["v1"])
+        patches = torch.cat(rb._taps(h1.reshape(n, h, w, cm)), dim=1).contiguous()
+        h2 = rb._requant(torch._int_mm(patches, a["w2"].t().contiguous()), a["v2"])
+        ops = [(x2, a["w1"].t().contiguous()), (patches, a["w2"].t().contiguous()),
+               (h2, a["w3"].t().contiguous())]
+        lib_ms = cuda_ms(lambda: [torch._int_mm(m, k) for m, k in ops])
+        del h1, patches, h2, ops
+        planned = rb.plan_v2(h, w, c, cm, c)
+        print(f"B8b {name}: B8a {rows_ms:.4f} ms, torch._int_mm {lib_ms:.4f} ms, bound "
+              f"{bound:.4f} ms; planned {planned.form}, ring {planned.stages} x {planned.ips} "
+              f"image(s) | {card()}", flush=True)
+        for form in rb.V2_FORMS:
+            for ips in (1, 2):
+                for stages in range(2, 9):
+                    try:
+                        plan = rb.plan_v2(h, w, c, cm, c, form=form, stages=stages, ips=ips)
+                    except ValueError:
+                        continue
+                    run = lambda: rb._launch_v2(x, a, h, w, form, stages, ips)
+                    ok = torch.equal(run(), ref)
+                    ms, dev_ms = cuda_ms(run), burst_ms(run)
+                    mark = " (planned)" if plan == planned else ""
+                    print(f"B8b {name} {form} ring {stages} x {ips}{mark}: {ms:.4f} ms, back to "
+                          f"back {dev_ms:.4f} ms, {2 * macs / dev_ms / 1e9:.1f} TOP/s, "
+                          f"{'equal' if ok else 'DIFFERS'}, smem {plan.smem}, blocks/SM "
+                          f"{rb.v2_blocks_per_sm(plan, cm)} | {card()}", flush=True)
+        # where a warpgroup's cycles go at the planned block (clock64 marks)
+        clocks = torch.zeros(len(rb.V2_CLOCK_SLOTS), dtype=torch.int64, device=dev)
+        timed = rb._launch_v2(x, a, h, w, clocks=clocks)
+        assert torch.equal(timed, ref), f"B8b {name}: the timed instance differs"
+        got = dict(zip(rb.V2_CLOCK_SLOTS, clocks.tolist()))
+        total = got["total"]
+        print(f"B8b {name} clocks: " + ", ".join(
+            f"{k} {v / total:.3f}" for k, v in got.items()
+            if k not in ("total", "steps", "jobs")) + f"; cycles a step "
+              f"{total / max(got['steps'], 1):.0f}, steps a job "
+              f"{got['steps'] / max(2 * got['jobs'], 1):.1f}, jobs {got['jobs']} | {card()}",
+              flush=True)
 
 
 def decode(dev):
@@ -670,7 +736,8 @@ def main() -> int:
     dev = torch.device("cuda")
     print(f"card: {card()} | torch {torch.__version__}")
     for mode in sys.argv[1:] or ["check"]:
-        {"check": check, "sweep": sweep, "decode": decode, "imma": imma, "tail2": tail2,
+        {"check": check, "sweep": sweep, "v2": v2, "decode": decode, "imma": imma,
+         "tail2": tail2,
          "agg": aggregation, "deconv": deconv}[mode](dev)
     return 0
 
