@@ -54,6 +54,27 @@ Phases, each of which fails the run on its own:
      ``bottleneck_rows_kernel``;
    - the int8 runner's own forward on the same input, for frames/s beside
      5a-5c, and the fused forwards' heatmaps and decoded joints against it;
+   - path 6, ``bench.py``'s S-minor tail with the flip test
+     (``_build_int8(tail="jns", flip_test=True)``) ported:
+     ``quantize_pose_resnet(jns_head=True)`` (the runner's trunk and dilated
+     deconvs) on the images and their mirror in one batch,
+     ``flip_test_merge_jns``, the per-pair int8 bank
+     (``quantize_aggregation`` + ``aggregation_int8_apply_jns``),
+     ``fuse_routing_jns``, ``final_preds_jns`` and triangulation, 32 groups,
+     8 timed requests: B7; its profiled request must show B7 once and no
+     other hand kernel;
+   - one request of path 1 through ``build_serving_pipeline(aggre_kernel=
+     False)`` (the plain aggregation, ``torch._int_mm`` on gathered
+     operands, no B3 launch) on path 1's params and input: preds and maxvals
+     equal to path 1's;
+   - path 7, ``bench.py:546 _build_train`` ported: the ResNet-50
+     MultiViewPose with the bank, ``dtype=torch.bfloat16``, MSE +
+     consistency + fundamental loss (the camera ring's F bank), Adam at
+     1e-3, 32 four-view groups of 256x256 (64x64 heatmaps, 16 joints); 3
+     warm-up steps and 10 timed ones chained through the state: groups/s and
+     images/s (median and min-max of the steps' CUDA-event times), peak
+     memory, every step's loss finite, and one profiled step (device busy
+     ms, idle share, time by kernel family); no hand kernel is on this path;
 4. each kernel against its plain PyTorch version on the card, on the inputs
    its path gives it (taken from one more request): outputs must be equal.
    Timed with CUDA events (3 warm-up calls, median of 20): the kernel, its
@@ -87,7 +108,12 @@ Phases, each of which fails the run on its own:
    differently); for path 4, whose float convolutions sum in another order
    on the card: maxvals within atol 1e-3 and at least 90 % of the joints
    within 1e-3 px (a near-tie may move a peak or flip a nudge); for path
-   5b: heatmaps equal.
+   5b: heatmaps equal; for path 6: maxvals equal, preds within atol 1e-4;
+   for path 7, one f32 train step of a ResNet-18 at 64x64 on 2 groups (TF32
+   off, as on the CPU): the loss within rtol 1e-4, the gradients within a
+   relative L2 difference of 2e-2 per parameter and a cosine above 0.9999
+   over all of them (train-mode BN amplifies the two backends' rounding; the
+   CPU tests hold the port to JAX the same way).
 
 The last lines are the card line, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``.
@@ -95,6 +121,7 @@ and ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import copy
 import json
 import statistics
 import subprocess
@@ -117,6 +144,16 @@ SMALL_GROUPS = 8  # paths 3 and 4
 PATH5A = "path 5a (fused deconvs + head)"
 PATH5B = "path 5b (fused blocks, deconvs + head)"
 PATH5C = "path 5c (5b, identity blocks through B8b)"
+PATH6 = "path 6 (S-minor tail, flip test, per-pair bank)"
+TRAIN_WARMUP, TRAIN_STEPS = 3, 10  # path 7
+
+# path 7's kernel families by name (cuDNN's bf16 kernels carry "xmma" too)
+TRAIN_FAMILIES = {"convolutions (cuDNN)": ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                                           "implicit", "xmma"),
+                  "GEMMs (cuBLAS: the bank, the head)": ("gemm", "Gemm", "cutlass"),
+                  "BatchNorm": ("batch_norm", "bn_", "welford"),
+                  "optimizer (foreach)": ("foreach", "multi_tensor"),
+                  "memcpy/memset": ("Memcpy", "Memset")}
 
 
 def fail(msg: str):
@@ -220,8 +257,9 @@ def tail2_instance(jt: int, epilogue: str, design: str, store: str) -> str:
 
 
 
-def profile_request(fn) -> dict:
-    """Device time of one call of ``fn`` by kernel family, from
+def profile_request(fn, families=None) -> dict:
+    """Device time of one call of ``fn`` by kernel family (the serving
+    paths' unless ``families`` {name: substrings} is given), from
     torch.profiler's CUDA activity, and the device's idle share of the
     call's wall time (host clock, ending in a synchronize)."""
     import torch
@@ -237,7 +275,7 @@ def profile_request(fn) -> dict:
     dev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
     check(dev, "torch.profiler recorded no device activity")
     inst = lambda epi, cases: tuple(tail2_instance(jt, epi, d, st) for d, jt, st in cases)
-    families = {"deconv0 (B2)": inst("relu_phase", [("stream", 0, "phase_major")]),
+    families = families or {"deconv0 (B2)": inst("relu_phase", [("stream", 0, "phase_major")]),
                 "deconv1 + deconv2 + head (B1)": inst("relu", [
                     ("halo", 0, "interleaved"), ("halo", 2, "head_packed2"),
                     ("halo", 4, "head_packed2")]),
@@ -264,7 +302,7 @@ def profile_request(fn) -> dict:
         spans.append((e.time_range.start, e.time_range.end))
         name = e.name.replace(" ", "")
         fam = next((f for f, keys in families.items() if any(k in name for k in keys)),
-                   "other PyTorch kernels (im2col, epilogues, decode)")
+                   "other PyTorch kernels (elementwise, reductions, im2col)")
         by_family[fam] = by_family.get(fam, 0.0) + us
         by_name[e.name] = by_name.get(e.name, 0.0) + us
         if "posetpu::" in e.name:  # the hand kernels, launches by name and instance
@@ -329,6 +367,42 @@ def phase_gemms(x4, wk, z=None, wh=None):
     return lambda: [c() for c in calls]
 
 
+def train_batch(groups: int, size: int, hm: int, joints: int, device, seed: int) -> dict:
+    """A synthetic supervised batch as bench.py's ``_build_train`` makes it,
+    on ``device`` from ``seed``: normal images [G, 4, size, size, 3],
+    uniform targets [G, 4, hm, hm, J], unit weights, every group h36m,
+    center 500 and scale 2.5, and the camera ring's F bank."""
+    import torch
+
+    from posetpu_torch.data.synthetic import make_camera_ring
+    from posetpu_torch.geometry.fundamental import bank_to_batch, build_fundamental_bank
+
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bank = build_fundamental_bank({0: make_camera_ring()})
+    return {"images": torch.randn(groups, 4, size, size, 3, generator=gen, device=device),
+            "target": torch.rand(groups, 4, hm, hm, joints, generator=gen, device=device),
+            "weight": torch.ones(groups, 4, joints, device=device),
+            "is_h36m": torch.ones(groups, device=device),
+            "center": torch.full((groups, 4, 2), 500.0, device=device),
+            "scale": torch.full((groups, 4, 2), 2.5, device=device),
+            "fmats": bank_to_batch(bank, [0] * groups, device=device)}
+
+
+def train_config(num_layers: int, size: int, hm: int):
+    """bench.py's ``_build_train`` configuration at a depth and size: the
+    bank, MSE + consistency + fundamental loss, Adam at TRAIN.LR (1e-3)."""
+    from posetpu_torch.config import default_config
+
+    cfg = default_config()
+    cfg.POSE_RESNET.NUM_LAYERS = num_layers
+    cfg.NETWORK.IMAGE_SIZE = np.array([size, size])
+    cfg.NETWORK.HEATMAP_SIZE = np.array([hm, hm])
+    cfg.NETWORK.AGGRE = True
+    cfg.LOSS.USE_CONSISTENT_LOSS = True
+    cfg.LOSS.USE_FUNDAMENTAL_LOSS = True
+    return cfg
+
+
 def kernel_registers(build_log: str, kernel: str) -> dict:
     """Registers per thread of B8a's two instances, from ptxas' report:
     {"wide": n, "narrow": n} (the template argument: 64-wide conv1/conv2
@@ -357,9 +431,12 @@ def main() -> int:
     from posetpu_torch.config import default_config
     from posetpu_torch.core.inference import (
         final_preds,
+        final_preds_jns,
         final_preds_packed,
+        flip_test_merge_jns,
         fuse_routing_jns,
     )
+    from posetpu_torch.data.base import union_flip_pairs
     from posetpu_torch.data.synthetic import make_camera_ring, tile_cameras
     from posetpu_torch.geometry.triangulate import triangulate_points
     from posetpu_torch.models import quant
@@ -376,6 +453,8 @@ def main() -> int:
         build_serving_pipeline,
         pack_hwcn,
     )
+    from posetpu_torch.train.optim import make_optimizer
+    from posetpu_torch.train.step import init_train_state, make_train_step
 
     t_start = time.perf_counter()
     # ------------------------------------------------------------ 1. the card
@@ -443,6 +522,13 @@ def main() -> int:
     torch.cuda.synchronize()
     log(f"path 5 calibration + quantization + kernel arguments: "
         f"{time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    q6, fwd6 = quant.quantize_pose_resnet(model.resnet, calib, jns_head=True, device=dev)
+    qagg6 = quant.quantize_aggregation(model.aggre_layer.weight, device=dev)
+    pipe_plain = build_serving_pipeline(cfg, model, calib, aggre_kernel=False, device=dev)
+    torch.cuda.synchronize()
+    log(f"path 6 calibration + quantization, path 1 without the aggregation kernel: "
+        f"{time.perf_counter() - t0:.1f} s")
 
     images = rs.randint(0, 256, (GROUPS, VIEWS, 256, 256, 3)).astype(np.uint8)
     center = torch.full((GROUPS, VIEWS, 2), 500.0, device=dev)
@@ -483,6 +569,23 @@ def main() -> int:
                                                 tables3), cams_small)
 
     pipe4 = build_float_pipeline(cfg, model, flip_test=True, device=dev)
+    pairs6 = union_flip_pairs()
+
+    def infer6(q, qagg, x, center_, scale_, is_h36m_):
+        """Path 6 (bench.py:_build_int8(tail="jns", flip_test=True)): the
+        images and their W-mirror in one int8 forward to S-minor heatmaps,
+        the flip merge, the per-pair bank, routing and the S-minor decode,
+        assembled from the package's functions. x [N*V, H, W, 3] uint8."""
+        u8_quant = quant.make_u8_quant(q, cfg.DATASET.MEAN, cfg.DATASET.STD)
+        hm = fwd6(q, u8_quant(torch.cat([x, x.flip(2)])))  # [J, 2*N*V, S], mirror after
+        hm, hm_f = hm.split(hm.shape[1] // 2, dim=1)
+        hm = flip_test_merge_jns(hm, hm_f, pairs6, (64, 64))
+        raw = hm.reshape(hm.shape[0], -1, VIEWS, hm.shape[-1])
+        out = fuse_routing_jns(raw, quant.aggregation_int8_apply_jns(qagg, raw), is_h36m_)
+        return final_preds_jns(out, center_, scale_, (64, 64))
+
+    serve6 = lambda x: triangulated(*infer6(q6, qagg6, x, center, scale, is_h36m), cams)
+    prepare6 = lambda: torch.from_numpy(images.reshape(GROUPS * VIEWS, 256, 256, 3)).to(dev)
 
     def heatmaps5(fwd, params, x):
         """Path 5's forward [N, h, w, J] as [G, V, J, h, w] maps."""
@@ -589,6 +692,9 @@ def main() -> int:
           f"{PATH5C}: launches {launches_by_path[PATH5C]}")
     drive("path 5's input through the int8 runner's forward (no fused kernel)",
           serve5(fwd5, q5), make_x5, GROUPS, 3, ["decode_heatmaps_kernel"])
+    drive(PATH6, serve6, prepare6, GROUPS, 9, ["decode_heatmaps_kernel"])
+    check(launches_by_path[PATH6]["decode_heatmaps_kernel"] == 9,
+          f"{PATH6}: launches {launches_by_path[PATH6]}")
 
     # the fused forwards against the runner's forward on the card. The
     # kernels' folded, once-rounded epilogues may move an int8 value by one
@@ -625,6 +731,20 @@ def main() -> int:
           "flip_test=True and 'premirrored' differ")
     log("flip_test=True == 'premirrored': preds and maxvals equal")
 
+    # path 1 without the aggregation kernel (the JAX package's XLA route):
+    # the plain aggregation's int32 products are exact, so equal outputs
+    x_p1 = pipe.prepare(images)
+    p_k, m_k = pipe.infer(pipe.params, x_p1, center, scale, is_h36m)
+    b3_before = agg.aggregation_grouped.launches
+    p_plain, m_plain = pipe_plain.infer(pipe.params, x_p1, center, scale, is_h36m)
+    check(agg.aggregation_grouped.launches == b3_before,
+          "aggre_kernel=False launched the aggregation kernel")
+    check(torch.equal(p_plain, p_k) and torch.equal(m_plain, m_k),
+          f"aggre_kernel=False differs from path 1: preds "
+          f"{float((p_plain - p_k).abs().max())}, maxvals {float((m_plain - m_k).abs().max())}")
+    log("path 1 with aggre_kernel=False (no B3 launch): preds and maxvals equal to path 1's")
+    del x_p1
+
     # where one request's time goes on each path: host packing and upload,
     # then the device by kernel family
     for label, prepare, serve, batched in (
@@ -634,7 +754,8 @@ def main() -> int:
             ("path 4", lambda: pipe4.prepare(views_f32),
              serve_with(pipe4, g, cams_small), True),
             ("path 5b", make_x5, serve5(fwd5b, p5b), True),
-            ("path 5c", make_x5, serve5(fwd5b, p5b), True)):
+            ("path 5c", make_x5, serve5(fwd5b, p5b), True),
+            ("path 6", prepare6, serve6, True)):
         t = time.perf_counter()
         x = prepare()
         torch.cuda.synchronize()
@@ -672,6 +793,57 @@ def main() -> int:
             v2 = sum(v for k, v in hand.items() if k.startswith("bottleneck_v2_kernel"))
             rows = sum(v for k, v in hand.items() if k.startswith("bottleneck_rows_kernel"))
             check(v2 == 12 and rows == 1, f"path 5c: hand kernel launches {hand}")
+        if label == "path 6":  # B7 decodes the S-minor maps in place, once
+            check(hand == {"decode_kernel": 1}, f"path 6: hand kernel launches {hand}")
+
+    # path 7: the bf16 training step at full width, chained through its state
+    cfg7 = train_config(50, 256, 64)
+    t0 = time.perf_counter()
+    model7 = get_multiview_pose_net(cfg7, torch.Generator().manual_seed(7), dtype=torch.bfloat16)
+    tx7 = make_optimizer(cfg7, steps_per_epoch=1000)  # 1e-3 throughout (LR_STEP: epoch 90)
+    state7 = init_train_state(model7, tx7, device=dev)
+    step7 = make_train_step(model7, cfg7, tx7, device=dev)
+    batch7 = train_batch(GROUPS, 256, 64, 16, dev, seed=7)
+    torch.cuda.synchronize()
+    log(f"path 7 model, optimizer state and batch: {time.perf_counter() - t0:.1f} s")
+    for name in wrappers:
+        wrapper(name).launches = 0
+    losses7, events7 = [], []
+    t0 = time.perf_counter()
+    for i in range(TRAIN_WARMUP + TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t_timed = time.perf_counter()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state7, metrics7 = step7(state7, batch7)
+        end.record()
+        events7.append((start, end))
+        losses7.append(metrics7["loss"])
+    torch.cuda.synchronize()
+    wall7 = time.perf_counter() - t_timed
+    counts7 = {k: v for k, v in ((n, wrapper(n).launches) for n in wrappers) if v}
+    step_ms = [a.elapsed_time(b) for a, b in events7]
+    peak7 = torch.cuda.max_memory_allocated() / 2**30
+    losses7 = torch.stack(losses7).float().cpu()
+    check(bool(torch.isfinite(losses7).all()), f"path 7: non-finite loss {losses7.tolist()}")
+    check(state7.step == TRAIN_WARMUP + TRAIN_STEPS
+          and state7.opt_state["count"] == TRAIN_WARMUP + TRAIN_STEPS, "path 7: step count")
+    timed = sorted(step_ms[TRAIN_WARMUP:])
+    gps = sorted(GROUPS * 1e3 / t for t in timed)
+    log(f"path 7 (bf16 training step, R50, {GROUPS} groups of {VIEWS} x 256^2): step ms "
+        f"{[round(t, 2) for t in step_ms]} (the first {TRAIN_WARMUP} warm up); groups/s median "
+        f"{statistics.median(gps):.2f}, min-max {gps[0]:.2f}-{gps[-1]:.2f}; images/s median "
+        f"{VIEWS * statistics.median(gps):.1f}, min-max {VIEWS * gps[0]:.1f}-"
+        f"{VIEWS * gps[-1]:.1f}; host clock over the {TRAIN_STEPS} timed steps "
+        f"{GROUPS * TRAIN_STEPS / wall7:.2f} groups/s; peak {peak7:.2f} GiB; losses "
+        f"{[round(v, 4) for v in losses7.tolist()]}; hand kernel launches {counts7} | {card}")
+    prof7 = profile_request(lambda: step7(state7, batch7), TRAIN_FAMILIES)
+    check(not prof7["hand_kernel_launches"], f"path 7: hand kernels {prof7['hand_kernel_launches']}")
+    log("profile path 7: " + json.dumps(prof7))
+    del model7, state7, step7, batch7, tx7, metrics7
+    torch.cuda.empty_cache()
 
     # one more request per path to take each kernel's inputs for phase 4 (the
     # callers look the kernels up on their modules at call time)
@@ -1170,6 +1342,47 @@ def main() -> int:
           f"(max {float((hm_gpu - hm_cpu).abs().max())})")
     log(f"card vs CPU on one group, path 5b: heatmaps equal "
         f"(CPU run {time.perf_counter() - t:.1f} s)")
+
+    x6 = torch.from_numpy(images[:1].reshape(VIEWS, 256, 256, 3))
+    p_gpu, m_gpu = infer6(q6, qagg6, x6.to(dev), *args_gpu)
+    t = time.perf_counter()
+    p_cpu, m_cpu = infer6(to_cpu(q6), to_cpu(qagg6), x6, *args_cpu)
+    check(torch.equal(m_gpu.cpu(), m_cpu), f"card vs CPU, path 6: maxvals differ "
+          f"(max {float((m_gpu.cpu() - m_cpu).abs().max())})")
+    perr = float((p_gpu.cpu() - p_cpu).abs().max())
+    check(perr <= 1e-4, f"card vs CPU, path 6: preds differ by {perr}")
+    log(f"card vs CPU on one group, path 6: maxvals equal, preds max abs diff {perr} "
+        f"(CPU run {time.perf_counter() - t:.1f} s)")
+
+    # path 7's step in f32 on a small model, the same weights and batch on
+    # both; TF32 off on the card, as the CPU computes
+    cfg_s = train_config(18, 64, 16)
+    model_s = get_multiview_pose_net(cfg_s, torch.Generator().manual_seed(8))
+    batch_s = train_batch(2, 64, 16, 16, "cpu", seed=8)
+    stepped = {}
+    t = time.perf_counter()
+    for device in (dev, torch.device("cpu")):
+        net = copy.deepcopy(model_s)
+        tx_s = make_optimizer(cfg_s, steps_per_epoch=1000)
+        st = init_train_state(net, tx_s, device=device)
+        with quant._full_fp32():
+            _, m_s = make_train_step(net, cfg_s, tx_s, device=device)(st, batch_s)
+        stepped[device.type] = ({k: float(v) for k, v in m_s.items()},
+                                {k: p.grad.double().cpu() for k, p in net.named_parameters()})
+    (m_card, g_card), (m_host, g_host) = stepped["cuda"], stepped["cpu"]
+    lerr = abs(m_card["loss"] - m_host["loss"]) / abs(m_host["loss"])
+    check(lerr <= 1e-4, f"card vs CPU, path 7: loss {m_card['loss']} vs {m_host['loss']}")
+    rel = {k: float((g_card[k] - g).norm() / g.norm().clamp(min=1e-30)) for k, g in g_host.items()}
+    a = torch.cat([g.flatten() for g in g_host.values()])
+    b = torch.cat([g_card[k].flatten() for k in g_host])
+    cos = float(torch.nn.functional.cosine_similarity(a, b, dim=0))
+    worst = max(rel, key=rel.get)
+    check(cos > 0.9999 and rel[worst] <= 2e-2,
+          f"card vs CPU, path 7: gradient cosine {cos}, {worst} relative L2 {rel[worst]}")
+    log(f"card vs CPU, path 7's step in f32 (R18, 64x64, 2 groups): loss {m_card['loss']} vs "
+        f"{m_host['loss']} (relative {lerr:.2e}), gradient cosine {cos:.8f}, worst relative "
+        f"L2 {rel[worst]:.2e} ({worst}); terms {m_card} vs {m_host} "
+        f"({time.perf_counter() - t:.1f} s)")
 
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -7,10 +7,11 @@ The reference's ``fuse_routing`` mixes per sample in a Python loop
 heatmaps. ``get_final_preds`` (inference.py:50-75) is the decode + inverse
 affine, batched.
 
-Two layouts: the int8 serving tail's S-minor, phase-packed [J, N, V, S]
-(``*_jns`` / ``*_packed``), and the float path's [..., J, h, w] — PyTorch's
-channels-first maps, where the JAX package's same-named functions take
-[..., h, w, J].
+Two layouts: the int8 serving tail's S-minor [J, N, V, S], row-major
+(``*_jns``) or phase-packed (``*_packed``), and the float path's
+[..., J, h, w] — PyTorch's channels-first maps, where the JAX package's
+same-named functions take [..., h, w, J]. :func:`fuse_routing` is
+elementwise and takes either 5-D layout.
 """
 
 from __future__ import annotations
@@ -20,8 +21,10 @@ from posetpu_torch.ops import decode as _decode
 from posetpu_torch.ops.heatmap import (
     decode_heatmaps_packed,
     flip_back,
+    flip_back_jns,
     flip_back_packed,
     shift_heatmap_right,
+    shift_heatmap_right_jns,
     shift_heatmap_right_packed,
 )
 
@@ -54,6 +57,14 @@ def flip_test_merge(output, output_flipped, flip_pairs, shift: bool = False):
     return 0.5 * (output + of)
 
 
+def flip_test_merge_jns(output, output_flipped, flip_pairs, hw, shift: bool = False):
+    """S-minor twin of :func:`flip_test_merge`: [J, ..., S] maps."""
+    of = flip_back_jns(output_flipped, flip_pairs, hw)
+    if shift:
+        of = shift_heatmap_right_jns(of, hw)
+    return 0.5 * (output + of)
+
+
 def flip_test_merge_packed(output, output_flipped, flip_pairs, hw,
                            shift: bool = False, levels: int = 1):
     """Phase-PACKED twin of :func:`flip_test_merge`: [J, ..., S] maps stay in
@@ -76,6 +87,21 @@ def final_preds(heatmaps, center, scale, post_process: bool = True):
     h, w = heatmaps.shape[-2:]
     coords, maxvals = _decode.decode_heatmaps_kernel(heatmaps, post_process=post_process)
     return transform_preds(coords, center, scale, (w, h)), maxvals
+
+
+def final_preds_jns(heatmaps, center, scale, hw, post_process: bool = True):
+    """S-minor twin of :func:`final_preds`: heatmaps [J, N, V, S] row-major
+    in S; center/scale [N, V, 2]; hw (h, w). Each row is one map already, so
+    the decode reads them in place: the B7 kernel on a CUDA tensor, its plain
+    version on a CPU one. As :func:`final_preds` (and the reference), a map
+    whose maximum is <= 0 decodes to (0, 0) with no quarter-pixel nudge; the
+    JAX package's ``final_preds_jns`` nudges it (ops/heatmap._decode_rows).
+    Returns (preds [N, V, J, 2], maxvals [N, V, J])."""
+    h, w = int(hw[0]), int(hw[1])
+    coords, maxvals = _decode.decode_heatmaps_kernel(
+        heatmaps.reshape(heatmaps.shape[:-1] + (h, w)), post_process=post_process)
+    preds = transform_preds(coords.movedim(0, 2), center, scale, (w, h))
+    return preds, maxvals.movedim(0, 2)
 
 
 def final_preds_packed(heatmaps, center, scale, hw, tables,

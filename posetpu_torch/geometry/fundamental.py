@@ -1,0 +1,69 @@
+"""Fundamental matrices for the epipolar loss, from calibration.
+
+The reference mints per-(subject, view-pair) F matrices offline with
+``cv2.findFundamentalMat`` on ground-truth joints
+(run/test/generate_fundamental_matirx.py:33-103). Here the exact F comes from
+the cameras (F = K2^-T [t]x R K1^-1), on the host in float64 numpy: the
+residual x2^T F x1 cancels ~1e6-sized products, so f32 here would leave
+O(0.05 px) noise floors.
+
+Convention: x1 in view a and x2 in view b (homogeneous pixels) satisfy
+``x2^T F x1 = 0`` with F = bank[(subject, a, b)], FundamentalLoss's
+``(h2 @ F) . h1`` residual (lib/core/loss.py:128).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from posetpu_torch.core.losses import VIEW_PERMS
+from posetpu_torch.geometry.cameras import CameraParams
+
+
+def _f64(t):
+    return np.asarray(t.detach().cpu().numpy() if isinstance(t, torch.Tensor) else t,
+                      np.float64)
+
+
+def fundamental_from_cameras(cam1: CameraParams, cam2: CameraParams):
+    """Exact F for the pinhole parts of two cameras (distortion ignored, as
+    in the reference's fitted F): a [3, 3] float64 numpy array scaled so its
+    largest |entry| is 1."""
+    R1, R2, T1, T2 = _f64(cam1.R), _f64(cam2.R), _f64(cam1.T), _f64(cam2.T)
+
+    def kmat(cam):
+        f, c = _f64(cam.f), _f64(cam.c)
+        return np.array([[f[0], 0, c[0]], [0, f[1], c[1]], [0, 0, 1]])
+
+    r_rel = R2 @ R1.T
+    t_rel = R2 @ (T1 - T2)
+    tx = np.array([[0, -t_rel[2], t_rel[1]],
+                   [t_rel[2], 0, -t_rel[0]],
+                   [-t_rel[1], t_rel[0], 0]])
+    f = np.linalg.inv(kmat(cam2)).T @ (tx @ r_rel) @ np.linalg.inv(kmat(cam1))
+    return f / np.maximum(np.abs(f).max(), 1e-12)
+
+
+def build_fundamental_bank(cams_by_subject: dict) -> dict:
+    """{subject: CameraParams with leading [V]} -> {(subject, a, b): [3, 3]
+    float32 F} over the 12 ordered pairs, the dict FundamentalLoss reads
+    (loss.py:92-99)."""
+    bank = {}
+    for subj, cams in cams_by_subject.items():
+        for a, b in VIEW_PERMS:
+            bank[(subj, a, b)] = fundamental_from_cameras(
+                cams.map(lambda x, a=a: x[a]), cams.map(lambda x, b=b: x[b])
+            ).astype(np.float32)
+    return bank
+
+
+def bank_to_batch(bank: dict, subjects, device=None) -> torch.Tensor:
+    """Per-sample [N, 12, 3, 3] F stacks gathered from ``bank`` by subject
+    id (the reference looks each one up per sample, loss.py:125-128), as a
+    tensor on ``device`` (the CPU unless given)."""
+    out = np.empty((len(subjects), len(VIEW_PERMS), 3, 3), np.float32)
+    for i, s in enumerate(np.asarray(subjects)):
+        for p, (a, b) in enumerate(VIEW_PERMS):
+            out[i, p] = bank[(int(s), a, b)]
+    return torch.as_tensor(out, device=device)

@@ -13,6 +13,10 @@ MultiViewPose` (or, for a tree without a ``resnet`` subtree, for
   running_mean/running_var;
 * the stacked [12, S, S] aggregation bank as it is.
 
+:func:`from_jax_train_state` carries a JAX train state (params, batch
+statistics and optax Adam's moments) into the port's, so both packages can
+step from one state.
+
 :func:`from_jax_params` turns a JAX serving pipeline's params
 ({"q": qparams, "qagg": bank}) or a JAX ``make_fused_forward``'s
 ({"q", "fused", "deconv"}), as numpy, into the port's, so a test can hand the
@@ -105,3 +109,34 @@ def from_jax_params(tree, device=None) -> dict:
     if "deconv" in tree:
         out["deconv"] = [_dc.deconv_device_args(a, dev) for a in tree["deconv"]]
     return out
+
+
+def _f32(tree):
+    """A numpy tree with every leaf as f32 (a bf16 moment widens exactly;
+    torch cannot take numpy's bf16)."""
+    if isinstance(tree, Mapping):
+        return {k: _f32(v) for k, v in tree.items()}
+    return np.asarray(tree, np.float32)
+
+
+def from_jax_train_state(state, model, tx, device=None):
+    """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
+    state)``) whose optimizer is optax.adam -> the port's
+    :class:`~posetpu_torch.train.state.TrainState` for ``model`` (a
+    MultiViewPose the weights are loaded into, moved to ``device``) and
+    ``tx`` (a train/optim.py Adam): the moments keyed and laid out as the
+    parameters, in ``tx``'s dtypes, and the step count. CUDA unless
+    ``device`` is given."""
+    from posetpu_torch.train.state import TrainState
+
+    dev = resolve_device(device)
+    model.load_state_dict(from_jax_variables({"params": state.params,
+                                              "batch_stats": state.batch_stats}))
+    model.to(dev)
+    adam = next(s for s in state.opt_state if hasattr(s, "mu"))  # (adam, schedule)
+    opt = tx.init(model)
+    opt["count"] = int(adam.count)
+    for k in ("mu", "nu"):
+        carried = from_jax_variables({"params": _f32(getattr(adam, k))})
+        opt[k] = {n: carried[n].to(device=dev, dtype=t.dtype) for n, t in opt[k].items()}
+    return TrainState(model, opt, int(state.step))

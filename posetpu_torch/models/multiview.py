@@ -4,7 +4,8 @@ The reference runs 12 separate ``ChannelWiseFC`` modules in a Python double
 loop over ordered view pairs (lib/models/multiview_pose_resnet.py:42-58).
 Here the bank is ONE ``[12, S, S]`` parameter and the fusion one batched
 matmul with the per-view mean folded in. Views live in a leading axis and
-are folded into the batch for the shared backbone.
+are folded into the batch for the shared backbone. ``dtype`` is Flax's (see
+models/pose_resnet.py): the bank stays f32 and the product runs in ``dtype``.
 """
 
 from __future__ import annotations
@@ -23,25 +24,35 @@ class Aggregation(nn.Module):
     """12-way learned heatmap warp bank (multiview_pose_resnet.py:31-58)."""
 
     def __init__(self, heatmap_size: int,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         s = heatmap_size * heatmap_size
         # ChannelWiseFC init U(0, 0.1)
         self.weight = nn.Parameter(torch.empty(12, s, s))
         nn.init.uniform_(self.weight, 0.0, 0.1, generator=generator)
 
     def forward(self, heatmaps):
-        """heatmaps: [N, 4, h, w, J] -> fused [N, 4, h, w, J]. Each target
-        view's output is the mean of its three warped source views."""
-        n, v, h, w, j = heatmaps.shape
-        if v != 4:
-            raise ValueError(f"the aggregation bank is built for 4 views, got {v}")
-        s = h * w
-        x = heatmaps.reshape(n, v, s, j).transpose(2, 3)  # [N, V, J, S]
-        g = x[:, list(SRC_VIEW)].transpose(0, 1).reshape(12, n * j, s)
-        warped = torch.bmm(g, self.weight)  # [12, N*J, S]
-        fused = warped.reshape(4, 3, n, j, s).mean(dim=1)  # [V, N, J, S]
-        return fused.permute(1, 0, 3, 2).reshape(n, v, h, w, j)
+        """heatmaps: [N, 4, h, w, J] -> fused [N, 4, h, w, J] f32. Each
+        target view's output is the mean of its three warped source views;
+        the gathered maps and the bank are cast to ``dtype`` for the
+        product."""
+        return aggregate(heatmaps, self.weight, self.dtype)
+
+
+def aggregate(heatmaps, bank, dtype=torch.float32):
+    """:class:`Aggregation`'s forward with the bank [12, S, S] given:
+    heatmaps [N, 4, h, w, J] -> fused [N, 4, h, w, J] f32, the product in
+    ``dtype``."""
+    n, v, h, w, j = heatmaps.shape
+    if v != 4:
+        raise ValueError(f"the aggregation bank is built for 4 views, got {v}")
+    s = h * w
+    x = heatmaps.reshape(n, v, s, j).transpose(2, 3)  # [N, V, J, S]
+    g = x[:, list(SRC_VIEW)].transpose(0, 1).reshape(12, n * j, s)
+    warped = torch.bmm(g.to(dtype), bank.to(dtype))  # [12, N*J, S]
+    fused = warped.reshape(4, 3, n, j, s).mean(dim=1)  # [V, N, J, S]
+    return fused.permute(1, 0, 3, 2).reshape(n, v, h, w, j).float()
 
 
 class MultiViewPose(nn.Module):
@@ -49,11 +60,11 @@ class MultiViewPose(nn.Module):
     (multiview_pose_resnet.py:61-84)."""
 
     def __init__(self, resnet: PoseResNet, heatmap_size: int | None = None,
-                 generator: torch.Generator | None = None):
+                 generator: torch.Generator | None = None, dtype=torch.float32):
         super().__init__()
         self.resnet = resnet
         self.aggre_layer = (None if heatmap_size is None
-                            else Aggregation(heatmap_size, generator))
+                            else Aggregation(heatmap_size, generator, dtype))
 
     def forward(self, views):
         """views: [N, V, H, W, 3] -> (raw [N, V, h, w, J], fused or None,
@@ -66,10 +77,11 @@ class MultiViewPose(nn.Module):
         return heatmaps, fused, low, high
 
 
-def get_multiview_pose_net(cfg, generator: torch.Generator | None = None
-                           ) -> MultiViewPose:
-    resnet = get_pose_net(cfg)
+def get_multiview_pose_net(cfg, generator: torch.Generator | None = None,
+                           dtype=torch.float32) -> MultiViewPose:
+    """``dtype`` for the backbone and the bank's product; parameters f32."""
+    resnet = get_pose_net(cfg, dtype)
     if generator is not None:
         resnet.init_weights(generator)
     size = int(cfg.NETWORK.HEATMAP_SIZE[0]) if bool(cfg.NETWORK.AGGRE) else None
-    return MultiViewPose(resnet, size, generator)
+    return MultiViewPose(resnet, size, generator, dtype)

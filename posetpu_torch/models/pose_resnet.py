@@ -7,6 +7,12 @@ The deconvs are native ``nn.ConvTranspose2d`` (k4/s2/p1), so weights carry
 the reference checkpoint layout unchanged. Submodule names follow the JAX
 model (``layer1_0.conv1``, ``deconv0_conv``, ``final_layer``) so the weight
 bridge (models/convert.py) is a pure name-and-layout mapping.
+
+``dtype`` is Flax's ``dtype`` with ``param_dtype=float32``: parameters stay
+f32 and each conv, deconv and BatchNorm computes in ``dtype`` (explicit
+casts of the weights at use, not autocast, whose op lists differ from
+Flax's); the heatmaps leave in f32. BatchNorm keeps Flax's training
+semantics (:class:`BatchNorm`).
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-BN_MOMENTUM = 0.1
+BN_MOMENTUM = 0.1  # torch's convention; Flax's 0.9 = 1 - 0.1
 
 # (block kind, per-stage block counts) per depth — the standard ResNet family
 RESNET_SPEC = {
@@ -27,19 +33,56 @@ RESNET_SPEC = {
 }
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm with Flax's semantics (flax.linen.BatchNorm, momentum 0.9):
+    in training the running averages move by ``0.9 * ra + 0.1 * batch`` with
+    the *biased* batch variance (``nn.BatchNorm2d`` uses the unbiased one),
+    reduced in f32 whatever the input's dtype; the input is normalised by
+    the batch statistics. The output keeps the input's dtype; the scale,
+    shift and statistics stay f32."""
+
+    def forward(self, x):
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                                self.bias, False, 0.0, self.eps)
+        # momentum 1 leaves the batch's mean and unbiased variance in the
+        # temporaries, from the same pass that normalises x
+        mean = torch.zeros_like(self.running_mean)
+        var = torch.ones_like(self.running_var)
+        y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0, self.eps)
+        n = x.numel() // x.shape[1]
+        with torch.no_grad():
+            m = 1.0 - BN_MOMENTUM
+            self.running_mean.mul_(m).add_(mean * BN_MOMENTUM)
+            self.running_var.mul_(m).add_(var * ((n - 1) / n) * BN_MOMENTUM)
+        return y
+
+
 def _conv(cin, cout, k, stride=1):
     return nn.Conv2d(cin, cout, k, stride, (k - 1) // 2, bias=False)
 
 
 def _bn(c):
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=BN_MOMENTUM)
+    return BatchNorm(c, eps=1e-5, momentum=BN_MOMENTUM)
+
+
+def conv(m, x, dtype):
+    """``m`` (an ``nn.Conv2d`` or ``nn.ConvTranspose2d``) applied to ``x`` in
+    ``dtype``, its f32 weights cast at use."""
+    w = m.weight.to(dtype)
+    b = None if m.bias is None else m.bias.to(dtype)
+    if isinstance(m, nn.ConvTranspose2d):
+        return F.conv_transpose2d(x, w, b, m.stride, m.padding, m.output_padding)
+    return F.conv2d(x, w, b, m.stride, m.padding)
 
 
 class BasicBlock(nn.Module):
     expansion = 1
 
-    def __init__(self, inplanes, planes, stride=1, downsample=False):
+    def __init__(self, inplanes, planes, stride=1, downsample=False,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = _conv(inplanes, planes, 3, stride)
         self.bn1 = _bn(planes)
         self.conv2 = _conv(planes, planes, 3)
@@ -48,19 +91,21 @@ class BasicBlock(nn.Module):
         self.downsample_bn = _bn(planes) if downsample else None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = F.relu(self.bn1(conv(self.conv1, x, self.dtype)))
+        out = self.bn2(conv(self.conv2, out, self.dtype))
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = self.downsample_bn(conv(self.downsample_conv, x, self.dtype))
         return F.relu(out + residual)
 
 
 class Bottleneck(nn.Module):
     expansion = 4
 
-    def __init__(self, inplanes, planes, stride=1, downsample=False):
+    def __init__(self, inplanes, planes, stride=1, downsample=False,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.conv1 = _conv(inplanes, planes, 1)
         self.bn1 = _bn(planes)
         self.conv2 = _conv(planes, planes, 3, stride)
@@ -72,23 +117,26 @@ class Bottleneck(nn.Module):
         self.downsample_bn = _bn(planes * 4) if downsample else None
 
     def forward(self, x):
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = F.relu(self.bn1(conv(self.conv1, x, self.dtype)))
+        out = F.relu(self.bn2(conv(self.conv2, out, self.dtype)))
+        out = self.bn3(conv(self.conv3, out, self.dtype))
         residual = x
         if self.downsample_conv is not None:
-            residual = self.downsample_bn(self.downsample_conv(x))
+            residual = self.downsample_bn(conv(self.downsample_conv, x, self.dtype))
         return F.relu(out + residual)
 
 
 class PoseResNet(nn.Module):
     """Backbone + deconv head. ``forward(x [N, H, W, 3])`` returns
-    (heatmaps [N, h, w, J], layer1 features, deconv features), NHWC."""
+    (heatmaps [N, h, w, J] f32, layer1 features, deconv features), NHWC,
+    the features in ``dtype``."""
 
     def __init__(self, num_layers: int = 50, num_joints: int = 16,
                  deconv_filters=(256, 256, 256), deconv_kernels=(4, 4, 4),
-                 final_conv_kernel: int = 1, deconv_with_bias: bool = False):
+                 final_conv_kernel: int = 1, deconv_with_bias: bool = False,
+                 dtype=torch.float32):
         super().__init__()
+        self.dtype = dtype
         self.num_layers = num_layers
         self.num_joints = num_joints
         self.deconv_filters = tuple(deconv_filters)
@@ -107,7 +155,7 @@ class PoseResNet(nn.Module):
                 need_ds = b == 0 and (stride != 1
                                       or inplanes != planes * block_cls.expansion)
                 name = f"layer{stage}_{b}"
-                self.add_module(name, block_cls(inplanes, planes, stride, need_ds))
+                self.add_module(name, block_cls(inplanes, planes, stride, need_ds, dtype))
                 self.block_names.append(name)
                 inplanes = planes * block_cls.expansion
 
@@ -134,8 +182,8 @@ class PoseResNet(nn.Module):
                 m.reset_parameters()
 
     def forward(self, x):
-        x = x.permute(0, 3, 1, 2)
-        x = F.relu(self.bn1(self.conv1(x)))
+        x = x.permute(0, 3, 1, 2).to(self.dtype)
+        x = F.relu(self.bn1(conv(self.conv1, x, self.dtype)))
         x = F.max_pool2d(x, 3, 2, 1)
         x1 = None
         for name in self.block_names:
@@ -144,14 +192,14 @@ class PoseResNet(nn.Module):
                 x1 = x
         f = x
         for i in range(len(self.deconv_filters)):
-            f = getattr(self, f"deconv{i}_conv")(f)
+            f = conv(getattr(self, f"deconv{i}_conv"), f, self.dtype)
             f = F.relu(getattr(self, f"deconv{i}_bn")(f))
-        heatmaps = self.final_layer(f)
+        heatmaps = conv(self.final_layer, f, self.dtype)
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         return nhwc(heatmaps).float(), nhwc(x1), nhwc(f)
 
 
-def get_pose_net(cfg) -> PoseResNet:
+def get_pose_net(cfg, dtype=torch.float32) -> PoseResNet:
     """Factory mirroring the reference entry point (pose_resnet.py:257-266)."""
     return PoseResNet(
         num_layers=cfg.POSE_RESNET.NUM_LAYERS,
@@ -160,4 +208,5 @@ def get_pose_net(cfg) -> PoseResNet:
         deconv_kernels=tuple(cfg.POSE_RESNET.NUM_DECONV_KERNELS),
         final_conv_kernel=cfg.POSE_RESNET.FINAL_CONV_KERNEL,
         deconv_with_bias=cfg.POSE_RESNET.DECONV_WITH_BIAS,
+        dtype=dtype,
     )

@@ -50,6 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from posetpu_torch import resolve_device
+from posetpu_torch.models.multiview import SRC_VIEW
 from posetpu_torch.models.pose_resnet import RESNET_SPEC
 from posetpu_torch.ops import deconv as _dc
 from posetpu_torch.ops import phase_tail as _pt
@@ -161,16 +162,29 @@ def _s2d(x):
     return xd.reshape(n, h // 2, w // 2, 4 * c)
 
 
-def mirror_s2d_hwcn(x):
-    """The flip-test input mirror on the batch-minor serving contract,
-    without unpacking: x [H/2, W/2, 4*C, N] uint8. Virtual column
-    j = 2*jj + b mirrors to W-1-j = 2*(W/2-1-jj) + (1-b): reverse the packed
-    column axis (axis 1) and swap the b-phase channel groups (axis 2).
-    Equals packing the W-reversed images (lib/core/function.py:557-562)."""
-    c = x.shape[2] // 4
+def _mirror_perm(c4: int, device):
+    """The s2d channel order of the mirrored image: the b-phase groups of
+    each a-phase swap."""
+    c = c4 // 4
     perm = torch.cat([torch.arange(c, 2 * c), torch.arange(0, c),      # a=0: b=1 <-> b=0
                       torch.arange(3 * c, 4 * c), torch.arange(2 * c, 3 * c)])  # a=1
-    return x.flip(1).index_select(2, perm.to(x.device))
+    return perm.to(device)
+
+
+def mirror_s2d(x):
+    """Horizontal mirror of an s2d-packed image [..., H/2, W/2, 4*C] without
+    unpacking: virtual column j = 2*jj + b mirrors to W-1-j =
+    2*(W/2-1-jj) + (1-b), so reverse the packed column axis and swap the
+    b-phase channel groups. Equals :func:`_s2d` of the W-reversed image
+    (the flip test's input flip, lib/core/function.py:557-562)."""
+    return x.flip(-2).index_select(-1, _mirror_perm(x.shape[-1], x.device))
+
+
+def mirror_s2d_hwcn(x):
+    """:func:`mirror_s2d` on the batch-minor serving contract: x
+    [H/2, W/2, 4*C, N] uint8; the packed column axis is axis 1 and the
+    channels axis 2."""
+    return x.flip(1).index_select(2, _mirror_perm(x.shape[2], x.device))
 
 
 def _subpixel_wants(subpixel_deconvs, name) -> bool:
@@ -879,6 +893,75 @@ def make_u8_quant(qparams, mean, std):
 
 
 # ------------------------------------------------------- quantized fusion
+
+
+def quantize_aggregation(bank, calib_heatmaps=None, device=None):
+    """The [12, S, S] ChannelWiseFC bank -> int8 with per-(pair, output
+    column) weight scales; the heatmaps' scale from calibration maxima
+    (default 1.2). Numpy arithmetic, as the JAX package; returned as
+    tensors on ``device`` (CUDA unless given): {"wq" [12, S, S] int8,
+    "w_scale" [12, 1, S] f32, "x_scale" 0-d f32}, for
+    :func:`aggregation_int8_apply` and :func:`aggregation_int8_apply_jns`."""
+    dev = resolve_device(device)
+    bank = bank.detach().cpu().numpy() if isinstance(bank, torch.Tensor) else bank
+    w = np.asarray(bank, np.float32)
+    s_w = np.maximum(np.abs(w).max(axis=1, keepdims=True), 1e-8) / 127.0  # [12,1,S]
+    wq = np.clip(np.round(w / s_w), -127, 127).astype(np.int8)
+    amax = 1.2
+    if calib_heatmaps is not None:
+        amax = max(float(np.abs(np.asarray(calib_heatmaps)).max()), 1e-6)
+    t = lambda a: torch.as_tensor(a, device=dev)
+    return {"wq": t(wq), "w_scale": t(s_w.astype(np.float32)),
+            "x_scale": t(np.float32(amax / 127.0))}
+
+
+def _quantize_maps(qagg, hm):
+    """clip(round(hm * (1 / x_scale))) as int8, the product in f32 whatever
+    hm's dtype (a bf16 map times the f32 scale is f32 in JAX too)."""
+    return torch.clamp(torch.round(hm.float() * (1.0 / qagg["x_scale"])), -127, 127
+                       ).to(torch.int8)
+
+
+def _per_pair(qagg, g):
+    """g [12, M, S] int8 -> [12, M, S] f32: per pair the exact int32 product
+    with the bank (``ops/int_mm.py``), times ``x_scale * w_scale`` rounded
+    once."""
+    y = torch.stack([int_mm(g[p], qagg["wq"][p]) for p in range(12)])
+    return y.float() * (qagg["x_scale"] * qagg["w_scale"])
+
+
+def _mean3(y, dim: int):
+    """The mean over a size-3 axis as XLA computes jnp.mean: the f32 sum in
+    order, times f32(1/3) (XLA turns the division by a constant into that
+    multiply)."""
+    a, b, c = y.float().unbind(dim)
+    return (a + b + c) * (1.0 / 3.0)
+
+
+def aggregation_int8_apply(qagg, heatmaps):
+    """int8 twin of :class:`~posetpu_torch.models.multiview.Aggregation`:
+    heatmaps [N, 4, h, w, J] -> fused [N, 4, h, w, J] f32, ``qagg`` from
+    :func:`quantize_aggregation`. The maps are quantized first, so every
+    gather moves int8 bytes."""
+    n, v, h, w_, j = heatmaps.shape
+    s = h * w_
+    x = _quantize_maps(qagg, heatmaps).reshape(n, v, s, j).transpose(2, 3)  # [N, V, J, S]
+    g = x[:, list(SRC_VIEW)].transpose(0, 1).reshape(12, n * j, s)
+    y = _per_pair(qagg, g).reshape(4, 3, n, j, s)
+    fused = _mean3(y, 1)  # [V, N, J, S]
+    return fused.permute(1, 0, 3, 2).reshape(n, v, h, w_, j)
+
+
+def aggregation_int8_apply_jns(qagg, hm):
+    """S-minor twin of :func:`aggregation_int8_apply`: hm [J, N, V, S] ->
+    fused [J, N, V, S] in hm's dtype. Each pair's scaled product is rounded
+    to that dtype before the mean (a bf16 tail stays bf16), as the JAX
+    package does."""
+    j, n, v, s = hm.shape
+    g = _quantize_maps(qagg, hm)[:, :, list(SRC_VIEW)]  # [J, N, 12, S]
+    g = g.movedim(2, 0).reshape(12, j * n, s)
+    y = _per_pair(qagg, g).to(hm.dtype).reshape(v, 3, j, n, s)
+    return _mean3(y, 1).to(hm.dtype).movedim(0, 2)  # [J, N, V, S]
 
 
 def quantize_aggregation_grouped(bank, calib_heatmaps=None):

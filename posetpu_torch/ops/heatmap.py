@@ -1,4 +1,5 @@
-"""Heatmap decoding and flip-test moves, row-major and phase-packed.
+"""Heatmap targets, decoding and flip-test moves, row-major, S-minor and
+phase-packed.
 
 The int8 serving tail's heatmaps never exist in row-major order: the fused
 tail writes them phase-packed (:func:`phase_index_tables`), and
@@ -9,7 +10,12 @@ flip test's W-reversal and right-shift as static moves in that order.
 
 The float path keeps PyTorch's [..., J, H, W] maps: :func:`max_preds`,
 :func:`decode_heatmaps` (the plain version of the B7 kernel,
-ops/decode.py), :func:`flip_back`, :func:`shift_heatmap_right`.
+ops/decode.py), :func:`flip_back`, :func:`shift_heatmap_right`; the JAX
+package's channels-last and S-minor twins (``*_hwj``, ``*_jns``) are the
+same moves on [..., H, W, J] and [J, ..., S] maps.
+
+Training: :func:`render_gaussian_heatmaps` (the targets) and
+:func:`soft_argmax_2d` (the differentiable decode of the fundamental loss).
 """
 
 from __future__ import annotations
@@ -58,6 +64,49 @@ def decode_heatmaps(heatmaps, post_process: bool = True):
     return coords + offs * ok.float()[..., None], maxvals
 
 
+def _decode_rows(flat, w: int, post_process: bool):
+    """The S-minor decode of the JAX package's ``decode_heatmaps_jns`` /
+    ``_hwj`` over rows flat [..., S] of row-major maps w wide. Unlike
+    :func:`decode_heatmaps` (and B7, and the reference), the quarter-pixel
+    nudge is taken at the argmax itself, so a map whose maximum is <= 0
+    decodes to (0, 0) plus that nudge; on every other map the two agree."""
+    s = flat.shape[-1]
+    h = s // w
+    maxvals = flat.amax(dim=-1)
+    iota = torch.arange(s, device=flat.device)
+    idx = torch.clamp(torch.where(flat == maxvals[..., None], iota, s).amin(dim=-1), max=s - 1)
+    px, py = idx % w, idx // w
+    coords = torch.stack([px.float(), py.float()], dim=-1) * (maxvals > 0.0).float()[..., None]
+    if not post_process:
+        return coords, maxvals
+
+    def at(dy, dx):
+        yy = torch.clamp(py + dy, 0, h - 1)
+        xx = torch.clamp(px + dx, 0, w - 1)
+        return torch.gather(flat, -1, (yy * w + xx)[..., None])[..., 0]
+
+    diff_x = at(0, 1) - at(0, -1)
+    diff_y = at(1, 0) - at(-1, 0)
+    ok = (px > 1) & (px < w - 1) & (py > 1) & (py < h - 1)
+    offs = 0.25 * torch.stack([torch.sign(diff_x), torch.sign(diff_y)], dim=-1)
+    return coords + offs * ok.float()[..., None], maxvals
+
+
+def decode_heatmaps_hwj(heatmaps, post_process: bool = True):
+    """Decode of channels-last [..., H, W, J] maps (see :func:`_decode_rows`).
+    Returns coords [..., J, 2] and maxvals [..., J]."""
+    h, w, j = heatmaps.shape[-3:]
+    rows = heatmaps.reshape(heatmaps.shape[:-3] + (h * w, j)).transpose(-1, -2)
+    return _decode_rows(rows, w, post_process)
+
+
+def decode_heatmaps_jns(heatmaps, hw, post_process: bool = True):
+    """Decode of S-minor [J, ..., S] maps, S = h*w row-major, ``hw`` =
+    (h, w) (see :func:`_decode_rows`). Returns coords [J, ..., 2] and
+    maxvals [J, ...]."""
+    return _decode_rows(heatmaps, int(hw[1]), post_process)
+
+
 def _swapped(j: int, flip_pairs, device):
     order = list(range(j))
     for a, b in flip_pairs:
@@ -77,6 +126,22 @@ def shift_heatmap_right(heatmaps):
     """Shift [..., H, W] maps one pixel right, duplicating the first column:
     the flip-test alignment trick (reference: function.py:575-580)."""
     return torch.cat([heatmaps[..., :, :1], heatmaps[..., :, :-1]], dim=-1)
+
+
+def flip_back_jns(heatmaps, flip_pairs, hw):
+    """:func:`flip_back` for S-minor [J, ..., S] maps: the joint swap on the
+    leading axis, the W-reversal inside S."""
+    h, w = int(hw[0]), int(hw[1])
+    order = _swapped(heatmaps.shape[0], flip_pairs, heatmaps.device)
+    x = heatmaps.reshape(heatmaps.shape[:-1] + (h, w)).flip(-1)
+    return x.reshape(heatmaps.shape).index_select(0, order)
+
+
+def shift_heatmap_right_jns(heatmaps, hw):
+    """:func:`shift_heatmap_right` for S-minor [..., S] maps."""
+    h, w = int(hw[0]), int(hw[1])
+    x = heatmaps.reshape(heatmaps.shape[:-1] + (h, w))
+    return shift_heatmap_right(x).reshape(heatmaps.shape)
 
 
 def flip_back_packed(heatmaps, flip_pairs, hw, levels: int = 1):
@@ -194,3 +259,47 @@ def decode_heatmaps_packed(heatmaps, tables, hw, post_process: bool = True):
     ok = (px > 1) & (px < w - 1) & (py > 1) & (py < h - 1)
     offs = 0.25 * torch.stack([torch.sign(diff_x), torch.sign(diff_y)], dim=-1)
     return coords + offs * ok.float()[..., None], maxvals
+
+
+def render_gaussian_heatmaps(joints, joints_vis, heatmap_size, image_size, sigma):
+    """Gaussian target heatmaps with the reference's integer centres
+    (joints_dataset_compatible.py:207-253): the centre is
+    ``trunc(x / stride + 0.5)`` (``int()`` truncates toward 0), the Gaussian
+    ``exp(-d^2 / (2 sigma^2))`` is cut to a +-3 sigma window, and a joint
+    whose window misses the map gets weight 0.
+
+    joints [..., J, 2] in input-image pixels, joints_vis [..., J] (0/1),
+    heatmap_size and image_size (W, H), sigma in heatmap pixels. Returns
+    target [..., J, H, W] f32 and weight [..., J] f32.
+    """
+    joints = torch.as_tensor(joints, dtype=torch.float32)
+    vis = torch.as_tensor(joints_vis, dtype=torch.float32, device=joints.device)
+    hw, hh = int(heatmap_size[0]), int(heatmap_size[1])
+    iw, ih = float(image_size[0]), float(image_size[1])
+    tmp = 3 * sigma
+    stride = torch.tensor([iw / hw, ih / hh], dtype=torch.float32, device=joints.device)
+    mu = torch.trunc(joints / stride + 0.5)
+    mux, muy = mu[..., 0], mu[..., 1]
+    inside = (mux - tmp < hw) & (muy - tmp < hh) & (mux + tmp + 1 >= 1) & (muy + tmp + 1 >= 1)
+    weight = vis * inside.float()
+    xs = torch.arange(hw, dtype=torch.float32, device=joints.device)
+    ys = torch.arange(hh, dtype=torch.float32, device=joints.device)[:, None]
+    dx = xs - mux[..., None, None]
+    dy = ys - muy[..., None, None]
+    g = torch.exp(-(dx * dx + dy * dy) / (2.0 * sigma * sigma))
+    support = (dx.abs() <= tmp) & (dy.abs() <= tmp)
+    target = g * support.float() * (weight[..., None, None] > 0.5).float()
+    return target, weight
+
+
+def soft_argmax_2d(heatmaps, temperature: float = 100.0):
+    """Differentiable expected-coordinate decode (integral pose regression,
+    generate_integral_preds_2d_th, lib/utils/transforms.py:149-171): the
+    maps scaled by ``temperature``, softmaxed over H*W, and the (x, y)
+    expectation taken. heatmaps [..., H, W] -> [..., 2]."""
+    h, w = heatmaps.shape[-2:]
+    flat = heatmaps.reshape(heatmaps.shape[:-2] + (h * w,)) * temperature
+    p = torch.softmax(flat, dim=-1).reshape(heatmaps.shape)
+    xs = torch.arange(w, dtype=p.dtype, device=p.device)
+    ys = torch.arange(h, dtype=p.dtype, device=p.device)
+    return torch.stack([(p.sum(-2) * xs).sum(-1), (p.sum(-1) * ys).sum(-1)], dim=-1)

@@ -79,7 +79,7 @@ def finalize_device_params(params):
 def build_serving_pipeline(cfg, model, calib_batches, *, flip_test=False,
                            views: int = 4, subpixel_deconvs=frozenset({"deconv0"}),
                            flip_pairs=None, act4="l12", agg_w4: bool = False,
-                           device=None) -> ServingPipeline:
+                           aggre_kernel: bool = True, device=None) -> ServingPipeline:
     """Quantize a MultiViewPose module into the int8 serving pipeline.
 
     cfg: the reference-schema config (NETWORK.HEATMAP_SIZE, DATASET.MEAN/STD,
@@ -102,7 +102,13 @@ def build_serving_pipeline(cfg, model, calib_batches, *, flip_test=False,
     pairs swapped by the merge (the union joint set's unless given).
 
     ``agg_w4``: store the aggregation bank diag-split at 4 bits,
-    nibble-packed (half the bank bytes per request), and run the B4 kernel."""
+    nibble-packed (half the bank bytes per request), and run the B4 kernel.
+
+    ``aggre_kernel=False``: the aggregation runs the JAX package's XLA route
+    (``posetpu/serving.py:218-246``), the plain version of B3
+    (``aggregation_grouped_plain``: ``torch._int_mm`` on gathered operands)
+    or of B4 (``aggregation_grouped_s4_plain``), on the card as on the CPU;
+    the int32 products are exact, so the outputs equal the kernels'."""
     from posetpu_torch.core.inference import (
         final_preds_packed,
         flip_test_merge_packed,
@@ -152,6 +158,15 @@ def build_serving_pipeline(cfg, model, calib_batches, *, flip_test=False,
     pairs = tuple(tuple(p) for p in (flip_pairs or union_flip_pairs()))
     params = {"q": qparams, "qagg": qagg}
 
+    def aggregate(qagg, raw):
+        # looked up at call time, so a caller may wrap the module's functions
+        s4 = "wq4" in qagg  # the diag-split bank (agg_w4=True)
+        if aggre_kernel:
+            fn = agg.aggregation_grouped_s4 if s4 else agg.aggregation_grouped
+        else:
+            fn = agg.aggregation_grouped_s4_plain if s4 else agg.aggregation_grouped_plain
+        return fn(qagg, raw)
+
     @torch.no_grad()
     def infer(params, x, center, scale, is_h36m):
         u8_quant = make_u8_quant(params["q"], mean, std)
@@ -167,10 +182,7 @@ def build_serving_pipeline(cfg, model, calib_batches, *, flip_test=False,
         n = hm.shape[1] // views
         raw = hm.reshape(hm.shape[0], n, views, hm.shape[-1])
         if params["qagg"] is not None:
-            if "wq4" in params["qagg"]:  # s4 diag-split bank (agg_w4=True)
-                fused = agg.aggregation_grouped_s4(params["qagg"], raw)
-            else:
-                fused = agg.aggregation_grouped(params["qagg"], raw)
+            fused = aggregate(params["qagg"], raw)
             out = fuse_routing_jns(raw, fused, is_h36m)
         else:
             out = raw

@@ -1,0 +1,151 @@
+"""Optimizers and learning-rate schedules, as optax computes them.
+
+The reference's get_optimizer (lib/utils/utils.py:62-85) with its per-model
+MultiStepLR (run/pose2d/train.py:289-292): Adam (the default, lr 1e-3) or
+SGD with momentum, decayed stepwise at the configured epochs; a learning
+rate of its own for discriminators; ``FIX_BACKBONE`` trains only the
+aggregation bank (utils.py:64-67).
+
+The JAX package builds these from optax, so the arithmetic here is optax's
+and not ``torch.optim``'s: Adam's update is the bias-corrected
+``mu_hat / (sqrt(nu_hat + eps_root) + eps)`` times the schedule's value at
+the step count before the increment, with ``mu`` stored in ``mu_dtype``
+(``TRAIN.ADAM_MU_DTYPE``) beside f32 parameters; the schedule is evaluated
+in f32. The updates run as ``torch._foreach_*`` passes over all parameters
+at once.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def multistep_lr(base_lr: float, lr_step, lr_factor: float, steps_per_epoch: int,
+                 warmup_epochs: int = 0):
+    """MultiStepLR: ``base_lr`` times ``lr_factor`` for each boundary epoch
+    reached (a step count ``>= epoch * steps_per_epoch``). ``warmup_epochs``
+    > 0 puts a linear 0 -> base_lr ramp first (TRAIN.WARMUP_EPOCHS, off by
+    default; the reference has none), after which the steps count from the
+    ramp's end (optax.join_schedules). Returns count -> np.float32."""
+    boundaries = sorted((int(e) * steps_per_epoch, lr_factor) for e in lr_step)
+
+    def multistep(count):
+        v = np.float32(base_lr)
+        for b, factor in boundaries:
+            if count >= b:
+                v = np.float32(factor) * v
+        return v
+
+    if not warmup_epochs:
+        return multistep
+    warm = int(warmup_epochs) * steps_per_epoch
+
+    def schedule(count):
+        if count >= warm:
+            return multistep(count - warm)
+        frac = np.float32(1) - np.float32(min(max(count, 0), warm)) / np.float32(warm)
+        return np.float32(-base_lr) * frac + np.float32(base_lr)
+
+    return schedule
+
+
+class Optimizer:
+    """Adam (optax.adam: b1 0.9, b2 0.999, eps 1e-8, eps_root 0) or SGD with
+    momentum (optax.sgd: ``trace = g + momentum * trace``) over a module's
+    named parameters, those for which ``trainable(name)`` holds; the others
+    get no update at all (optax.set_to_zero). ``mu_dtype``: Adam's first
+    moment's dtype (None: each parameter's own).
+
+    ``init(model)`` -> the optimizer state {"count", "mu", "nu"} (Adam) or
+    {"count", "trace"} (SGD), each a dict by parameter name;
+    ``update(model, state)`` takes one step from the parameters' ``.grad``,
+    in place."""
+
+    B1, B2, EPS = 0.9, 0.999, 1e-8
+
+    def __init__(self, kind: str, schedule, *, mu_dtype=None,
+                 momentum: float = 0.9, nesterov: bool = False, trainable=None):
+        if kind not in ("adam", "sgd"):
+            raise ValueError(f"unknown optimizer {kind!r}")
+        self.kind, self.schedule = kind, schedule
+        self.mu_dtype, self.momentum, self.nesterov = mu_dtype, momentum, nesterov
+        self.trainable = trainable or (lambda name: True)
+
+    def _params(self, model):
+        return {n: p for n, p in model.named_parameters() if self.trainable(n)}
+
+    def init(self, model) -> dict:
+        ps = self._params(model)
+        zeros = lambda dtype=None: {n: torch.zeros_like(p, dtype=dtype) for n, p in ps.items()}
+        if self.kind == "adam":
+            return {"count": 0, "mu": zeros(self.mu_dtype), "nu": zeros()}
+        return {"count": 0, "trace": zeros()}
+
+    @torch.no_grad()
+    def update(self, model, state: dict) -> None:
+        ps = self._params(model)
+        params = list(ps.values())
+        grads = [p.grad for p in params]
+        lr = float(self.schedule(state["count"]))
+        state["count"] += 1
+        if self.kind == "adam":
+            step = self._adam(grads, [state["mu"][n] for n in ps],
+                              [state["nu"][n] for n in ps], state["count"])
+        else:
+            trace = [state["trace"][n] for n in ps]
+            torch._foreach_mul_(trace, self.momentum)
+            torch._foreach_add_(trace, grads)  # g + momentum * trace
+            step = trace
+            if self.nesterov:
+                step = torch._foreach_mul(trace, self.momentum)
+                torch._foreach_add_(step, grads)
+            else:
+                step = [t.clone() for t in trace]
+        torch._foreach_mul_(step, -lr)
+        torch._foreach_add_(params, step)
+
+    def _adam(self, grads, mu, nu, count):
+        """The bias-corrected Adam direction; ``mu`` and ``nu`` advanced in
+        place. optax multiplies a bf16 ``mu`` by b1 rounded to bf16 (a weak
+        Python float takes the array's dtype), and adds in f32."""
+        b1, b2 = self.B1, self.B2
+        b1_mu = b1 if self.mu_dtype is None else float(torch.tensor(b1, dtype=self.mu_dtype))
+        m = torch._foreach_mul(grads, 1 - b1)
+        torch._foreach_add_(m, torch._foreach_mul(mu, b1_mu))  # (1-b1) g + b1 mu, in f32
+        torch._foreach_copy_(mu, m)
+        g2 = torch._foreach_mul(grads, grads)
+        torch._foreach_mul_(g2, 1 - b2)
+        torch._foreach_mul_(nu, b2)
+        torch._foreach_add_(nu, g2)
+        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
+        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        torch._foreach_div_(m, bc1)
+        den = torch._foreach_div(nu, bc2)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.EPS)
+        torch._foreach_div_(m, den)
+        return m
+
+
+def make_optimizer(cfg, steps_per_epoch: int, discriminator: bool = False,
+                   fix_backbone: bool | None = None) -> Optimizer:
+    """The optimizer of the base model (or, with ``discriminator``, of a
+    discriminator) from ``cfg.TRAIN``: OPTIMIZER, LR (LR_DISCRIMINATOR),
+    LR_STEP, LR_FACTOR, WARMUP_EPOCHS, ADAM_MU_DTYPE, MOMENTUM, NESTEROV and
+    FIX_BACKBONE (only ``aggre_layer`` parameters train)."""
+    lr = cfg.TRAIN.LR_DISCRIMINATOR if discriminator else cfg.TRAIN.LR
+    schedule = multistep_lr(lr, cfg.TRAIN.LR_STEP, cfg.TRAIN.LR_FACTOR, steps_per_epoch,
+                            warmup_epochs=int(getattr(cfg.TRAIN, "WARMUP_EPOCHS", 0)))
+    fix = cfg.TRAIN.FIX_BACKBONE if fix_backbone is None else fix_backbone
+    trainable = None
+    if fix and not discriminator:
+        trainable = lambda name: "aggre_layer" in name.split(".")
+    if cfg.TRAIN.OPTIMIZER == "adam":
+        mu_dtype = getattr(cfg.TRAIN, "ADAM_MU_DTYPE", "float32")
+        return Optimizer("adam", schedule, trainable=trainable,
+                         mu_dtype=None if mu_dtype == "float32" else getattr(torch, mu_dtype))
+    if cfg.TRAIN.OPTIMIZER == "sgd":
+        return Optimizer("sgd", schedule, momentum=cfg.TRAIN.MOMENTUM,
+                         nesterov=bool(cfg.TRAIN.NESTEROV), trainable=trainable)
+    raise ValueError(f"unknown optimizer {cfg.TRAIN.OPTIMIZER}")

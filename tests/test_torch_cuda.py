@@ -817,3 +817,77 @@ def test_block_and_deconv_kernels_refuse_unsupported_shapes(cuda):
     with pytest.raises(ValueError, match="resident halo"):
         tdc.fused_subpixel_deconv_head(z(2, 16, 2048), _deconv_args(gen, 2048, 16, 4, cuda),
                                        h=4, w=4)
+
+
+def test_final_preds_jns_decodes_through_b7(cuda):
+    """The S-minor final predictions on the card: one B7 launch on the maps
+    as they lie, equal to the plain decode on the CPU (the inverse affine's
+    2 x 2 product may round apart by an ulp)."""
+    from posetpu_torch.core.inference import final_preds_jns
+
+    gen = torch.Generator().manual_seed(31)
+    hm = torch.randn(16, 3, 4, 64 * 64, generator=gen)
+    hm[2, 1, 0] = -hm[2, 1, 0].abs()  # a map whose maximum is <= 0
+    center = torch.rand(3, 4, 2, generator=gen) * 400 + 300
+    scale = torch.rand(3, 4, 2, generator=gen) + 2
+    before = tdec.decode_heatmaps_kernel.launches
+    p, m = final_preds_jns(hm.to(cuda), center.to(cuda), scale.to(cuda), (64, 64))
+    assert tdec.decode_heatmaps_kernel.launches == before + 1
+    p_cpu, m_cpu = final_preds_jns(hm, center, scale, (64, 64))
+    assert torch.equal(m.cpu(), m_cpu)
+    torch.testing.assert_close(p.cpu(), p_cpu, rtol=0, atol=1e-4)
+
+
+def test_bf16_train_step_on_the_card_matches_the_cpu(cuda):
+    """One bf16 train step (ResNet-18, 64x64, two groups, MSE + consistency +
+    fundamental) from the same weights on the card and on the CPU. bf16
+    convolutions round at other points in cuDNN than on the CPU, and
+    train-mode BN amplifies that toward the stem (the stem's gradient moves
+    by ~40 % between the two), so the yardstick is bf16's own error: the
+    card's loss and each parameter's gradient lie no further from the CPU's
+    bf16 ones than three times the distance of those from the CPU's f32
+    step on the same weights (or than 1e-3 of the loss and 1e-2 of the
+    gradient's norm)."""
+    import copy
+
+    import numpy as np
+
+    from posetpu_torch.config import default_config
+    from posetpu_torch.data.synthetic import make_camera_ring
+    from posetpu_torch.geometry.fundamental import bank_to_batch, build_fundamental_bank
+    from posetpu_torch.models.multiview import get_multiview_pose_net
+    from posetpu_torch.train.optim import make_optimizer
+    from posetpu_torch.train.step import init_train_state, make_train_step
+
+    cfg = default_config()
+    cfg.NETWORK.IMAGE_SIZE = np.array([64, 64])
+    cfg.NETWORK.HEATMAP_SIZE = np.array([16, 16])
+    cfg.POSE_RESNET.NUM_LAYERS = 18
+    cfg.NETWORK.AGGRE = True
+    cfg.LOSS.USE_CONSISTENT_LOSS = True
+    cfg.LOSS.USE_FUNDAMENTAL_LOSS = True
+    rs = np.random.RandomState(0)
+    batch = {"images": rs.randn(2, 4, 64, 64, 3).astype(np.float32),
+             "target": rs.rand(2, 4, 16, 16, 16).astype(np.float32) * 0.1,
+             "weight": np.ones((2, 4, 16), np.float32),
+             "is_h36m": np.ones(2, np.float32),
+             "center": np.full((2, 4, 2), 500.0, np.float32),
+             "scale": np.full((2, 4, 2), 2.5, np.float32),
+             "fmats": bank_to_batch(build_fundamental_bank({0: make_camera_ring()}),
+                                    [0, 0]).numpy()}
+    out = {}
+    for label, dev, dtype in (("cpu", "cpu", torch.bfloat16), ("card", cuda, torch.bfloat16),
+                              ("f32", "cpu", torch.float32)):
+        net = get_multiview_pose_net(cfg, torch.Generator().manual_seed(0), dtype=dtype)
+        tx = make_optimizer(cfg, 10)
+        state = init_train_state(net, tx, device=dev)
+        _, metrics = make_train_step(net, cfg, tx, device=dev)(state, copy.deepcopy(batch))
+        out[label] = ({k: float(v) for k, v in metrics.items()},
+                      {k: p.grad.double().cpu() for k, p in net.named_parameters()})
+    (m_cpu, g_cpu), (m_card, g_card), (m_f32, g_f32) = out["cpu"], out["card"], out["f32"]
+    assert all(np.isfinite(v) for v in m_card.values())
+    assert abs(m_card["loss"] - m_cpu["loss"]) <= max(3 * abs(m_cpu["loss"] - m_f32["loss"]),
+                                                      1e-3 * abs(m_f32["loss"]))
+    for k, g in g_cpu.items():
+        card, bf16 = float((g_card[k] - g).norm()), float((g - g_f32[k]).norm())
+        assert card <= max(3 * bf16, 1e-2 * float(g_f32[k].norm())), (k, card, bf16)

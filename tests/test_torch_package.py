@@ -1,6 +1,6 @@
 """The port stands alone: posetpu_torch and chip_smoke.py import neither JAX,
-Flax nor the JAX package, and importing the kernel build helper needs no
-CUDA toolkit."""
+Flax, optax, orbax nor the JAX package, and importing the kernel build
+helper needs no CUDA toolkit."""
 
 from __future__ import annotations
 
@@ -35,9 +35,13 @@ def test_every_module_imports_with_jax_blocked():
             "posetpu_torch.core.inference", "posetpu_torch.ops.heatmap",
             "posetpu_torch.ops.phase_tail", "posetpu_torch.ops.aggregation",
             "posetpu_torch.ops.decode", "posetpu_torch.ops.resblock",
-            "posetpu_torch.ops.deconv"} <= set(mods)
+            "posetpu_torch.ops.deconv", "posetpu_torch.ops.warp",
+            "posetpu_torch.core.losses", "posetpu_torch.core.evaluate",
+            "posetpu_torch.geometry.fundamental", "posetpu_torch.train.state",
+            "posetpu_torch.train.optim", "posetpu_torch.train.step",
+            "posetpu_torch.train.checkpoint", "posetpu_torch.utils.gradients"} <= set(mods)
     code = ("import sys, importlib\n"
-            "for m in ('jax', 'jaxlib', 'flax', 'posetpu'):\n"
+            "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'posetpu'):\n"
             "    sys.modules[m] = None\n"
             f"for m in {mods!r} + ['chip_smoke']:\n"
             "    importlib.import_module(m)\n"
@@ -46,8 +50,8 @@ def test_every_module_imports_with_jax_blocked():
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
-_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|posetpu)\b|\bposetpu\.",
-                        re.MULTILINE)
+_FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|posetpu)\b"
+                        r"|\bposetpu\.", re.MULTILINE)
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
@@ -85,3 +89,27 @@ def test_entry_points_refuse_a_missing_gpu():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         resolve_device()
+
+
+def test_training_entry_points_refuse_a_missing_gpu():
+    import torch
+
+    from posetpu_torch.config import default_config
+    from posetpu_torch.models.multiview import get_multiview_pose_net
+    from posetpu_torch.train.optim import make_optimizer
+    from posetpu_torch.train.step import init_train_state, make_eval_step, make_train_step
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = default_config()
+    cfg.POSE_RESNET.NUM_LAYERS = 18
+    cfg.NETWORK.HEATMAP_SIZE = [16, 16]
+    model = get_multiview_pose_net(cfg)
+    tx = make_optimizer(cfg, steps_per_epoch=10)
+    for build in (lambda: make_train_step(model, cfg, tx), lambda: init_train_state(model, tx),
+                  lambda: make_eval_step(model, cfg)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    assert init_train_state(model, tx, device="cpu").step == 0
+    with pytest.raises(NotImplementedError, match="mesh"):
+        make_train_step(model, cfg, tx, mesh=object(), device="cpu")
