@@ -9,7 +9,7 @@ Phases, each of which fails the run on its own:
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device -> exit 1;
 2. build every CUDA kernel from ``posetpu_torch/csrc`` (one nvcc per source,
    all started together), printing the build time and ptxas' report;
-3. seven paths at full width: ResNet-50, 256x256 input, 4 views, 16 joints,
+3. eight paths at full width: ResNet-50, 256x256 input, 4 views, 16 joints,
    64x64 heatmaps, the S=4096 aggregation bank, random weights from a seed,
    calibrated on 2 batches. Each path serves a few requests through
    prepare -> infer -> triangulate_points; the first warms up and frames/s
@@ -75,6 +75,16 @@ Phases, each of which fails the run on its own:
      images/s (median and min-max of the steps' CUDA-event times), peak
      memory, every step's loss finite, and one profiled step (device busy
      ms, idle share, time by kernel family); no hand kernel is on this path;
+   - path 8, the adversarial step (``make_adversarial_train_step``): the
+     ResNet-50 MultiViewPose without the bank in f32 (TF32 convolutions,
+     PyTorch's default), the five critics (``build_discriminators``) and the
+     fundamental loss, :func:`gan_config`'s losses, 8 four-view groups of
+     256x256 a step (half of them h36m), the samplers' draws from a seeded
+     generator on the card; 3 warm-up steps, then 10 of each parity in turn
+     chained through the states: groups/s a parity (median and min-max of
+     the CUDA-event times), peak memory, every metric finite, every Adam
+     count (the base's and each critic's) equal to the steps taken, no hand
+     kernel launched; one profiled step of each parity by family;
 4. each kernel against its plain PyTorch version on the card, on the inputs
    its path gives it (taken from one more request): outputs must be equal.
    Timed with CUDA events (3 warm-up calls, median of 20): the kernel, its
@@ -113,7 +123,13 @@ Phases, each of which fails the run on its own:
    off, as on the CPU): the loss within rtol 1e-4, the gradients within a
    relative L2 difference of 2e-2 per parameter and a cosine above 0.9999
    over all of them (train-mode BN amplifies the two backends' rounding; the
-   CPU tests hold the port to JAX the same way).
+   CPU tests hold the port to JAX the same way); for path 8, one f32 step of
+   each parity of its configuration at ResNet-18, 64x64, 4 groups (TF32
+   off; 2 groups make the view and joints critics' BatchNorm degenerate),
+   trained-like base weights, the CPU's draws fed to both: the loss within
+   rtol 1e-4, and per model (the base and each critic) path 7's gradient
+   bounds or three times the CPU's own distance under a 1e-7 nudge of the
+   images, where that is larger (:func:`gan_card_vs_cpu`).
 
 The last lines are the card line, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``.
@@ -146,6 +162,7 @@ PATH5B = "path 5b (fused blocks, deconvs + head)"
 PATH5C = "path 5c (5b, identity blocks through B8b)"
 PATH6 = "path 6 (S-minor tail, flip test, per-pair bank)"
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10  # path 7
+GAN_GROUPS, GAN_WARMUP, GAN_STEPS = 8, 3, 10  # path 8: timed steps of each parity
 
 # path 7's kernel families by name (cuDNN's bf16 kernels carry "xmma" too)
 TRAIN_FAMILIES = {"convolutions (cuDNN)": ("conv", "cudnn", "fprop", "dgrad", "wgrad",
@@ -154,6 +171,17 @@ TRAIN_FAMILIES = {"convolutions (cuDNN)": ("conv", "cudnn", "fprop", "dgrad", "w
                   "BatchNorm": ("batch_norm", "bn_", "welford"),
                   "optimizer (foreach)": ("foreach", "multi_tensor"),
                   "memcpy/memset": ("Memcpy", "Memset")}
+# path 8's: the critics' dense layers are cuBLAS's f32 GEMMs, named
+# "sm80_xmma_gemm_f32f32..." or cutlass "sgemm" (so "xmma" alone does not
+# mark a convolution here); the samplers' multinomial and top-k kernels
+GAN_FAMILIES = {"convolutions (cuDNN)": ("conv", "cudnn", "fprop", "dgrad", "wgrad",
+                                         "implicit"),
+                "GEMMs (cuBLAS: the critics, the head)": ("gemm", "Gemm", "cutlass", "gemv"),
+                "BatchNorm": TRAIN_FAMILIES["BatchNorm"],
+                "samplers (multinomial, top-k)": ("multinomial", "topk", "sort", "Sort",
+                                                  "radix", "bitonic", "sampleMultinomial"),
+                "optimizer (foreach)": TRAIN_FAMILIES["optimizer (foreach)"],
+                "memcpy/memset": TRAIN_FAMILIES["memcpy/memset"]}
 
 
 def fail(msg: str):
@@ -403,6 +431,142 @@ def train_config(num_layers: int, size: int, hm: int):
     return cfg
 
 
+def gan_config(num_layers: int, size: int, hm: int):
+    """The adversarial configuration of path 8: the LOSS section of
+    experiments/mixed/resnet50/pseudo_label/
+    256_fund5_local_mi_joint_nofusion_resume_pseudo.yaml (the joint-specific
+    local MI, JSD, 400 positives, 15 negatives each, weight 0.001; the
+    fundamental loss at 5), with the other four adversarial losses on at
+    their own files' measures and weights: heatmap MI (JSD, 0.01) from
+    256_fund5_heatmap_..., the domain GAN (0.01) from 256_fund5_domain_...,
+    view and joints MI (NCE, 1) from 256_nofusion_viewmi_jointsmi.yaml. No
+    bank and no fused output (NETWORK.AGGRE, TEST.FUSE_OUTPUT false, as in
+    every adversarial config there); Adam at 1e-3 for the base and the
+    critics."""
+    from posetpu_torch.config import default_config
+
+    cfg = default_config()
+    cfg.POSE_RESNET.NUM_LAYERS = num_layers
+    cfg.NETWORK.IMAGE_SIZE = np.array([size, size])
+    cfg.NETWORK.HEATMAP_SIZE = np.array([hm, hm])
+    cfg.NETWORK.AGGRE = False
+    cfg.TEST.FUSE_OUTPUT = False
+    loss = dict(CONSISTENT_LOSS_WEIGHT=0.01, FUNDAMENTAL_LOSS_WEIGHT=5, LOCAL_MI_LOSS_WEIGHT=0.001,
+                MI_MEASURE="JSD", MI_NEG_POS_RATIO=15, MI_POSITIVE_NUM=400, MSE_LOSS_WEIGHT=1,
+                SPECIFIC="joint", USE_FUNDAMENTAL_LOSS=True, USE_LOCAL_MI_LOSS=True,
+                USE_LOW_FEATURES_PREPROCESS=False, USE_TARGET_WEIGHT=True,
+                USE_HEATMAP_MI_LOSS=True, HEATMAP_MI_MEASURE="JSD", HEATMAP_MI_LOSS_WEIGHT=0.01,
+                USE_DOMAIN_TRANSFER_LOSS=True, DOMAIN_LOSS_WEIGHT=0.01,
+                USE_VIEW_MI_LOSS=True, VIEW_MI_MEASURE="NCE",
+                USE_JOINTS_MI_LOSS=True, JOINTS_MI_MEASURE="NCE")
+    for k, v in loss.items():
+        setattr(cfg.LOSS, k, v)
+    return cfg
+
+
+def gan_batch(groups: int, size: int, hm: int, joints: int, device, seed: int) -> dict:
+    """:func:`train_batch` with the MI samplers' inputs: crop joints uniform
+    over the image, 80 % visible, the targets rendered from them, and every
+    other group h36m (the rest mpii: the domain GAN's two labels)."""
+    import torch
+
+    from posetpu_torch.ops.heatmap import render_gaussian_heatmaps
+
+    b = train_batch(groups, size, hm, joints, device, seed)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    jc = torch.rand(groups, 4, joints, 2, generator=gen, device=device) * size
+    vis = (torch.rand(groups, 4, joints, generator=gen, device=device) > 0.2).float()
+    target, weight = render_gaussian_heatmaps(jc, vis, (hm, hm), (size, size), 2.0)
+    b.update(joints_crop=jc, joints_vis=vis, target=target.movedim(-3, -1).contiguous(),
+             weight=weight, is_h36m=(torch.arange(groups, device=device) % 2 == 0).float())
+    return b
+
+
+def gan_card_vs_cpu(cfg, batch: dict, parity: int, card, seed: int) -> tuple[str, list]:
+    """One f32 adversarial step of each model from the same weights and
+    draws (the CPU's) on ``card`` (TF32 off) and on the CPU, and two more on
+    the CPU with the images scaled by 1 +- 1e-7: the larger distance of
+    those from the CPU's step is the yardstick of how far rounding alone
+    moves a gradient. The loss within rtol 1e-4; per model, the gradients'
+    cosine over all leaves > 0.9999 and each leaf within 2e-2 relative L2
+    (path 7's bounds), or within three times the yardstick where that is
+    larger; a leaf whose gradient is rounding noise (below 1e-5 of the
+    model's largest leaf norm) counts in the cosine only. Returns (a summary
+    line, the failures).
+
+    The base has :func:`trained_like_` weights and the batch should hold 3
+    or more groups. Under the reference's N(0, 0.001) init the heatmaps are
+    near flat and the groups' soft-argmax joints agree to rounding; and over
+    2 samples a BatchNorm's output is +-1 whatever its input, so the view and
+    joints critics' first layers (and, at parity 1, the base through their
+    generator terms) get a gradient that is zero but for rounding, which
+    BatchNorm's 1 / sigma then scales up: noise held against noise."""
+    import torch
+
+    from posetpu_torch.core.mi import sample_draws
+    from posetpu_torch.models import quant
+    from posetpu_torch.models.discriminators import build_discriminators
+    from posetpu_torch.models.multiview import get_multiview_pose_net
+    from posetpu_torch.train.gan import init_discriminator_states, make_adversarial_train_step
+    from posetpu_torch.train.optim import make_optimizer
+    from posetpu_torch.train.step import init_train_state
+
+    draws = sample_draws(batch, cfg, parity, torch.Generator().manual_seed(seed))
+    cases = [("card", card, batch), ("cpu", torch.device("cpu"), batch)] + [
+        (f"nudge {f}", torch.device("cpu"), dict(batch, images=batch["images"] * f))
+        for f in (1 + 1e-7, 1 - 1e-7)]
+    runs = {}
+    for label, device, b in cases:
+        gen = torch.Generator().manual_seed(seed)
+        net, critics = get_multiview_pose_net(cfg, gen), build_discriminators(cfg, gen)
+        trained_like_(net, gen)
+        tx = make_optimizer(cfg, steps_per_epoch=1000)
+        tx_d = {n: make_optimizer(cfg, 1000, discriminator=True) for n in critics}
+        states = {"base_model": init_train_state(net, tx, device=device),
+                  **init_discriminator_states(critics, tx_d, device=device)}
+        step = make_adversarial_train_step(net, critics, cfg, tx, tx_d, device=device)
+        with quant._full_fp32():
+            _, m = step(states, b, parity, draws=draws)
+        runs[label] = (float(m["loss"]), {
+            n: {k: p.grad.double().cpu() for k, p in st.params.named_parameters()
+                if p.grad is not None} for n, st in states.items()})
+
+    def distance(a, b):
+        """(1 - cosine over the leaves, {leaf: relative L2}) of b from a."""
+        va = torch.cat([g.flatten() for g in a.values()])
+        vb = torch.cat([b[k].flatten() for k in a])
+        top = max(float(g.norm()) for g in a.values())
+        rel = {k: float((b[k] - g).norm() / g.norm()) for k, g in a.items()
+               if float(g.norm()) > 1e-5 * top}
+        return 1.0 - float(torch.nn.functional.cosine_similarity(va, vb, dim=0)), rel
+
+    (l_card, g_card), (l_cpu, g_cpu) = runs["card"], runs["cpu"]
+    nudged = [runs[label][1] for label, _, _ in cases[2:]]
+    lerr = abs(l_card - l_cpu) / abs(l_cpu)
+    failures = [f"loss {l_card} vs {l_cpu}"] if lerr > 1e-4 else []
+    summary = {}
+    for n, grads in g_cpu.items():
+        if set(grads) != set(g_card[n]):
+            failures.append(f"{n}: gradients present on one side only")
+            continue
+        if not grads:  # a critic with no loss at this parity
+            summary[n] = "no gradient"
+            continue
+        c_card, rel_card = distance(grads, g_card[n])
+        yard = [distance(grads, g[n]) for g in nudged]
+        c_yard = max(c for c, _ in yard)
+        rel_yard = {k: max(r[k] for _, r in yard) for k in rel_card}
+        if c_card > max(1e-4, 3 * c_yard):
+            failures.append(f"{n}: gradient cosine {1 - c_card} (yardstick {1 - c_yard})")
+        for k, r in rel_card.items():
+            if r > max(2e-2, 3 * rel_yard[k]):
+                failures.append(f"{n}.{k}: relative L2 {r} (yardstick {rel_yard[k]})")
+        worst = max(rel_card, key=rel_card.get)
+        summary[n] = (f"cosine {1 - c_card:.8f} (yardstick {1 - c_yard:.8f}), worst relative "
+                      f"L2 {rel_card[worst]:.2e} ({worst}; yardstick {rel_yard[worst]:.2e})")
+    return (f"loss {l_card} vs {l_cpu} (relative {lerr:.2e}); {summary}", failures)
+
+
 def kernel_registers(build_log: str, kernel: str) -> dict:
     """Registers per thread of B8a's two instances, from ptxas' report:
     {"wide": n, "narrow": n} (the template argument: 64-wide conv1/conv2
@@ -453,6 +617,8 @@ def main() -> int:
         build_serving_pipeline,
         pack_hwcn,
     )
+    from posetpu_torch.models.discriminators import build_discriminators
+    from posetpu_torch.train.gan import init_discriminator_states, make_adversarial_train_step
     from posetpu_torch.train.optim import make_optimizer
     from posetpu_torch.train.step import init_train_state, make_train_step
 
@@ -843,6 +1009,71 @@ def main() -> int:
     check(not prof7["hand_kernel_launches"], f"path 7: hand kernels {prof7['hand_kernel_launches']}")
     log("profile path 7: " + json.dumps(prof7))
     del model7, state7, step7, batch7, tx7, metrics7
+    torch.cuda.empty_cache()
+
+    # path 8: the adversarial step at full width (f32, TF32 convolutions as
+    # PyTorch's default), parity 0 and 1 in turn, chained through the states
+    def gan_states(cfg_, seed, device):
+        gen = torch.Generator().manual_seed(seed)
+        net = get_multiview_pose_net(cfg_, gen)
+        critics = build_discriminators(cfg_, gen)
+        tx_ = make_optimizer(cfg_, steps_per_epoch=1000)
+        tx_d = {n: make_optimizer(cfg_, steps_per_epoch=1000, discriminator=True)
+                for n in critics}
+        states = {"base_model": init_train_state(net, tx_, device=device),
+                  **init_discriminator_states(critics, tx_d, device=device)}
+        return states, make_adversarial_train_step(net, critics, cfg_, tx_, tx_d,
+                                                   device=device, seed=seed)
+
+    cfg8 = gan_config(50, 256, 64)
+    t0 = time.perf_counter()
+    states8, step8 = gan_states(cfg8, 9, dev)
+    batch8 = gan_batch(GAN_GROUPS, 256, 64, 16, dev, seed=9)
+    torch.cuda.synchronize()
+    log(f"path 8 model, critics, optimizer states and batch: {time.perf_counter() - t0:.1f} s")
+    for name in wrappers:
+        wrapper(name).launches = 0
+    losses8, events8 = [], {0: [], 1: []}
+    n_steps = GAN_WARMUP + 2 * GAN_STEPS
+    for i in range(n_steps):
+        if i == GAN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        parity = i % 2
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        states8, metrics8 = step8(states8, batch8, parity)
+        end.record()
+        if i >= GAN_WARMUP:
+            events8[parity].append((start, end))
+        losses8.append(torch.stack([v.float() for k, v in metrics8.items() if k != "acc"]))
+    torch.cuda.synchronize()
+    counts8 = {k: v for k, v in ((n, wrapper(n).launches) for n in wrappers) if v}
+    peak8 = torch.cuda.max_memory_allocated() / 2**30
+    check(all(bool(torch.isfinite(v).all()) for v in losses8), "path 8: a non-finite loss")
+    check(all(st.step == n_steps and st.opt_state["count"] == n_steps
+              for st in states8.values()),
+          f"path 8: step counts "
+          f"{ {n: (st.step, st.opt_state['count']) for n, st in states8.items()} }")
+    check(not counts8, f"path 8: hand kernel launches {counts8}")
+    rates8 = {}
+    for parity in (0, 1):
+        ms = sorted(a.elapsed_time(b) for a, b in events8[parity])
+        gps = sorted(GAN_GROUPS * 1e3 / t for t in ms)
+        rates8[parity] = (statistics.median(gps), gps[0], gps[-1], ms)
+    log(f"path 8 (adversarial step, f32 R50, {GAN_GROUPS} groups of {VIEWS} x 256^2, five "
+        f"critics + fundamental loss; {GAN_WARMUP} warm-up steps, then {GAN_STEPS} of each "
+        f"parity in turn): " + "; ".join(
+            f"parity {p}: groups/s median {r[0]:.2f}, min-max {r[1]:.2f}-{r[2]:.2f} (step ms "
+            f"{[round(t, 2) for t in r[3]]})" for p, r in rates8.items())
+        + f"; peak {peak8:.2f} GiB; last metrics "
+        f"{ {k: round(float(v), 4) for k, v in metrics8.items()} } | {card}")
+    for parity in (0, 1):
+        prof8 = profile_request(lambda: step8(states8, batch8, parity), GAN_FAMILIES)
+        check(not prof8["hand_kernel_launches"],
+              f"path 8: hand kernels {prof8['hand_kernel_launches']}")
+        log(f"profile path 8, parity {parity}: " + json.dumps(prof8))
+    del states8, step8, batch8, metrics8, losses8
     torch.cuda.empty_cache()
 
     # one more request per path to take each kernel's inputs for phase 4 (the
@@ -1383,6 +1614,17 @@ def main() -> int:
         f"{m_host['loss']} (relative {lerr:.2e}), gradient cosine {cos:.8f}, worst relative "
         f"L2 {rel[worst]:.2e} ({worst}); terms {m_card} vs {m_host} "
         f"({time.perf_counter() - t:.1f} s)")
+
+    # path 8's step in f32 on a small model (R18, 64x64, 4 groups, the full
+    # critics), one step of each parity: gan_card_vs_cpu
+    cfg_s8 = gan_config(18, 64, 16)
+    batch_s8 = gan_batch(4, 64, 16, 16, "cpu", seed=10)
+    for parity in (0, 1):
+        t = time.perf_counter()
+        line, failures = gan_card_vs_cpu(cfg_s8, batch_s8, parity, dev, seed=11)
+        log(f"card vs CPU, path 8's step in f32 (R18, 64x64, 4 groups, parity {parity}): "
+            f"{line} ({time.perf_counter() - t:.1f} s)")
+        check(not failures, f"card vs CPU, path 8 parity {parity}: {failures}")
 
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,6 +1,8 @@
 """The deterministic training losses, batched over views (the reference's
 lib/core/loss.py:25-133 and the consistency loss inline in
-lib/core/function.py), each one reduction over a ``[N, V, ...]`` batch.
+lib/core/function.py), each one reduction over a ``[N, V, ...]`` batch,
+and the measures of the adversarial losses (loss.py:25-62, 400-474; the
+BCE of the domain GAN).
 
 Heatmaps are channels-last ``[..., h, w, J]`` as the model returns them;
 weights ``[..., J]``.
@@ -9,8 +11,10 @@ weights ``[..., J]``.
 from __future__ import annotations
 
 import itertools
+import math
 
 import torch
+import torch.nn.functional as F
 
 # the 12 ordered view pairs in itertools order: the reference's F-matrix keys
 # (loss.py:123)
@@ -72,3 +76,88 @@ def fundamental_loss(joints_2d, target_weight, fmats, sample_mask=None,
     if sample_mask is not None:
         res = res * sample_mask[:, None, None]
     return res.sum() / (n * len(VIEW_PERMS) * j)
+
+
+# ------------------------------------------------- the adversarial losses' measures
+
+LOG2 = math.log(2.0)
+MEASURES = ("GAN", "JSD", "X2", "KL", "RKL", "DV", "H2", "W1")
+
+
+def bce_loss(scores, labels):
+    """Binary cross-entropy on probabilities (torch.nn.BCELoss's semantics,
+    used by the domain-transfer GAN, function.py:241), the probabilities
+    clipped to [1e-7, 1 - 1e-7] first."""
+    s = torch.clamp(scores, 1e-7, 1.0 - 1e-7)
+    return -(labels * torch.log(s) + (1.0 - labels) * torch.log(1.0 - s)).mean()
+
+
+def infonce_paired(embd1, embd2):
+    """InfoNCE over two [N, C] embedding batches: the diagonal pairs are the
+    positives, the off-diagonal ones the negatives (get_infonce_loss,
+    loss.py:25-41). The negatives' diagonal is filled with -10."""
+    n = embd1.shape[0]
+    u_p = (embd1 * embd2).sum(dim=1, keepdim=True)  # [N, 1]
+    eye = torch.eye(n, dtype=embd1.dtype, device=embd1.device)
+    u_n = (embd1 @ embd2.T) * (1 - eye) - 10.0 * eye
+    logits = torch.cat([u_p, u_n], dim=1)
+    return -torch.log_softmax(logits, dim=1)[:, 0].mean()
+
+
+def jsd_paired(embd1, embd2):
+    """Jensen-Shannon MI bound over two [N, C] embedding batches
+    (get_jsd_loss, loss.py:43-62)."""
+    u = embd1 @ embd2.T
+    eye = torch.eye(u.shape[0], dtype=u.dtype, device=u.device)
+    e_pos = LOG2 - F.softplus(-u)
+    e_neg = F.softplus(-u) + u - LOG2
+    return (e_neg * (1 - eye)).sum() / (1 - eye).sum() - (e_pos * eye).sum() / eye.sum()
+
+
+def positive_expectation(p_samples, measure: str, average: bool = True):
+    """The f-divergence's positive term (MILoss.get_positive_expectation,
+    loss.py:400-436) for one of :data:`MEASURES`."""
+    if measure == "GAN":
+        ep = -F.softplus(-p_samples)
+    elif measure == "JSD":
+        ep = LOG2 - F.softplus(-p_samples)
+    elif measure == "X2":
+        ep = p_samples ** 2
+    elif measure in ("KL", "DV", "W1"):
+        ep = p_samples
+    elif measure == "RKL":
+        ep = -torch.exp(-p_samples)
+    elif measure == "H2":
+        ep = 1.0 - torch.exp(-p_samples)
+    else:
+        raise ValueError(f"unknown measure {measure}")
+    return ep.mean() if average else ep
+
+
+def negative_expectation(q_samples, measure: str, average: bool = True):
+    """The f-divergence's negative term (loss.py:438-474); DV's log-mean-exp
+    runs over the first axis."""
+    if measure == "GAN":
+        eq = F.softplus(-q_samples) + q_samples
+    elif measure == "JSD":
+        eq = F.softplus(-q_samples) + q_samples - LOG2
+    elif measure == "X2":
+        eq = -0.5 * (q_samples.abs() + 1.0) ** 2
+    elif measure == "KL":
+        eq = torch.exp(q_samples - 1.0)
+    elif measure == "RKL":
+        eq = q_samples - 1.0
+    elif measure == "DV":
+        eq = torch.logsumexp(q_samples, dim=0) - math.log(q_samples.shape[0])
+    elif measure == "H2":
+        eq = torch.exp(q_samples) - 1.0
+    elif measure == "W1":
+        eq = q_samples
+    else:
+        raise ValueError(f"unknown measure {measure}")
+    return eq.mean() if average else eq
+
+
+def fenchel_dual_loss(pos_scores, neg_scores, measure: str):
+    """E_neg - E_pos for the measures other than NCE (MILoss.__call__)."""
+    return negative_expectation(neg_scores, measure) - positive_expectation(pos_scores, measure)

@@ -1,6 +1,11 @@
-"""Batched camera models (the OpenCV convention used by the triangulation
-stack, reference lib/multiviews/triangulate.py:17-40: per-axis focals and the
-standard [k1, k2, p1, p2, k3] distortion).
+"""Batched camera models. Two distortion conventions of the reference:
+
+* the H36M one of ``project_point_radial`` (lib/multiviews/cameras.py:25-49):
+  the averaged focal and a scalar tangential term applied multiplicatively
+  (:func:`project_pose`);
+* the OpenCV one of the triangulation stack (lib/multiviews/triangulate.py:
+  17-40): per-axis focals and the standard [k1, k2, p1, p2, k3] distortion
+  (:func:`project_points`, :func:`undistort_opencv`).
 
 Cameras are a struct of tensors with matching leading batch dims, so every
 op runs over any batch of cameras at once.
@@ -37,6 +42,49 @@ def _distortion(yx, yy, k, p):
     dx = 2.0 * p1 * yx * yy + p2 * (r2 + 2.0 * yx * yx)
     dy = p1 * (r2 + 2.0 * yy * yy) + 2.0 * p2 * yx * yy
     return radial, dx, dy
+
+
+def world_to_camera_frame(x, R, T):
+    """[..., N, 3] world points -> the camera frame (cameras.py:57-68)."""
+    return torch.einsum("...ij,...nj->...ni", R, x - T[..., None, :])
+
+
+def camera_to_world_frame(x, R, T):
+    """[..., N, 3] camera points -> the world frame (cameras.py:71-82)."""
+    return torch.einsum("...ji,...nj->...ni", R, x) + T[..., None, :]
+
+
+def project_pose(x, cam: CameraParams):
+    """The H36M projection (project_point_radial): [..., N, 3] world points
+    -> [..., N, 2] pixels, with the averaged focal 0.5 (fx + fy) and the
+    scalar tangential term ``p0 y1 + p1 y0``, as the reference."""
+    xc = world_to_camera_frame(x, cam.R, cam.T)
+    y = xc[..., :2] / xc[..., 2:3]
+    r2 = (y * y).sum(-1)
+    k1, k2, k3 = cam.k[..., 0:1], cam.k[..., 1:2], cam.k[..., 2:3]
+    radial = 1.0 + k1 * r2 + k2 * r2 * r2 + k3 * r2 * r2 * r2
+    tan = cam.p[..., 0:1] * y[..., 1] + cam.p[..., 1:2] * y[..., 0]
+    pq = torch.stack([cam.p[..., 1], cam.p[..., 0]], dim=-1)
+    y = y * (radial + tan)[..., None] + pq[..., None, :] * r2[..., None]
+    favg = 0.5 * (cam.f[..., 0] + cam.f[..., 1])
+    return favg[..., None, None] * y + cam.c[..., None, :]
+
+
+def project_points(x, cam: CameraParams, no_distortion: bool = False):
+    """The OpenCV projection (pymvg's find2d): [..., N, 3] world points ->
+    [..., N, 2] pixels."""
+    xc = world_to_camera_frame(x, cam.R, cam.T)
+    y = xc[..., :2] / xc[..., 2:3]
+    if not no_distortion:
+        y = distort_opencv(y, cam.k, cam.p)
+    return y * cam.f[..., None, :] + cam.c[..., None, :]
+
+
+def distort_opencv(y, k, p):
+    """OpenCV's radial and tangential distortion of normalised coords y
+    [..., N, 2]; k [..., 3], p [..., 2]."""
+    radial, dx, dy = _distortion(y[..., 0], y[..., 1], k, p)
+    return torch.stack([y[..., 0] * radial + dx, y[..., 1] * radial + dy], dim=-1)
 
 
 def undistort_opencv(yd, k, p, iters: int = 10):

@@ -14,6 +14,9 @@ Convention: x1 in view a and x2 in view b (homogeneous pixels) satisfy
 
 from __future__ import annotations
 
+import math
+import pickle
+
 import numpy as np
 import torch
 
@@ -43,6 +46,42 @@ def fundamental_from_cameras(cam1: CameraParams, cam2: CameraParams):
                    [-t_rel[1], t_rel[0], 0]])
     f = np.linalg.inv(kmat(cam2)).T @ (tx @ r_rel) @ np.linalg.inv(kmat(cam1))
     return f / np.maximum(np.abs(f).max(), 1e-12)
+
+
+def eight_point(pts1, pts2):
+    """Hartley-normalised 8-point estimate of F from pts1 / pts2 [N, 2]
+    corresponding pixels (N >= 8): rank 2 enforced, scaled so its largest
+    |entry| is 1, in the points' dtype."""
+
+    def normalise(p):
+        mean = p.mean(dim=0)
+        d = torch.sqrt(((p - mean) ** 2).sum(dim=1)).mean()
+        s = math.sqrt(2.0) / torch.clamp(d, min=1e-12)
+        z, one = torch.zeros((), dtype=p.dtype), torch.ones((), dtype=p.dtype)
+        t = torch.stack([torch.stack([s, z, -s * mean[0]]),
+                         torch.stack([z, s, -s * mean[1]]),
+                         torch.stack([z, z, one])])
+        ph = torch.cat([p, torch.ones_like(p[:, :1])], dim=1)
+        return ph @ t.T, t
+
+    p1, t1 = normalise(pts1)
+    p2, t2 = normalise(pts2)
+    # x2^T F x1 = 0: each row of A is kron(x2_i, x1_i)
+    a = torch.einsum("ni,nj->nij", p2, p1).reshape(-1, 9)
+    _, vecs = torch.linalg.eigh(a.T @ a)
+    u, s, vt = torch.linalg.svd(vecs[:, 0].reshape(3, 3))
+    f = (u * torch.cat([s[:2], torch.zeros_like(s[2:])])[None, :]) @ vt
+    f = t2.T @ f @ t1
+    return f / torch.clamp(f.abs().max(), min=1e-12)
+
+
+def load_reference_bank(path: str) -> dict:
+    """The reference's fundamental_matrix.pkl ({(subject, a, b): 3x3}) as
+    {key: [3, 3] float32 numpy array}. A pickle runs code when it is read:
+    load only a file of the reference's that you trust."""
+    with open(path, "rb") as f:
+        raw = pickle.load(f)
+    return {k: np.asarray(v, np.float32) for k, v in raw.items()}
 
 
 def build_fundamental_bank(cams_by_subject: dict) -> dict:

@@ -13,9 +13,17 @@ MultiViewPose` (or, for a tree without a ``resnet`` subtree, for
   running_mean/running_var;
 * the stacked [12, S, S] aggregation bank as it is.
 
+:func:`from_jax_critic_variables` does the same for a module whose port
+keeps Flax's submodule names (the critics of models/discriminators.py):
+a Dense kernel [I, O] -> ``nn.Linear``'s [O, I], an HWIO conv kernel -> OIHW
+(a 1x1 one -> [O, I] where the port computes it as an ``nn.Linear``),
+LayerNorm and BatchNorm scale/bias -> weight/bias, batch_stats mean/var ->
+running_mean/running_var.
+
 :func:`from_jax_train_state` carries a JAX train state (params, batch
 statistics and optax Adam's moments) into the port's, so both packages can
-step from one state.
+step from one state; :func:`from_jax_train_states` a dict of them (the
+adversarial step's base model and critics).
 
 :func:`from_jax_params` turns a JAX serving pipeline's params
 ({"q": qparams, "qagg": bank}) or a JAX ``make_fused_forward``'s
@@ -67,6 +75,27 @@ def from_jax_variables(tree) -> dict[str, torch.Tensor]:
         module, leaf = ".".join(path[:-1]), path[-1]
         sd[f"{module}.running_{leaf}"] = v
         sd[f"{module}.num_batches_tracked"] = np.asarray(0, np.int64)
+    return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
+
+
+def from_jax_critic_variables(tree, module) -> dict[str, torch.Tensor]:
+    """Flax variables ({"params"[, "batch_stats"]}, numpy leaves) of a
+    critic -> a state dict for ``module``, its port (the layouts are read off
+    ``module``'s own tensors)."""
+    shapes = {k: v.shape for k, v in module.state_dict().items()}
+    sd = {}
+    for path, v in _flatten(tree["params"]):
+        module_name, leaf = ".".join(path[:-1]), path[-1]
+        if leaf == "kernel":
+            key = f"{module_name}.weight"
+            w = v.T if v.ndim == 2 else v.transpose(3, 2, 0, 1)  # [I, O] / HWIO -> OIHW
+            sd[key] = w.reshape(shapes[key])
+        elif leaf in ("scale", "bias"):
+            sd[f"{module_name}.{ {'scale': 'weight'}.get(leaf, leaf)}"] = v
+        else:
+            raise ValueError(f"unknown variable {'/'.join(path)}")
+    for path, v in _flatten(tree.get("batch_stats", {})):
+        sd[f"{'.'.join(path[:-1])}.running_{path[-1]}"] = v
     return {k: torch.from_numpy(np.array(v)) for k, v in sd.items()}
 
 
@@ -123,20 +152,33 @@ def from_jax_train_state(state, model, tx, device=None):
     """A JAX ``TrainState`` with numpy leaves (``jax.tree.map(np.asarray,
     state)``) whose optimizer is optax.adam -> the port's
     :class:`~posetpu_torch.train.state.TrainState` for ``model`` (a
-    MultiViewPose the weights are loaded into, moved to ``device``) and
-    ``tx`` (a train/optim.py Adam): the moments keyed and laid out as the
-    parameters, in ``tx``'s dtypes, and the step count. CUDA unless
-    ``device`` is given."""
+    MultiViewPose or a critic, the weights loaded into it strictly, moved to
+    ``device``; its dtype kept) and ``tx`` (a train/optim.py Adam): the
+    moments keyed and laid out as the parameters, in ``tx``'s dtypes, and
+    the step count. CUDA unless ``device`` is given."""
+    from posetpu_torch.models.multiview import MultiViewPose
+    from posetpu_torch.models.pose_resnet import PoseResNet
     from posetpu_torch.train.state import TrainState
 
     dev = resolve_device(device)
-    model.load_state_dict(from_jax_variables({"params": state.params,
-                                              "batch_stats": state.batch_stats}))
+    if isinstance(model, (MultiViewPose, PoseResNet)):
+        convert = from_jax_variables
+    else:
+        convert = lambda tree: from_jax_critic_variables(tree, model)  # noqa: E731
+    model.load_state_dict(convert({"params": state.params, "batch_stats": state.batch_stats}))
     model.to(dev)
     adam = next(s for s in state.opt_state if hasattr(s, "mu"))  # (adam, schedule)
     opt = tx.init(model)
     opt["count"] = int(adam.count)
     for k in ("mu", "nu"):
-        carried = from_jax_variables({"params": _f32(getattr(adam, k))})
+        carried = convert({"params": _f32(getattr(adam, k))})
         opt[k] = {n: carried[n].to(device=dev, dtype=t.dtype) for n, t in opt[k].items()}
     return TrainState(model, opt, int(state.step))
+
+
+def from_jax_train_states(states: dict, models: dict, txs: dict, device=None) -> dict:
+    """{name: JAX TrainState} (numpy leaves) -> {name: the port's
+    TrainState}, each through :func:`from_jax_train_state` with
+    ``models[name]`` and ``txs[name]``: the adversarial step's base model
+    and critics."""
+    return {k: from_jax_train_state(st, models[k], txs[k], device) for k, st in states.items()}

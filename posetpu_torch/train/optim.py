@@ -11,8 +11,8 @@ and not ``torch.optim``'s: Adam's update is the bias-corrected
 ``mu_hat / (sqrt(nu_hat + eps_root) + eps)`` times the schedule's value at
 the step count before the increment, with ``mu`` stored in ``mu_dtype``
 (``TRAIN.ADAM_MU_DTYPE``) beside f32 parameters; the schedule is evaluated
-in f32. The updates run as ``torch._foreach_*`` passes over all parameters
-at once.
+in f32, the bias corrections in the gradients' precision. The updates run
+as ``torch._foreach_*`` passes over all parameters at once.
 """
 
 from __future__ import annotations
@@ -60,7 +60,10 @@ class Optimizer:
     ``init(model)`` -> the optimizer state {"count", "mu", "nu"} (Adam) or
     {"count", "trace"} (SGD), each a dict by parameter name;
     ``update(model, state)`` takes one step from the parameters' ``.grad``,
-    in place."""
+    in place. A trainable parameter whose ``.grad`` is None steps as on a
+    zero gradient, as optax steps the zeros ``jax.grad`` gives it: the
+    moments and the count still advance, and a nonzero first moment still
+    moves the parameter."""
 
     B1, B2, EPS = 0.9, 0.999, 1e-8
 
@@ -86,7 +89,7 @@ class Optimizer:
     def update(self, model, state: dict) -> None:
         ps = self._params(model)
         params = list(ps.values())
-        grads = [p.grad for p in params]
+        grads = [torch.zeros_like(p) if p.grad is None else p.grad for p in params]
         lr = float(self.schedule(state["count"]))
         state["count"] += 1
         if self.kind == "adam":
@@ -118,8 +121,11 @@ class Optimizer:
         torch._foreach_mul_(g2, 1 - b2)
         torch._foreach_mul_(nu, b2)
         torch._foreach_add_(nu, g2)
-        bc1 = float(np.float32(1) - np.float32(b1) ** np.float32(count))
-        bc2 = float(np.float32(1) - np.float32(b2) ** np.float32(count))
+        # 1 - b**count in the gradients' precision: f32, or f64 as optax under
+        # JAX's x64 (in f32, 1 - b2 is 1.3e-5 off 1e-3)
+        dt = np.float64 if any(g.dtype == torch.float64 for g in grads) else np.float32
+        bc1 = float(dt(1) - dt(b1) ** dt(count))
+        bc2 = float(dt(1) - dt(b2) ** dt(count))
         torch._foreach_div_(m, bc1)
         den = torch._foreach_div(nu, bc2)
         torch._foreach_sqrt_(den)

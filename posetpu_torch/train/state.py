@@ -40,17 +40,31 @@ class TrainState:
 
     def load_state_dict(self, d: dict) -> None:
         """Load a :meth:`state_dict` (from a checkpoint, say) in place, each
-        tensor onto the device and dtype it replaces."""
-        self.params.load_state_dict({**d["params"], **d["batch_stats"]}, strict=False)
-        self.opt_state = _like(d["opt_state"], self.opt_state)
+        tensor onto the device and dtype it replaces. The keys must be this
+        state's, no more and no fewer, in the module and in the optimizer
+        state (as orbax refuses a template that does not match): else
+        ValueError, naming the missing and the unexpected keys."""
+        model = {**d["params"], **d["batch_stats"]}
+        _same_keys(model, self.params.state_dict(), "params")
+        opt_state = _like(d["opt_state"], self.opt_state, "opt_state")
+        self.params.load_state_dict(model)
+        self.opt_state = opt_state
         self.step = int(d["step"])
 
 
-def _like(src, ref):
-    """``src``'s values in ``ref``'s structure, tensors moved to the
-    device and dtype of ``ref``'s."""
+def _same_keys(src: dict, ref: dict, where: str) -> None:
+    missing, unexpected = sorted(set(ref) - set(src)), sorted(set(src) - set(ref))
+    if missing or unexpected:
+        raise ValueError(f"the checkpoint does not match the template at {where}: "
+                         f"missing keys {missing}, unexpected keys {unexpected}")
+
+
+def _like(src, ref, where: str):
+    """``src``'s values in ``ref``'s structure (the same keys, else
+    ValueError), tensors moved to the device and dtype of ``ref``'s."""
     if isinstance(ref, dict):
-        return {k: _like(src[k], v) for k, v in ref.items()}
+        _same_keys(src, ref, where)
+        return {k: _like(src[k], v, f"{where}.{k}") for k, v in ref.items()}
     if isinstance(ref, torch.Tensor):
         return src.to(device=ref.device, dtype=ref.dtype)
     return type(ref)(src)

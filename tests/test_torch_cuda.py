@@ -891,3 +891,19 @@ def test_bf16_train_step_on_the_card_matches_the_cpu(cuda):
     for k, g in g_cpu.items():
         card, bf16 = float((g_card[k] - g).norm()), float((g - g_f32[k]).norm())
         assert card <= max(3 * bf16, 1e-2 * float(g_f32[k].norm())), (k, card, bf16)
+
+
+@pytest.mark.parametrize("parity", [0, 1])
+def test_adversarial_step_on_the_card_matches_the_cpu(cuda, parity):
+    """One f32 adversarial step (ResNet-18, 64x64, four groups, the five
+    critics + the fundamental loss: chip_smoke.py's path 8 configuration)
+    from the same weights and draws on the card (TF32 off) and on the CPU,
+    held by ``chip_smoke.gan_card_vs_cpu``: the loss within 1e-4 relative,
+    each model's gradients within path 7's bounds or three times the CPU's
+    own distance under a 1e-7 nudge of the images."""
+    import chip_smoke
+
+    cfg = chip_smoke.gan_config(18, 64, 16)
+    batch = chip_smoke.gan_batch(4, 64, 16, 16, "cpu", seed=3)
+    line, failures = chip_smoke.gan_card_vs_cpu(cfg, batch, parity, cuda, seed=5)
+    assert not failures, (failures, line)

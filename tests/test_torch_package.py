@@ -39,7 +39,9 @@ def test_every_module_imports_with_jax_blocked():
             "posetpu_torch.core.losses", "posetpu_torch.core.evaluate",
             "posetpu_torch.geometry.fundamental", "posetpu_torch.train.state",
             "posetpu_torch.train.optim", "posetpu_torch.train.step",
-            "posetpu_torch.train.checkpoint", "posetpu_torch.utils.gradients"} <= set(mods)
+            "posetpu_torch.train.checkpoint", "posetpu_torch.utils.gradients",
+            "posetpu_torch.core.mi", "posetpu_torch.models.discriminators",
+            "posetpu_torch.train.gan"} <= set(mods)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'posetpu'):\n"
             "    sys.modules[m] = None\n"
@@ -113,3 +115,34 @@ def test_training_entry_points_refuse_a_missing_gpu():
     assert init_train_state(model, tx, device="cpu").step == 0
     with pytest.raises(NotImplementedError, match="mesh"):
         make_train_step(model, cfg, tx, mesh=object(), device="cpu")
+
+
+def test_adversarial_entry_points_refuse_a_missing_gpu():
+    import torch
+
+    from posetpu_torch.config import default_config
+    from posetpu_torch.models.discriminators import build_discriminators
+    from posetpu_torch.models.multiview import get_multiview_pose_net
+    from posetpu_torch.train.gan import init_discriminator_states, make_adversarial_train_step
+    from posetpu_torch.train.optim import make_optimizer
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cfg = default_config()
+    cfg.POSE_RESNET.NUM_LAYERS = 18
+    cfg.NETWORK.HEATMAP_SIZE = [16, 16]
+    cfg.LOSS.USE_DOMAIN_TRANSFER_LOSS = True
+    cfg.LOSS.USE_VIEW_MI_LOSS = True
+    model = get_multiview_pose_net(cfg)
+    critics = build_discriminators(cfg)
+    tx = make_optimizer(cfg, steps_per_epoch=10)
+    tx_d = {n: make_optimizer(cfg, 10, discriminator=True) for n in critics}
+    for build in (lambda: make_adversarial_train_step(model, critics, cfg, tx, tx_d),
+                  lambda: init_discriminator_states(critics, tx_d)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+    states = init_discriminator_states(critics, tx_d, device="cpu")
+    assert set(states) == {"domain_discriminator", "view_discriminator"}
+    assert all(st.step == 0 and st.opt_state["count"] == 0 for st in states.values())
+    with pytest.raises(NotImplementedError, match="mesh"):
+        make_adversarial_train_step(model, critics, cfg, tx, tx_d, mesh=object(), device="cpu")

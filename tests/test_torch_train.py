@@ -469,3 +469,158 @@ def test_checkpoint_round_trip(rng, tmp_path, async_save):
                        snapshot["resnet.bn1.running_var"])
     ckpt.save_final({"model": dataclasses.replace(fresh, step=7)})
     assert ckpt.restore("final_state")[0]["model"]["step"] == 7
+
+
+# ------------------------------------------- refused restores, absent gradients
+
+
+def _small_state(extra=False, bias=True):
+    """A TrainState of a Linear + BatchNorm module (Adam), optionally with
+    one leaf more or its Linear bias removed."""
+    _, cfg = _cfgs()
+    module = torch.nn.Sequential(torch.nn.Linear(3, 4, bias=bias), torch.nn.BatchNorm1d(4))
+    if extra:
+        module.register_parameter("extra", torch.nn.Parameter(torch.zeros(2)))
+    tx = make_optimizer(cfg, 10)
+    return tstep.TrainState(module, tx.init(module), 0)
+
+
+def test_checkpoint_refuses_a_mismatched_template(tmp_path):
+    """A restore into a template with one leaf more, or one parameter
+    fewer, is refused with the keys named (the JAX package's orbax restore
+    refuses both, also with ValueError); a matching one restores."""
+    from posetpu.train.checkpoint import CheckpointManager as JCheckpointManager
+    from posetpu.train.state import TrainState as JTrainState
+
+    ckpt = CheckpointManager(str(tmp_path / "port"))
+    ckpt.save("checkpoint", {"model": _small_state()})
+    with pytest.raises(ValueError, match=r"missing keys \['extra'\]"):
+        ckpt.restore("checkpoint", template={"model": _small_state(extra=True)})
+    with pytest.raises(ValueError, match=r"unexpected keys \['0.bias'\]"):
+        ckpt.restore("checkpoint", template={"model": _small_state(bias=False)})
+    ckpt.restore("checkpoint", template={"model": _small_state()})
+
+    jckpt = JCheckpointManager(str(tmp_path / "jax"))
+    leaves = {"w": jnp.ones(3), "b": jnp.zeros(2)}
+    jckpt.save("checkpoint", {"model": JTrainState(leaves, {}, {"mu": jnp.zeros(3)}, 0)})
+    jckpt.wait_until_finished()
+    for template in ({**leaves, "extra": jnp.zeros(1)}, {"w": leaves["w"]}):
+        with pytest.raises(ValueError, match="do not match"):
+            jckpt.restore("checkpoint", {"model": JTrainState(template, {}, {"mu": jnp.zeros(3)},
+                                                              0)})
+
+
+def test_checkpoint_round_trip_of_the_adversarial_states(rng, tmp_path):
+    """The six states of the adversarial step (the base model and five
+    critics, their weights, statistics and Adam moments filled with random
+    values, count and step 3) saved and restored into fresh templates: every
+    tensor, moment, count and step equal."""
+    from posetpu_torch.models.discriminators import build_discriminators
+    from posetpu_torch.train import gan as tgan
+    from tests.test_torch_mi import cfgs as mi_cfgs
+
+    _, cfg = mi_cfgs()
+
+    def states_of(seed):
+        model = _port_model()
+        ds = build_discriminators(cfg, torch.Generator().manual_seed(seed))
+        tx = make_optimizer(cfg, 10)
+        tx_d = {n: make_optimizer(cfg, 10, discriminator=True) for n in ds}
+        return {"base_model": tstep.init_train_state(model, tx, device="cpu"),
+                **tgan.init_discriminator_states(ds, tx_d, device="cpu")}
+
+    states = states_of(0)
+    gen = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for st in states.values():
+            for t in [*st.params.state_dict().values(), *st.opt_state["mu"].values(),
+                      *st.opt_state["nu"].values()]:
+                if t.is_floating_point():
+                    t.copy_(torch.rand(t.shape, generator=gen))
+            st.opt_state["count"], st.step = 3, 3
+    ckpt = CheckpointManager(str(tmp_path))
+    ckpt.save("checkpoint", states)
+    restored, _ = ckpt.restore("checkpoint", template=states_of(2))
+    assert len(restored) == 6
+    for name, st in states.items():
+        got = restored[name]
+        assert got.step == 3 and got.opt_state["count"] == 3, name
+        for k, v in st.params.state_dict().items():
+            assert torch.equal(got.params.state_dict()[k], v), (name, k)
+        for m in ("mu", "nu"):
+            for k, v in st.opt_state[m].items():
+                assert torch.equal(got.opt_state[m][k], v), (name, m, k)
+
+
+@pytest.mark.parametrize("kind", ["adam", "sgd"])
+def test_optimizer_steps_an_absent_gradient_as_optax_steps_zeros(rng, kind):
+    """One parameter has a gradient at step 1 and none (``.grad`` None) at
+    step 2: optax, given zeros there, still advances the moments and moves
+    the parameter by the first moment; the port equal to it bit for bit."""
+    cfgs = _cfgs()
+    for c in cfgs:
+        c.TRAIN.OPTIMIZER = kind
+    jtx, tx = joptim.make_optimizer(cfgs[0], 2), make_optimizer(cfgs[1], 2)
+    p0 = {"a": rng.randn(6, 5).astype(np.float32), "b": rng.randn(7).astype(np.float32)}
+    module = torch.nn.Module()
+    for k, v in p0.items():
+        module.register_parameter(k, torch.nn.Parameter(torch.from_numpy(v.copy())))
+    jp = jax.tree.map(jnp.asarray, p0)
+    js, st = jtx.init(jp), tx.init(module)
+    for i in range(2):
+        g = {k: rng.randn(*v.shape).astype(np.float32) for k, v in p0.items()}
+        if i == 1:
+            g["b"] = np.zeros_like(g["b"])
+        u, js = jtx.update(jax.tree.map(jnp.asarray, g), js, jp)
+        jp = optax.apply_updates(jp, u)
+        module.a.grad = torch.from_numpy(g["a"])
+        module.b.grad = torch.from_numpy(g["b"]) if i == 0 else None
+        b_before = module.b.detach().clone()
+        tx.update(module, st)
+        for k, p in module.named_parameters():
+            np.testing.assert_array_equal(p.detach().numpy(), np.asarray(jp[k]), err_msg=k)
+    assert not torch.equal(module.b, b_before)  # b moved at step 2 too
+    moments = ("mu", "nu") if kind == "adam" else ("trace",)
+    jstate = js[0]
+    for m in moments:
+        for k in p0:
+            ref = getattr(jstate, m)[k]
+            np.testing.assert_array_equal(st[m][k].numpy(), np.asarray(ref), err_msg=(m, k))
+    assert st["count"] == 2
+
+
+def test_train_step_without_a_bank_gradient_matches_optax(rng):
+    """The bank, with the fused output unused (TEST.FUSE_OUTPUT off, no
+    consistency or fundamental loss), gets no gradient: two train steps
+    against JAX's, whose optax steps zeros for it. The loss as JAX's, the
+    bank, its moments and the count equal to optax's bit for bit, the other
+    parameters by the one-step rule."""
+    jcfg, cfg = _cfgs()
+    for c in (jcfg, cfg):
+        c.TEST.FUSE_OUTPUT = False
+    variables, batch = np_variables(rng), _batch(rng)
+    jmodel = JMultiView(resnet=jax_pose_net(jcfg), aggre=True)
+    jtx = joptim.make_optimizer(jcfg, 10)
+    jtrain = jstep.make_train_step(jmodel, jcfg, jtx)
+    jstate = JState(variables["params"], variables["batch_stats"],
+                    jtx.init(variables["params"]), 0)
+    tx = make_optimizer(cfg, 10)
+    state = from_jax_train_state(_np(jstate), _port_model(), tx, device="cpu")
+    train = tstep.make_train_step(state.params, cfg, tx, device="cpu")
+    jb = jax.tree.map(jnp.asarray, batch)
+    for i in range(2):
+        jstate, jm = jtrain(jstate, jb)
+        state, m = train(state, batch)
+        assert state.params.aggre_layer.weight.grad is None
+        if i == 0:
+            np.testing.assert_allclose(float(m["loss"]), float(jm["loss"]), rtol=1e-5)
+            _compare_state(state, jstate, param_atol=2 * cfg.TRAIN.LR + 1e-6, frac=2e-2,
+                           stats_rtol=1e-5)
+    adam = next(s for s in jstate.opt_state if hasattr(s, "mu"))
+    bank = "aggre_layer.weight"
+    np.testing.assert_array_equal(state.params.aggre_layer.weight.detach().numpy(),
+                                  np.asarray(jstate.params["aggre_layer"]["weight"]))
+    for m in ("mu", "nu"):
+        np.testing.assert_array_equal(state.opt_state[m][bank].numpy(),
+                                      np.asarray(getattr(adam, m)["aggre_layer"]["weight"]))
+    assert state.opt_state["count"] == int(adam.count) == 2
