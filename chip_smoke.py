@@ -9,12 +9,13 @@ Phases, each of which fails the run on its own:
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device -> exit 1;
 2. build every CUDA kernel from ``posetpu_torch/csrc`` (one nvcc per source,
    all started together), printing the build time and ptxas' report;
-3. eight paths at full width: ResNet-50, 256x256 input, 4 views, 16 joints,
-   64x64 heatmaps, the S=4096 aggregation bank, random weights from a seed,
-   calibrated on 2 batches. Each path serves a few requests through
-   prepare -> infer -> triangulate_points; the first warms up and frames/s
-   is over the rest. Every kernel's launch count is set to 0 just before a
-   path and read just after: each kernel of the path must have launched.
+3. nine paths at full width. Paths 1-8: ResNet-50, 256x256 input, 4 views,
+   16 joints, 64x64 heatmaps, the S=4096 aggregation bank, random weights
+   from a seed, calibrated on 2 batches; each serving path serves a few
+   requests through prepare -> infer -> triangulate_points, the first warms
+   up and frames/s is over the rest. Path 9 takes no model. Every kernel's
+   launch count is set to 0 just before a path and read just after: each
+   kernel of the path must have launched.
    - path 1, the defaults: ``build_serving_pipeline``, 32 four-view groups
      (128 images) per request: B2, B1, B3 (and B3's quantize pass); 8 timed
      requests, frames/s as the median and the min-max over them; its
@@ -85,6 +86,21 @@ Phases, each of which fails the run on its own:
      the CUDA-event times), peak memory, every metric finite, every Adam
      count (the base's and each critic's) equal to the steps taken, no hand
      kernel launched; one profiled step of each parity by family;
+   - path 9, the 3D and pseudo-label stages (:func:`path9`): 16,384
+     four-view groups of ``make_skeleton_poses`` seen by
+     ``make_camera_ring()`` (1000x1000, distortion), cropped as the H36M
+     annotation does (256x256 input, 64x64 maps, sigma 2), rendered in
+     chunks of 4,096 images, each map scaled by a seeded confidence, one
+     view of 10 % of the group-joints moved ~75-150 px; decoded by
+     ``final_preds`` (B7, one launch a chunk, no other hand kernel);
+     ``mint_pseudo_labels`` at thresholds 0.6-0.9, RANSAC with 3 inliers at
+     10 px, reprojection (its device sweep alone where h5py is absent);
+     each entry's PCKh and vis; RANSAC's and the reprojection's ms per
+     threshold over all groups (CUDA events), the planted outliers it drops
+     and the clean views it keeps; ``triangulate_poses`` on the GT 2D (under
+     1 mm) and on the decoded 2D; ``rpsm`` at test_rpsm.yaml's PICT_STRUCT on
+     64 groups rendered in H36M's projection (MPJPE under 60 mm, max under
+     150), its ms a group and peak memory;
 4. each kernel against its plain PyTorch version on the card, on the inputs
    its path gives it (taken from one more request): outputs must be equal.
    Timed with CUDA events (3 warm-up calls, median of 20): the kernel, its
@@ -129,7 +145,9 @@ Phases, each of which fails the run on its own:
    trained-like base weights, the CPU's draws fed to both: the loss within
    rtol 1e-4, and per model (the base and each critic) path 7's gradient
    bounds or three times the CPU's own distance under a 1e-7 nudge of the
-   images, where that is larger (:func:`gan_card_vs_cpu`).
+   images, where that is larger (:func:`gan_card_vs_cpu`); for path 9, on 64
+   groups: RANSAC's res_vis equal, the reprojection within 1e-3 px, and one
+   group's RPSM pose within 1 mm a joint (:func:`path9_card_vs_cpu`).
 
 The last lines are the card line, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``.
@@ -163,6 +181,22 @@ PATH5C = "path 5c (5b, identity blocks through B8b)"
 PATH6 = "path 6 (S-minor tail, flip test, per-pair bank)"
 TRAIN_WARMUP, TRAIN_STEPS = 3, 10  # path 7
 GAN_GROUPS, GAN_WARMUP, GAN_STEPS = 8, 3, 10  # path 8: timed steps of each parity
+# path 9: four-view groups of skeletons through decode, the pseudo-label sweep
+# and triangulation; RPSM on the first RPSM_GROUPS; card vs CPU on CHECK_GROUPS
+PATH9 = "path 9 (3D and pseudo-label stages)"
+G9, RPSM_GROUPS, CHECK_GROUPS = 16384, 64, 64
+RENDER_CHUNK = 4096  # images of maps rendered and decoded at once (1.07 GB of f32)
+OUTLIER_SHARE = 0.1  # of the group-joints: one view's peak moved 40-80 crop px
+THRESHOLDS = (0.6, 0.7, 0.8, 0.9)
+# path 9's RANSAC bounds at threshold 0.6, set from the first chip run that
+# measured them: 0.9995 of the planted outliers dropped, 0.9223 of the clean
+# views kept (PERF.md)
+MIN_OUTLIERS_DROPPED, MIN_CLEAN_KEPT = 0.995, 0.90
+# path 9's kernel families by name (PyTorch's own kernels)
+PATH9_FAMILIES = {"reductions (sum, max, argmax)": ("reduce_kernel",),
+                  "gather / index": ("gather", "index", "scatter"),
+                  "elementwise": ("elementwise",),
+                  "memcpy/memset": ("Memcpy", "Memset")}
 
 # path 7's kernel families by name (cuDNN's bf16 kernels carry "xmma" too)
 TRAIN_FAMILIES = {"convolutions (cuDNN)": ("conv", "cudnn", "fprop", "dgrad", "wgrad",
@@ -342,7 +376,7 @@ def profile_request(fn, families=None) -> dict:
             busy += b - max(a, end)
             end = b
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
-    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+    return {"wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3, "device_events": len(dev),
             "idle_share": 1.0 - busy / wall_us,
             "by_family_ms": {k: v / 1e3 for k, v in sorted(by_family.items(),
                                                            key=lambda kv: -kv[1])},
@@ -565,6 +599,257 @@ def gan_card_vs_cpu(cfg, batch: dict, parity: int, card, seed: int) -> tuple[str
         summary[n] = (f"cosine {1 - c_card:.8f} (yardstick {1 - c_yard:.8f}), worst relative "
                       f"L2 {rel_card[worst]:.2e} ({worst}; yardstick {rel_yard[worst]:.2e})")
     return (f"loss {l_card} vs {l_cpu} (relative {lerr:.2e}); {summary}", failures)
+
+
+def crop_boxes(pix):
+    """H36M-style crops of [..., J, 2] pixels: the centre and the scale (box
+    side / 200) of the joints' box with a 25 % margin, square."""
+    lo, hi = pix.amin(dim=-2), pix.amax(dim=-2)
+    side = (hi - lo).amax(dim=-1, keepdim=True) * 1.25
+    return (lo + hi) / 2.0, (side / 200.0).expand(lo.shape).contiguous()
+
+
+def render_views(pix, center, scale, shift=None, conf=None):
+    """64x64 maps (sigma 2) of [..., J, 2] pixels in their 256x256 crops;
+    ``shift`` [..., J, 2] moves a peak (crop pixels), ``conf`` [..., J]
+    scales a map."""
+    import torch
+
+    from posetpu_torch.ops.affine import affine_transform_points, get_affine_transform
+    from posetpu_torch.ops.heatmap import render_gaussian_heatmaps
+
+    crop = affine_transform_points(pix, get_affine_transform(center, scale, 0.0, (256, 256)))
+    if shift is not None:
+        crop = crop + shift
+    hm, _ = render_gaussian_heatmaps(crop, torch.ones(crop.shape[:-1], device=crop.device),
+                                     (64, 64), (256, 256), 2)
+    return hm if conf is None else hm * conf[..., None, None]
+
+
+def path9(dev, reset_counts, read_counts) -> tuple[dict, dict]:
+    """Path 9 at full width: G9 four-view groups of skeletons seen by the
+    synthetic rig (1000x1000, distortion), cropped as the H36M annotation
+    does, rendered to 64x64 maps in chunks, each map scaled by a seeded
+    confidence, a share of the group-joints with one view's peak planted far
+    off; decoded by ``final_preds`` (B7); ``mint_pseudo_labels`` (the sweep
+    alone where h5py is absent); ``triangulate_poses`` on the GT and the
+    decoded 2D; ``rpsm`` at test_rpsm.yaml's PICT_STRUCT on RPSM_GROUPS
+    groups rendered in H36M's projection. Returns the line's numbers and
+    the inputs of the card-vs-CPU checks."""
+    import shutil
+
+    import torch
+
+    from posetpu_torch.config import default_config
+    from posetpu_torch.core.inference import final_preds
+    from posetpu_torch.data.synthetic import make_camera_ring, make_skeleton_poses, tile_cameras
+    from posetpu_torch.geometry.cameras import project_points, project_pose
+    from posetpu_torch.geometry.pictorial import limb_lengths_from_pose, rpsm
+    from posetpu_torch.geometry.triangulate import (ransac_filter, reproject_poses,
+                                                    triangulate_poses)
+    from posetpu_torch.ops.affine import affine_transform_points, get_affine_transform
+    from posetpu_torch.pseudo.labeler import mint_pseudo_labels, sweep_pseudo_labels
+
+    t_start = time.perf_counter()
+    n = G9 * VIEWS
+    cams = tile_cameras(make_camera_ring(device=dev), G9)
+    cams_flat = cams.map(lambda x: x.reshape((n,) + x.shape[2:]))
+    poses = torch.from_numpy(make_skeleton_poses(G9, seed=9)).to(dev)  # [G, J, 3] mm
+    pix = project_points(poses[:, None], cams)  # [G, V, J, 2], OpenCV's convention
+    center, scale = crop_boxes(pix)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    conf = torch.rand(G9, VIEWS, 16, generator=gen, device=dev) * 0.6 + 0.4
+    # outliers: one view of OUTLIER_SHARE of the group-joints, its peak moved
+    # 40-80 crop pixels (~75-150 image pixels) towards the crop's middle,
+    # give or take 45 degrees, so that it stays on the map
+    planted = torch.zeros(G9, VIEWS, 16, dtype=torch.bool, device=dev)
+    g_, j_ = torch.nonzero(torch.rand(G9, 16, generator=gen, device=dev) < OUTLIER_SHARE,
+                           as_tuple=True)
+    planted[g_, torch.randint(0, VIEWS, g_.shape, generator=gen, device=dev), j_] = True
+    ang = torch.rand(G9, VIEWS, 16, generator=gen, device=dev) * (torch.pi / 2) - torch.pi / 4
+    dist = torch.rand(G9, VIEWS, 16, generator=gen, device=dev) * 40 + 40
+    setup_s = time.perf_counter() - t_start
+
+    def shift_of(s):
+        crop = affine_transform_points(pix[s], get_affine_transform(center[s], scale[s], 0.0,
+                                                                    (256, 256)))
+        to_mid = 128.0 - crop
+        base = torch.atan2(to_mid[..., 1], to_mid[..., 0]) + ang[s]
+        move = torch.stack([torch.cos(base), torch.sin(base)], dim=-1) * dist[s][..., None]
+        return move * planted[s][..., None]
+
+    have_h5 = True
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        have_h5 = False
+    gt2d = pix.reshape(n, 16, 2).cpu().numpy()
+    headsizes = (scale.amax(dim=-1) * 200 / 10.0).reshape(n, 1).cpu().numpy()
+    kw = dict(thresholds=THRESHOLDS, if_ransac=True, num_inliers=3, reproj_thre=10.0,
+              use_reproj=True, gt2d=gt2d, headsizes=headsizes)
+    out_dir = ROOT / "build" / "path9"
+
+    # ---- the main path: decode (B7), mint, triangulate, RPSM
+    reset_counts()
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    preds, maxvals = [], []
+    step = RENDER_CHUNK // VIEWS
+    for a in range(0, G9, step):
+        s = slice(a, a + step)
+        hm = render_views(pix[s], center[s], scale[s], shift_of(s), conf[s])
+        p, m = final_preds(hm, center[s], scale[s])
+        preds.append(p)
+        maxvals.append(m)
+    del hm
+    preds, maxvals = torch.cat(preds), torch.cat(maxvals)  # [G, V, J, 2], [G, V, J]
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t_path
+    pred2d = preds.reshape(n, 16, 2).cpu().numpy()
+    confidence = maxvals.reshape(n, 16).cpu().numpy()
+
+    t = time.perf_counter()
+    if have_h5:
+        summary = mint_pseudo_labels(pred2d, confidence, cams_flat, str(out_dir),
+                                     log=lambda *_: None, device=dev, **kw)
+        entries = summary["entries"]
+        written = sorted(p.name for p in out_dir.iterdir())
+        check(len(written) == 2 * len(THRESHOLDS) + 2 and summary["choose"]() is not None,
+              f"{PATH9}: the mint wrote {written}")
+        shutil.rmtree(out_dir)
+    else:
+        entries = [st["entry"] for st in
+                   sweep_pseudo_labels(pred2d, confidence, cams_flat, device=dev, **kw)]
+    mint_s = time.perf_counter() - t
+
+    t = time.perf_counter()
+    tri_gt = triangulate_poses(pix.reshape(n, 16, 2), cams_flat)
+    tri_dec = triangulate_poses(preds.reshape(n, 16, 2), cams_flat)
+    mpjpe_gt = float(torch.linalg.vector_norm(tri_gt - poses, dim=-1).mean())
+    mpjpe_dec = float(torch.linalg.vector_norm(tri_dec - poses, dim=-1).mean())
+    torch.cuda.synchronize()
+    tri_s = time.perf_counter() - t
+
+    cfg = default_config()
+    cfg.NETWORK.IMAGE_SIZE = np.array([256, 256])
+    cfg.NETWORK.HEATMAP_SIZE = np.array([64, 64])
+    ps = cfg.PICT_STRUCT  # experiments/multiview_h36m/test/test_rpsm.yaml
+    ps.FIRST_NBINS, ps.RECUR_NBINS, ps.RECUR_DEPTH = 16, 2, 10
+    ps.GRID_SIZE, ps.LIMB_LENGTH_TOLERANCE = 2000, 150
+    r = slice(0, RPSM_GROUPS)
+    pix_r = project_pose(poses[r, None], cams.map(lambda x: x[r]))  # H36M's convention
+    center_r, scale_r = crop_boxes(pix_r)
+    # the template limbs: each skeleton's lengths, averaged (the mean pose of
+    # skeletons turned every way would shorten every limb)
+    limbs = limb_lengths_from_pose(poses[r]).mean(0)
+    rpsm_args = (render_views(pix_r, center_r, scale_r), cams.map(lambda x: x[r]), center_r,
+                 scale_r, poses[r, 6].contiguous(), limbs, cfg)
+    rpsm_ms, peaks = [], []
+    for _ in range(2):  # the second run is the line's
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        out_r = rpsm(*rpsm_args)
+        ev[1].record()
+        ev[1].synchronize()
+        rpsm_ms.append(ev[0].elapsed_time(ev[1]))
+        peaks.append((torch.cuda.max_memory_allocated() - base) / 2**30)
+    err_r = torch.linalg.vector_norm(out_r - poses[r], dim=-1)
+    counts = read_counts()
+    cfg0 = copy.deepcopy(cfg)  # the first level alone: what the recursion adds
+    cfg0.PICT_STRUCT.RECUR_DEPTH = 0
+    first_level_ms = cuda_ms(lambda: rpsm(*rpsm_args[:-1], cfg0), warmup=1, reps=3)
+    path_s = time.perf_counter() - t_path
+
+    # RANSAC and the reprojection per threshold over all groups (CUDA events),
+    # and what RANSAC keeps of the planted outliers and of the clean views
+    per_thre = []
+    for thre in THRESHOLDS:
+        vis = (maxvals > thre).float()
+        ransac = lambda: ransac_filter(preds, cams, vis, 10.0, 3)
+        kept = ransac()
+        reproj = lambda: reproject_poses(preds, cams, kept)
+        seen = vis > 0
+        per_thre.append({
+            "thre": thre, "ransac_ms": cuda_ms(ransac, warmup=1, reps=5),
+            "reproj_ms": cuda_ms(reproj, warmup=1, reps=5),
+            "outliers_dropped": float((kept[planted & seen] == 0).float().mean()),
+            "clean_kept": float((kept[~planted & seen] == 1).float().mean())})
+    # where the time goes: RANSAC at the first threshold, the reprojection of
+    # its inliers, and the 64 groups' RPSM
+    vis = (maxvals > THRESHOLDS[0]).float()
+    kept = ransac_filter(preds, cams, vis, 10.0, 3)
+    profiles = {name: profile_request(fn, PATH9_FAMILIES) for name, fn in (
+        ("ransac", lambda: ransac_filter(preds, cams, vis, 10.0, 3)),
+        ("reprojection", lambda: reproject_poses(preds, cams, kept)),
+        ("rpsm", lambda: rpsm(*rpsm_args)))}
+    check(mpjpe_gt < 1.0, f"{PATH9}: GT triangulation MPJPE {mpjpe_gt} mm")
+    check(bool(torch.isfinite(tri_dec).all()) and mpjpe_dec < 100.0,
+          f"{PATH9}: decoded triangulation MPJPE {mpjpe_dec} mm")
+    check(float(err_r.mean()) < 60.0 and float(err_r.max()) < 150.0,
+          f"{PATH9}: RPSM MPJPE {float(err_r.mean())} mm, max {float(err_r.max())}")
+    check(per_thre[0]["outliers_dropped"] >= MIN_OUTLIERS_DROPPED
+          and per_thre[0]["clean_kept"] >= MIN_CLEAN_KEPT, f"{PATH9}: RANSAC {per_thre[0]}")
+    check(all(0.0 < e["vis"] < 1.0 and 0.5 < e["pckh"] <= 1.0 for e in entries),
+          f"{PATH9}: entries {entries}")
+    line = {"groups": G9, "images": n, "h5py": have_h5,
+            "mint": "mint_pseudo_labels" if have_h5 else "sweep_pseudo_labels (no h5py)",
+            "entries": [{k: e[k] for k in ("tag", "pckh", "vis")} for e in entries],
+            "per_threshold": per_thre, "mpjpe_gt_mm": mpjpe_gt, "mpjpe_decoded_mm": mpjpe_dec,
+            "rpsm_groups": RPSM_GROUPS, "rpsm_mpjpe_mm": float(err_r.mean()),
+            "rpsm_max_mm": float(err_r.max()), "rpsm_ms": rpsm_ms,
+            "rpsm_ms_a_group": rpsm_ms[-1] / RPSM_GROUPS, "rpsm_peak_gib": peaks,
+            "rpsm_first_level_ms": first_level_ms,
+            "seconds": {"setup": setup_s, "render_decode": decode_s, "mint": mint_s,
+                        "triangulate": tri_s, "path": path_s},
+            "launches": {k: v for k, v in counts.items() if v}, "profiles": profiles}
+    c = slice(0, CHECK_GROUPS)
+    vis06 = (maxvals[c] > THRESHOLDS[0]).float()
+    hm_r, cams_r, _, _, roots_r, limbs_r, _ = rpsm_args
+    s0 = slice(0, step)
+    checks = {"preds": preds[c], "cams": cams.map(lambda x: x[c]), "vis": vis06,
+              "rpsm_one": (hm_r[:1], cams_r.map(lambda x: x[:1]), center_r[:1], scale_r[:1],
+                           roots_r[:1], limbs_r, cfg),
+              # the main path's first chunk again, for phase 4 to take B7's input
+              "decode_first_chunk": lambda: final_preds(
+                  render_views(pix[s0], center[s0], scale[s0], shift_of(s0), conf[s0]),
+                  center[s0], scale[s0])}
+    return line, checks
+
+
+def path9_card_vs_cpu(checks) -> str:
+    """RANSAC's res_vis equal, the reprojection (of RANSAC's inliers, as the
+    mint feeds it) within 1e-3 px, and one group's RPSM pose within 1 mm a
+    joint, card against CPU on the same inputs."""
+    import torch
+
+    from posetpu_torch.geometry.pictorial import rpsm
+    from posetpu_torch.geometry.triangulate import ransac_filter, reproject_poses
+
+    cpu = lambda t: t.map(lambda x: x.cpu()) if hasattr(t, "map") else (
+        t.cpu() if torch.is_tensor(t) else t)
+    p, cams, vis = checks["preds"], checks["cams"], checks["vis"]
+    kept = ransac_filter(p, cams, vis, 10.0, 3)
+    kept_cpu = ransac_filter(cpu(p), cpu(cams), cpu(vis), 10.0, 3)
+    check(torch.equal(kept.cpu(), kept_cpu),
+          f"card vs CPU, {PATH9}: RANSAC differs on {int((kept.cpu() != kept_cpu).sum())} views")
+    proj, rv = reproject_poses(p, cams, kept)
+    proj_cpu, rv_cpu = reproject_poses(cpu(p), cpu(cams), kept_cpu)
+    perr = float((proj.cpu() - proj_cpu).abs().max())
+    check(torch.equal(rv.cpu(), rv_cpu) and perr <= 1e-3,
+          f"card vs CPU, {PATH9}: reprojection differs by {perr} px")
+    one = checks["rpsm_one"]
+    pose = rpsm(*one)
+    t = time.perf_counter()
+    pose_cpu = rpsm(*[cpu(a) for a in one])
+    jerr = float(torch.linalg.vector_norm(pose.cpu() - pose_cpu, dim=-1).max())
+    check(jerr <= 1.0, f"card vs CPU, {PATH9}: RPSM pose {jerr} mm apart")
+    return (f"card vs CPU, {PATH9} on {p.shape[0]} groups: RANSAC's res_vis equal "
+            f"({float(kept.mean()):.4f} kept), reprojection max abs diff {perr} px; RPSM on "
+            f"one group (16 bins, depth 10): {jerr} mm a joint at most (CPU run "
+            f"{time.perf_counter() - t:.1f} s)")
 
 
 def kernel_registers(build_log: str, kernel: str) -> dict:
@@ -1076,6 +1361,19 @@ def main() -> int:
     del states8, step8, batch8, metrics8, losses8
     torch.cuda.empty_cache()
 
+    # path 9: the 3D and pseudo-label stages at full width (path9)
+    def reset_counts():
+        for name in wrappers:
+            wrapper(name).launches = 0
+
+    line9, checks9 = path9(dev, reset_counts,
+                           lambda: {name: wrapper(name).launches for name in wrappers})
+    launches9 = line9["launches"]
+    check(launches9 == {"decode_heatmaps_kernel": G9 * VIEWS // RENDER_CHUNK},
+          f"{PATH9}: hand kernel launches {launches9}")
+    log(f"{PATH9}: " + json.dumps(line9) + f" | {card}")
+    torch.cuda.empty_cache()
+
     # one more request per path to take each kernel's inputs for phase 4 (the
     # callers look the kernels up on their modules at call time)
     with capture_first_calls([(pt, "fused_subpixel_deconv_batched"),
@@ -1089,6 +1387,8 @@ def main() -> int:
     b2_path2 = seen2.pop("fused_subpixel_deconv_batched")
     with capture_first_calls([(dec, "decode_heatmaps_kernel")]) as seen4:
         serve_with(pipe4, g, cams_small)(pipe4.prepare(views_f32))
+    with capture_first_calls([(dec, "decode_heatmaps_kernel")]) as seen9:
+        checks9.pop("decode_first_chunk")()
     seen.update(seen2)
     seen.update(seen3)
     seen.update(seen4)
@@ -1348,16 +1648,19 @@ def main() -> int:
 
     # B7: one compare and one select per element, outside the tensor cores;
     # every map read once, 12 bytes written per map. At path 4's 512 maps
-    # (the kernels line's numbers) and at path 5's 2,048, each beside
-    # torch.max over the same maps flattened
+    # (the kernels line's numbers), at path 5's 2,048 and at path 9's 65,536
+    # (one render chunk), each beside torch.max over the same maps flattened
     def decode_case(tag, hm, kw):
         maps = hm.numel() // (hm.shape[-1] * hm.shape[-2])
         return (f" {tag}, {maps} maps", (hm,), kw, 2 * hm.numel(), nbytes(hm) + 12 * maps)
 
     (hm7,), kw7 = seen["decode_heatmaps_kernel"]
     (hm7b,), kw7b = seen5["decode_heatmaps_kernel"][0]
-    decode_cases = [decode_case("path 4", hm7, kw7), decode_case("path 5b", hm7b, kw7b)]
-    check(decode_cases[0][0].endswith(" 512 maps") and decode_cases[1][0].endswith(" 2048 maps"),
+    (hm7c,), kw7c = seen9["decode_heatmaps_kernel"]
+    decode_cases = [decode_case("path 4", hm7, kw7), decode_case("path 5b", hm7b, kw7b),
+                    decode_case("path 9", hm7c, kw7c)]
+    check([c[0].split(", ")[1] for c in decode_cases]
+          == ["512 maps", "2048 maps", f"{RENDER_CHUNK * 16} maps"],
           f"B7's cases: {[c[0] for c in decode_cases]}")
     # the yardstick takes what the wrapper takes: path 4 hands over a permuted
     # view, which either has to copy before it can read a map as one row
@@ -1368,6 +1671,7 @@ def main() -> int:
                   "posetpu/ops/pallas/decode.py:61", decode_heatmaps, decode_cases,
                   library={c[0]: flat_max(c[1][0]) for c in decode_cases},
                   peak_ops=PEAK_F32_OPS, headline=0)
+    results[-1]["launches_path9"] = launches9["decode_heatmaps_kernel"]
 
     # B7's wrapper on the host: per call with the launch, with the launch
     # stubbed out (what the Python around the kernel costs), and torch.max's
@@ -1381,7 +1685,9 @@ def main() -> int:
         torch.cuda.synchronize()
         return us
 
-    for (tag, (hm,), kw, _, _) in decode_cases:
+    # (paths 4 and 5b: path 9's maps are large enough that the queue of
+    # launches fills and the host waits on the card)
+    for (tag, (hm,), kw, _, _) in decode_cases[:2]:
         with_launch = host_us(lambda: dec.decode_heatmaps_kernel(hm, **kw))
         real_kernel, dec._kernel = dec._kernel, lambda *a: 0
         try:
@@ -1392,6 +1698,7 @@ def main() -> int:
             f"the launch stubbed out; torch.max on the same input {host_us(flat_max(hm)):.2f} us; "
             f"input contiguous f32 (no copy first): "
             f"{hm.is_contiguous() and hm.dtype == torch.float32} | {card}")
+    del decode_cases, hm7c, seen9
 
     # B8a on each of path 5b's 13 block inputs, and each block within one
     # int8 step of the runner's block on the same input (the folded,
@@ -1625,6 +1932,8 @@ def main() -> int:
         log(f"card vs CPU, path 8's step in f32 (R18, 64x64, 4 groups, parity {parity}): "
             f"{line} ({time.perf_counter() - t:.1f} s)")
         check(not failures, f"card vs CPU, path 8 parity {parity}: {failures}")
+
+    log(path9_card_vs_cpu(checks9))
 
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -1,5 +1,8 @@
-"""Synthetic multi-camera rigs for tests and benchmarks: a 4-camera
-H36M-like rig with known intrinsics and distortion."""
+"""Synthetic multi-camera rigs and poses for tests and benchmarks: a
+4-camera H36M-like rig with known intrinsics and distortion, and
+ground-truth 3D skeletons, from which the geometry's invariants (GT 2D ->
+~0 MPJPE, RANSAC outlier rejection, RPSM refinement) are checkable without
+the real data sets. The same seed gives the JAX package's arrays."""
 
 from __future__ import annotations
 
@@ -38,6 +41,58 @@ def make_camera_ring(n_cams: int = 4, radius: float = 5000.0,
             ps.append(np.zeros(2))
     t = lambda a: torch.as_tensor(np.stack(a), dtype=torch.float32, device=device)
     return CameraParams(t(Rs), t(Ts), t(fs), t(cs), t(ks), t(ps))
+
+
+def make_poses3d(n_groups: int, n_joints: int = 16, seed: int = 0) -> np.ndarray:
+    """Random human-scale 3D point clouds near the rig centre (mm)."""
+    rs = np.random.RandomState(seed)
+    root = rs.uniform(-500, 500, size=(n_groups, 1, 3))
+    root[..., 2] = rs.uniform(800, 1200, size=(n_groups, 1))
+    offsets = rs.uniform(-600, 600, size=(n_groups, n_joints, 3))
+    return (root + offsets).astype(np.float32)
+
+
+# Canonical standing pose in the 16-joint MPII order (geometry/body.py
+# JOINT_NAMES), mm, z-up, root over the origin: realistic bone lengths, so
+# synthetic MPJPE numbers mean mm and RPSM's limb-length prior holds.
+CANONICAL_POSE_MM = np.array(
+    [
+        [-150, 30, 80],     # rank
+        [-140, 20, 550],    # rkne
+        [-130, 0, 990],     # rhip
+        [130, 0, 990],      # lhip
+        [140, 20, 550],     # lkne
+        [150, 30, 80],      # lank
+        [0, 0, 1000],       # root
+        [0, -20, 1450],     # thorax
+        [0, -30, 1580],     # upper neck
+        [0, -20, 1750],     # head top
+        [-270, 80, 900],    # rwri
+        [-260, 40, 1150],   # relb
+        [-220, 0, 1420],    # rsho
+        [220, 0, 1420],     # lsho
+        [260, 40, 1150],    # lelb
+        [270, 80, 900],     # lwri
+    ],
+    np.float32,
+)
+
+
+def make_skeleton_poses(n_groups: int, seed: int = 0, jitter: float = 40.0) -> np.ndarray:
+    """Human skeletons [n_groups, 16, 3] (mm): the canonical pose, a random
+    yaw, a root shift and per-joint jitter (bone lengths stay within RPSM's
+    limb tolerance)."""
+    rs = np.random.RandomState(seed)
+    poses = np.empty((n_groups, 16, 3), np.float32)
+    for g in range(n_groups):
+        ang = rs.uniform(0, 2 * np.pi)
+        cs, sn = np.cos(ang), np.sin(ang)
+        rot = np.array([[cs, -sn, 0], [sn, cs, 0], [0, 0, 1]], np.float32)
+        p = CANONICAL_POSE_MM @ rot.T
+        p += rs.uniform(-jitter, jitter, (16, 3)).astype(np.float32)
+        p[:, :2] += rs.uniform(-400, 400, 2).astype(np.float32)
+        poses[g] = p
+    return poses
 
 
 def tile_cameras(cams: CameraParams, n_groups: int) -> CameraParams:

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 
@@ -32,6 +33,26 @@ class CameraParams(NamedTuple):
 
     def map(self, fn) -> "CameraParams":
         return CameraParams(*[fn(x) for x in self])
+
+    @staticmethod
+    def from_dict(cam: dict) -> "CameraParams":
+        """Build from the reference's per-view camera dict ({R, T, fx, fy,
+        cx, cy, k, p}, the multiview_h36m annotation format): read as
+        float64, then rounded once to float32. CPU tensors."""
+        def t(x, *shape):
+            a = np.asarray(x, np.float64)
+            return torch.from_numpy(a.reshape(shape or a.shape).astype(np.float32))
+
+        return CameraParams(
+            R=t(cam["R"]), T=t(cam["T"], 3),
+            f=t([np.squeeze(cam["fx"]), np.squeeze(cam["fy"])]),
+            c=t([np.squeeze(cam["cx"]), np.squeeze(cam["cy"])]),
+            k=t(cam["k"], 3), p=t(cam["p"], 2))
+
+    @staticmethod
+    def stack(cams: list["CameraParams"]) -> "CameraParams":
+        """Stack cameras along a new leading dim."""
+        return CameraParams(*[torch.stack(xs) for xs in zip(*cams)])
 
 
 def _distortion(yx, yy, k, p):

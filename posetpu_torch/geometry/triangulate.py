@@ -1,13 +1,21 @@
-"""Batched multi-view DLT triangulation.
+"""Batched multi-view DLT triangulation, RANSAC filtering and reprojection.
 
 The reference triangulates one point at a time through pymvg's per-point SVD
-(lib/multiviews/triangulate.py:57-99). Here every group and joint solves at
-once: pixels -> undistorted normalised coords, then the inhomogeneous DLT
-as a 3x3 weighted normal-equation solve in metre-scaled coordinates (float32
-stays well-conditioned), in closed form.
+(lib/multiviews/triangulate.py:57-99), and its RANSAC filter re-triangulates
+every view pair of every joint the same way (triangulate.py:102-166). Here
+every group and joint solves at once: pixels -> undistorted normalised
+coords, then the inhomogeneous DLT as a 3x3 weighted normal-equation solve
+in metre-scaled coordinates (float32 stays well-conditioned), in closed
+form. RANSAC evaluates all C(4,2) = 6 pair hypotheses densely, the pairs
+folded into the group batch, with masks for the data-dependent inlier sets.
+
+Group layout: ``[G, V, ...]`` with V = 4 views a group; the flat ``[G*V,
+...]`` wrapper mirrors the reference's call signature.
 """
 
 from __future__ import annotations
+
+import itertools
 
 import torch
 
@@ -15,10 +23,15 @@ from posetpu_torch.geometry.cameras import (
     CameraParams,
     extrinsic_matrix,
     pixels_to_normalized,
+    project_points,
 )
 
 # World-unit rescale for DLT conditioning; H36M worlds are in mm.
 _T_SCALE = 1000.0
+
+# lexicographic, like the reference's itertools.combinations over the
+# visible views (triangulate.py:142)
+VIEW_PAIRS = tuple(itertools.combinations(range(4), 2))
 
 
 def _solve3(G, r):
@@ -70,3 +83,80 @@ def triangulate_points(poses2d, cams: CameraParams, joints_vis=None,
     pts = _dlt_solve(yn, P, joints_vis) * _T_SCALE  # [G, J, 3]
     enough = joints_vis.sum(dim=1) >= 2  # [G, J]
     return pts * enough[..., None].to(pts.dtype)
+
+
+def triangulate_poses(poses2d, cams: CameraParams, joints_vis=None,
+                      no_distortion: bool = False):
+    """The reference's flat signature (triangulate_poses, triangulate.py:
+    57-99): poses2d [N, J, 2] with N = G*4 view-major groups, cams leading
+    [N] -> [G, J, 3]."""
+    n, j, _ = poses2d.shape
+    g = n // 4
+    cams_g = cams.map(lambda x: x.reshape((g, 4) + x.shape[1:]))
+    vis_g = None if joints_vis is None else joints_vis.reshape(g, 4, j)
+    return triangulate_points(poses2d.reshape(g, 4, j, 2), cams_g, vis_g, no_distortion)
+
+
+def ransac_filter(poses2d, cams: CameraParams, joints_vis, reproj_thre: float,
+                  num_inliers: int, no_distortion: bool = False):
+    """Dense-hypothesis RANSAC pseudo-label filter (triangulate.py:102-166).
+
+    For every (group, joint): triangulate each of the 6 view pairs whose
+    views are both visible, reproject to all 4 views, count the inliers
+    (error < ``reproj_thre`` on every view, visible or not, as the reference
+    checks all views), and keep the best pair's inlier set if it has >=
+    ``num_inliers`` members. The best pair has the largest score ``n_in *
+    1e6 - mean_err`` in float32, the first such pair on ties (mean errors
+    closer than the score's float32 step tie), and pair 0 where no pair is
+    admissible.
+
+    poses2d [G, V, J, 2]; joints_vis [G, V, J] -> res_vis [G, V, J] float32.
+    """
+    g, v, j, _ = poses2d.shape
+    dev = poses2d.device
+    vis = joints_vis.float()
+    pairs = torch.tensor(VIEW_PAIRS, device=dev)  # [6, 2]
+    npairs = pairs.shape[0]
+    pair_mask = torch.zeros(npairs, v, device=dev)
+    pair_mask[torch.arange(npairs, device=dev)[:, None], pairs] = 1.0
+    hyp_vis = vis[:, None] * pair_mask[None, :, :, None]  # [G, 6, V, J]
+
+    # the six hypotheses as one batch of G*6 groups
+    pts = triangulate_points(
+        poses2d[:, None].expand(g, npairs, v, j, 2).reshape(g * npairs, v, j, 2),
+        cams.map(lambda x: x[:, None].expand((g, npairs) + x.shape[1:])
+                 .reshape((g * npairs,) + x.shape[1:])),
+        hyp_vis.reshape(g * npairs, v, j), no_distortion)  # [G*6, J, 3]
+
+    # every hypothesis point reprojected into every view
+    proj = project_points(pts.reshape(g, 1, npairs * j, 3), cams, no_distortion)
+    proj = proj.reshape(g, v, npairs, j, 2)
+    err = torch.linalg.vector_norm(proj - poses2d[:, :, None], dim=-1)  # [G, V, 6, J]
+    err = err.movedim(1, 2)  # [G, 6, V, J]
+    inlier = (err < reproj_thre).float()
+    n_in = inlier.sum(dim=2)  # [G, 6, J]
+    mean_err = (err * inlier).sum(dim=2) / n_in.clamp(min=1.0)
+
+    # admissible: both views visible and the inlier quota reached
+    both_vis = vis[:, pairs[:, 0]] * vis[:, pairs[:, 1]]  # [G, 6, J]
+    valid = both_vis * (n_in >= num_inliers).float() > 0
+    score = torch.where(valid, n_in * 1e6 - mean_err,
+                        torch.full_like(mean_err, float("-inf")))
+    best = score.argmax(dim=1)  # [G, J], the first maximum
+    best_inlier = inlier.gather(1, best[:, None, None, :].expand(g, 1, v, j))[:, 0]
+    return best_inlier * valid.any(dim=1)[:, None, :].float()
+
+
+def reproject_poses(poses2d, cams: CameraParams, joints_vis, no_distortion: bool = False):
+    """Triangulate from the visible views and write the reprojection back
+    into all views (reproject_poses, triangulate.py:169-213).
+
+    poses2d [G, V, J, 2]; joints_vis [G, V, J] -> (proj_2d [G, V, J, 2],
+    res_vis [G, V, J])."""
+    g, v, j, _ = poses2d.shape
+    vis = joints_vis.float()
+    pts = triangulate_points(poses2d, cams, vis, no_distortion)  # [G, J, 3]
+    proj = project_points(pts[:, None], cams, no_distortion)  # [G, V, J, 2]
+    enough = (vis.sum(dim=1) >= 2).float()  # [G, J]
+    res_vis = enough[:, None, :].expand(g, v, j)
+    return proj * res_vis[..., None], res_vis

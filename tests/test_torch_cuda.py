@@ -907,3 +907,43 @@ def test_adversarial_step_on_the_card_matches_the_cpu(cuda, parity):
     batch = chip_smoke.gan_batch(4, 64, 16, 16, "cpu", seed=3)
     line, failures = chip_smoke.gan_card_vs_cpu(cfg, batch, parity, cuda, seed=5)
     assert not failures, (failures, line)
+
+
+def test_3d_stages_on_the_card_match_the_cpu(cuda):
+    """chip_smoke.py's path 9 card-vs-CPU checks at test size: 16 groups of
+    skeleton views rendered, scaled by a confidence, one view of some
+    joints moved 60 crop px, decoded through B7; RANSAC's res_vis equal and
+    the reprojection within 1e-3 px; one group's RPSM (test_rpsm.yaml's 16
+    bins, depth 10) within 1 mm a joint (chip_smoke.path9_card_vs_cpu)."""
+    import numpy as np
+
+    import chip_smoke
+    from posetpu_torch.config import default_config
+    from posetpu_torch.core.inference import final_preds
+    from posetpu_torch.data.synthetic import make_camera_ring, make_skeleton_poses, tile_cameras
+    from posetpu_torch.geometry.cameras import project_points, project_pose
+    from posetpu_torch.geometry.pictorial import limb_lengths_from_pose
+
+    g = 16
+    cams = tile_cameras(make_camera_ring(device=cuda), g)
+    poses = torch.from_numpy(make_skeleton_poses(g, seed=2)).to(cuda)
+    pix = project_points(poses[:, None], cams)
+    center, scale = chip_smoke.crop_boxes(pix)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    conf = torch.rand(g, 4, 16, generator=gen, device=cuda) * 0.6 + 0.4
+    shift = torch.zeros(g, 4, 16, 2, device=cuda)
+    shift[torch.arange(g), torch.arange(g) % 4, torch.arange(g) % 16] = 60.0
+    before = tdec.decode_heatmaps_kernel.launches
+    preds, maxvals = final_preds(chip_smoke.render_views(pix, center, scale, shift, conf),
+                                 center, scale)
+    assert tdec.decode_heatmaps_kernel.launches == before + 1
+    cfg = default_config()
+    cfg.NETWORK.IMAGE_SIZE, cfg.NETWORK.HEATMAP_SIZE = np.array([256, 256]), np.array([64, 64])
+    pix_r = project_pose(poses[:1, None], cams.map(lambda x: x[:1]))
+    center_r, scale_r = chip_smoke.crop_boxes(pix_r)
+    one = (chip_smoke.render_views(pix_r, center_r, scale_r), cams.map(lambda x: x[:1]),
+           center_r, scale_r, poses[:1, 6].contiguous(), limb_lengths_from_pose(poses).mean(0),
+           cfg)
+    line = chip_smoke.path9_card_vs_cpu({"preds": preds, "cams": cams,
+                                         "vis": (maxvals > 0.6).float(), "rpsm_one": one})
+    assert "equal" in line

@@ -41,7 +41,12 @@ def test_every_module_imports_with_jax_blocked():
             "posetpu_torch.train.optim", "posetpu_torch.train.step",
             "posetpu_torch.train.checkpoint", "posetpu_torch.utils.gradients",
             "posetpu_torch.core.mi", "posetpu_torch.models.discriminators",
-            "posetpu_torch.train.gan"} <= set(mods)
+            "posetpu_torch.train.gan", "posetpu_torch.geometry.body",
+            "posetpu_torch.geometry.pictorial", "posetpu_torch.data.h5io",
+            "posetpu_torch.data.h36m", "posetpu_torch.data.registry",
+            "posetpu_torch.pseudo.labeler", "posetpu_torch.cli.common",
+            "posetpu_torch.cli.triangulate", "posetpu_torch.cli.rpsm",
+            "posetpu_torch.cli.pseudo_labels"} <= set(mods)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'posetpu'):\n"
             "    sys.modules[m] = None\n"
@@ -54,6 +59,19 @@ def test_every_module_imports_with_jax_blocked():
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|flax|optax|orbax|posetpu)\b"
                         r"|\bposetpu\.", re.MULTILINE)
+
+
+def test_every_module_imports_with_h5py_and_cv2_blocked():
+    """h5py is imported where an H5 file is read or written, and cv2 not at
+    all, so the package imports where they are absent."""
+    code = ("import sys, importlib\n"
+            "for m in ('h5py', 'cv2'):\n"
+            "    sys.modules[m] = None\n"
+            f"for m in {_modules()!r} + ['chip_smoke']:\n"
+            "    importlib.import_module(m)\n"
+            "print('ok')\n")
+    r = _run(code)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
@@ -146,3 +164,27 @@ def test_adversarial_entry_points_refuse_a_missing_gpu():
     assert all(st.step == 0 and st.opt_state["count"] == 0 for st in states.values())
     with pytest.raises(NotImplementedError, match="mesh"):
         make_adversarial_train_step(model, critics, cfg, tx, tx_d, mesh=object(), device="cpu")
+
+
+def test_3d_entry_points_refuse_a_missing_gpu(tmp_path):
+    import numpy as np
+    import torch
+
+    from posetpu_torch.cli import pseudo_labels, rpsm, triangulate
+    from posetpu_torch.config import default_config
+    from posetpu_torch.data.synthetic import make_camera_ring, tile_cameras
+    from posetpu_torch.pseudo import mint_pseudo_labels
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    cams = tile_cameras(make_camera_ring(), 1).map(lambda x: x.reshape((4,) + x.shape[2:]))
+    cfg = default_config()
+    for call in (lambda: mint_pseudo_labels(np.zeros((4, 16, 2), np.float32),
+                                            np.ones((4, 16), np.float32), cams,
+                                            str(tmp_path / "out")),
+                 lambda: triangulate.run(cfg),
+                 lambda: rpsm.run(cfg, str(tmp_path / "hm.h5")),
+                 lambda: pseudo_labels.run(cfg, str(tmp_path / "hm.h5"), "exp.yaml")):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            call()
+    assert not (tmp_path / "out").exists()
