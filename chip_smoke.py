@@ -9,7 +9,7 @@ Phases, each of which fails the run on its own:
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device -> exit 1;
 2. build every CUDA kernel from ``posetpu_torch/csrc`` (one nvcc per source,
    all started together), printing the build time and ptxas' report;
-3. nine paths at full width. Paths 1-8: ResNet-50, 256x256 input, 4 views,
+3. ten paths at full width. Paths 1-8: ResNet-50, 256x256 input, 4 views,
    16 joints, 64x64 heatmaps, the S=4096 aggregation bank, random weights
    from a seed, calibrated on 2 batches; each serving path serves a few
    requests through prepare -> infer -> triangulate_points, the first warms
@@ -101,6 +101,27 @@ Phases, each of which fails the run on its own:
      1 mm) and on the decoded 2D; ``rpsm`` at test_rpsm.yaml's PICT_STRUCT on
      64 groups rendered in H36M's projection (MPJPE under 60 mm, max under
      150), its ms a group and peak memory;
+   - path 10, the train CLI on images (:func:`path10`): an image fixture
+     written at the start (``data/synthetic.write_image_fixture``: 64 MPII
+     JPEGs of 1280x720 and 64 H36M JPEGs of 1000x1000 in zips, the
+     reference's annotation files), then ``cli/train.py``'s ``setup`` and
+     epoch loop (``train_epochs``: train, validate, checkpoints) for one
+     epoch of experiments/mpii/resnet50/140e_32batch.yaml (bf16 R50, 8
+     groups a batch, MPII's augmentation, validate with the flip test) and
+     then of experiments/mixed/resnet50/256_nofusion_fund5.yaml warm-started
+     from step 1's ``final_state`` (the fundamental loss from the fixture's
+     cameras, validate on H36M); the validate H5 dump where h5py is
+     present. Each step's main path must launch B7 once a validate batch and
+     nothing else; its line gives the loop's groups/s (host clock, loader
+     included), the step alone on 8 batches held on the card (CUDA events),
+     the loader alone a batch and the host ms an image, the StepTimer's data
+     ms, 5 loop steps profiled (device busy, idle share), validate's
+     groups/s, peak memory, checkpoint ms, the first and last loss; checks:
+     two passes over one epoch seed and prefetch 0 against 2 give equal
+     bytes, ``prepare`` card vs CPU (images within 2 ulp, targets 1e-6),
+     validate on one group card vs CPU in f32 (loss 1e-4, maxvals 1e-3, 90 %
+     of the joints within 1e-3 px), every loss finite, step 2 holding step
+     1's weights and its first loss below a fresh model's on that batch;
 4. each kernel against its plain PyTorch version on the card, on the inputs
    its path gives it (taken from one more request): outputs must be equal.
    Timed with CUDA events (3 warm-up calls, median of 20): the kernel, its
@@ -115,6 +136,7 @@ Phases, each of which fails the run on its own:
    flattened, from the same input). B7 runs
    at path 4's 512 maps (the numbers of its ``kernels`` entry) and at path
    5b's 2,048, with the wrapper's host time per call beside ``torch.max``'s.
+   B7 also runs on one validate batch of each path-10 step (512 maps).
    B8a runs on each of the 13 block inputs path 5b gives it (its time is
    their sum; each line carries the block shape its planner chose: rows per
    block, ring stages, staging tiles, shared memory, blocks per SM,
@@ -156,7 +178,9 @@ and ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import copy
+import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -192,6 +216,13 @@ THRESHOLDS = (0.6, 0.7, 0.8, 0.9)
 # measured them: 0.9995 of the planted outliers dropped, 0.9223 of the clean
 # views kept (PERF.md)
 MIN_OUTLIERS_DROPPED, MIN_CLEAN_KEPT = 0.995, 0.90
+# path 10: the train CLI on an image fixture, MPII pretraining then the mixed
+# retrain from its final_state; batches held on the card for the step alone,
+# loop steps profiled
+PATH10 = "path 10 (train CLI: MPII pretraining, then the mixed retrain)"
+PATH10_PRESETS = ("experiments/mpii/resnet50/140e_32batch.yaml",
+                  "experiments/mixed/resnet50/256_nofusion_fund5.yaml")
+HELD_BATCHES, PROFILED_STEPS = 8, 5
 # path 9's kernel families by name (PyTorch's own kernels)
 PATH9_FAMILIES = {"reductions (sum, max, argmax)": ("reduce_kernel",),
                   "gather / index": ("gather", "index", "scatter"),
@@ -852,6 +883,314 @@ def path9_card_vs_cpu(checks) -> str:
             f"{time.perf_counter() - t:.1f} s)")
 
 
+class _Held:
+    """The next ``n`` batches of a loader's running iterator, as a loader of
+    their own (its epoch already set)."""
+
+    def __init__(self, it, n: int):
+        self.it, self.n = it, n
+
+    def set_epoch(self, epoch: int) -> None:
+        pass
+
+    def __len__(self) -> int:
+        return self.n
+
+    def __iter__(self):
+        for _ in range(self.n):
+            yield next(self.it)
+
+
+def path10_step(preset: str, tmp: str, dev, reset_counts, read_counts,
+                resume_from: str = "") -> tuple[dict, dict]:
+    """One epoch of ``python -m posetpu_torch.cli.train --cfg <preset>
+    --epochs 1`` on the fixture under ``tmp`` as path 10's main path (the
+    CLI's setup, then its epoch loop: train, validate, checkpoints; the
+    validate H5 dump only where h5py is present), then its measurements and
+    checks. ``resume_from``: the final_state to warm-start from (the
+    preset's RESUME_PATH, under ``tmp``). Returns (its line, what phase 4
+    takes: B7's input on one validate batch)."""
+    import torch
+
+    from posetpu_torch.cli import train as train_cli
+    from posetpu_torch.cli.common import build_model, load_cfg, load_model_variables
+    from posetpu_torch.data.loader import GroupLoader
+    from posetpu_torch.data.prepare import make_prepare_fn
+    from posetpu_torch.models import quant
+    from posetpu_torch.ops import decode as dec
+    from posetpu_torch.train import loop
+    from posetpu_torch.train.optim import make_optimizer
+    from posetpu_torch.train.step import init_train_state, make_eval_step, make_train_step
+    from posetpu_torch.utils.profiling import StepTimer
+
+    name = Path(preset).stem
+    args = train_cli.parse_args(["--cfg", str(ROOT / preset), "--modelDir", f"{tmp}/output",
+                                 "--logDir", f"{tmp}/log", "--dataDir", tmp, "--epochs", "1"])
+    cfg = load_cfg(args)
+    if resume_from:
+        check(cfg.TRAIN.RESUME and os.path.relpath(resume_from, tmp) == cfg.TRAIN.RESUME_PATH,
+              f"{PATH10} {name}: the preset resumes from {cfg.TRAIN.RESUME_PATH}")
+        cfg.TRAIN.RESUME_PATH = resume_from
+    t0 = time.perf_counter()
+    tr = train_cli.setup(cfg, args, device=dev)
+    setup_s = time.perf_counter() - t0
+    bs = int(cfg.TRAIN.BATCH_SIZE)
+    line = {"preset": preset, "setup_s": setup_s, "groups_a_batch": bs,
+            "train_groups": len(tr.train_ds), "validate_groups": len(tr.test_ds),
+            "loader_threads": tr.train_loader.num_threads}
+    if resume_from:  # the warm start loaded step 1's weights, bit for bit
+        saved = load_model_variables(resume_from)
+        now = tr.base.params.state_dict()
+        check(all(torch.equal(now[k].cpu(), v) for part in saved.values()
+                  for k, v in part.items()), f"{PATH10} {name}: not step 1's weights")
+
+    # ---- the main path: the CLI's epoch loop, each phase timed
+    step = tr.train_step
+    losses, dispatch = [], []
+
+    def recording(st, b):
+        t = time.perf_counter()
+        st, m = step(st, b)
+        dispatch.append((time.perf_counter() - t) * 1e3)
+        losses.append(m["loss"])
+        return st, m
+
+    gc_ms = {0: 0.0, 1: 0.0, 2: 0.0}
+    gc_start = {}
+
+    def on_gc(phase, info):  # the interpreter's collections, by generation
+        if phase == "start":
+            gc_start["t"] = time.perf_counter()
+        elif "t" in gc_start:
+            gc_ms[info["generation"]] += (time.perf_counter() - gc_start.pop("t")) * 1e3
+
+    phases = {}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            phases[key] = phases.get(key, 0.0) + time.perf_counter() - t
+            return out
+        return run
+
+    have_h5 = True
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        have_h5 = False
+    line["branch"] = ("setup + train_epochs with the H5 dump" if have_h5 else
+                      "h5py absent: setup + train_epochs with validate(output_dir=None)")
+    tr.train_step, tr.timer = recording, StepTimer()
+    orig = loop.train_epoch, loop.validate
+    loop.train_epoch, loop.validate = timed("train", orig[0]), timed("validate", orig[1])
+    tr.ckpt.save_epoch = timed("save_epoch", tr.ckpt.save_epoch)
+    tr.ckpt.save_final = timed("save_final", tr.ckpt.save_final)
+    line["python_objects"] = len(gc.get_objects())
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gc.callbacks.append(on_gc)
+    t0 = time.perf_counter()
+    try:
+        line["perf"] = train_cli.train_epochs(tr, tr.output_dir if have_h5 else None)
+    finally:
+        gc.callbacks.remove(on_gc)
+        loop.train_epoch, loop.validate = orig
+        del tr.ckpt.save_epoch, tr.ckpt.save_final
+        tr.train_step = step
+        tr.writer.close()
+    torch.cuda.synchronize()
+    line["main_path_s"] = time.perf_counter() - t0
+    counts = {k: v for k, v in read_counts().items() if v}
+    line["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    n_val = len(tr.test_loader)
+    check(counts == {"decode_heatmaps_kernel": n_val},
+          f"{PATH10} {name}: hand kernel launches {counts}, {n_val} validate batches")
+    losses = torch.stack(losses).float().cpu()
+    check(bool(torch.isfinite(losses).all()), f"{PATH10} {name}: non-finite loss")
+    steps = len(tr.train_loader)
+    check(len(losses) == steps == tr.base.step, f"{PATH10} {name}: {len(losses)} steps")
+    check(os.path.exists(os.path.join(tr.output_dir, "final_state.pt")),
+          f"{PATH10} {name}: no final_state")
+    data_ms = [t * 1e3 for t in tr.timer.data_times]
+    line.update({
+        "steps": steps, "b7_launches": n_val, "validate_batches": n_val,
+        "loss_first": float(losses[0]), "loss_last": float(losses[-1]),
+        "loop_groups_per_s": steps * bs / phases["train"],
+        "loop_s": phases["train"], "validate_s": phases["validate"],
+        "validate_groups_per_s": len(tr.test_ds) / phases["validate"],
+        "save_epoch_ms": phases["save_epoch"] * 1e3, "save_final_ms": phases["save_final"] * 1e3,
+        "data_ms_median": statistics.median(data_ms), "data_ms_mean": statistics.mean(data_ms),
+        "data_ms_first": data_ms[0], "data_ms_max": max(data_ms),
+        "dispatch_ms_median": statistics.median(dispatch), "dispatch_ms_max": max(dispatch),
+        "gc_ms_by_generation": gc_ms})
+
+    # ---- the loader alone (no prefetch: one batch's host time), its batches
+    # held for the step alone; one record's host time by source
+    ds, threads = tr.train_ds, tr.train_loader.num_threads
+    loader = GroupLoader(ds, bs, prefetch=0, num_threads=threads)
+    it = iter(loader)
+    next(it)
+    held, times = [], []
+    for _ in range(HELD_BATCHES):
+        t = time.perf_counter()
+        held.append(next(it))
+        times.append((time.perf_counter() - t) * 1e3)
+    it.close()
+    line["loader_ms_a_batch_alone"] = statistics.median(times)
+    rs = np.random.RandomState(0)
+    by_source = {}
+    for i in range(0, len(ds.db), max(len(ds.db) // 64, 1)):
+        t = time.perf_counter()
+        ds.load_record(i, rs)
+        by_source.setdefault(ds.db[i]["source"], []).append((time.perf_counter() - t) * 1e3)
+    line["host_ms_an_image"] = {k: statistics.median(v) for k, v in by_source.items()}
+
+    # two passes over one epoch seed, and prefetch 0 against 2: equal bytes
+    def first_batches(prefetch):
+        lo = GroupLoader(ds, bs, prefetch=prefetch, num_threads=threads)
+        lo.set_epoch(0)
+        it = iter(lo)
+        out = [next(it) for _ in range(3)]
+        it.close()
+        return out
+
+    a, b, c = first_batches(0), first_batches(0), first_batches(2)
+    check(all(x.keys() == y.keys() and all(x[k].dtype == y[k].dtype and np.array_equal(x[k], y[k])
+                                           for k in x) for p in (b, c) for x, y in zip(a, p)),
+          f"{PATH10} {name}: the loader is not deterministic")
+
+    # prepare on the card against the CPU's on one batch
+    host = a[0]
+    got, ref = tr.prepare(host), make_prepare_fn(cfg, "cpu")(host)
+    ierr = float((got["images"].cpu() - ref["images"]).abs().max())
+    terr = float((got["target"].cpu() - ref["target"]).abs().max())
+    check(ierr <= 2 * float(np.spacing(np.float32(2.7))) and terr <= 1e-6
+          and all(torch.equal(got[k].cpu(), ref[k]) for k in ref if k not in ("images", "target")),
+          f"{PATH10} {name}: prepare, card vs CPU: images {ierr}, targets {terr}")
+    line["prepare_card_vs_cpu"] = {"images_max_abs": ierr, "target_max_abs": terr}
+
+    # the step alone on the held batches, already on the card
+    dev_batches = []
+    for hb in held:
+        db = tr.prepare(hb)
+        dev_batches.append(tr.extra(hb, db) if tr.extra is not None else db)
+    state = tr.state
+    for db in dev_batches[:2]:
+        state, _ = step(state, db)
+    events = []
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for db in dev_batches:
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        state, m = step(state, db)
+        e1.record()
+        events.append((e0, e1))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    gps = sorted(bs * 1e3 / e0.elapsed_time(e1) for e0, e1 in events)
+    line["step_alone_groups_per_s"] = {"median": statistics.median(gps), "min": gps[0],
+                                       "max": gps[-1], "host_clock": bs * len(events) / wall}
+    tr.state = state
+    del dev_batches
+
+    # PROFILED_STEPS steps of the loop (prefetch running) under the profiler
+    lo = GroupLoader(ds, bs, num_threads=threads)
+    lo.set_epoch(1)
+    it = iter(lo)
+    next(it)
+    time.sleep(0.5)  # its prefetch queue fills, as in a running epoch
+    prof = profile_request(lambda: loop.train_epoch(cfg, _Held(it, PROFILED_STEPS), tr.prepare,
+                                                    step, tr.state, 1, extra_batch_fn=tr.extra),
+                           TRAIN_FAMILIES)
+    it.close()
+    check(not prof["hand_kernel_launches"], f"{PATH10} {name}: hand kernels in the loop "
+          f"{prof['hand_kernel_launches']}")
+    line["profile_5_loop_steps"] = prof
+
+    # B7's input on one validate batch (phase 4), and validate card vs CPU on
+    # one group in f32 (TF32 off, as the CPU computes)
+    vit = iter(GroupLoader(tr.test_ds, int(cfg.TEST.BATCH_SIZE), shuffle=False,
+                           drop_last=False, prefetch=0))
+    vb = next(vit)
+    vit.close()
+    with capture_first_calls([(dec, "decode_heatmaps_kernel")]) as seen:
+        tr.eval_step(tr.base.params, tr.prepare(vb))
+    one = {k: v[:1] for k, v in vb.items()}
+    weights = {k: v.detach().cpu() for k, v in tr.base.params.state_dict().items()}
+    outs = []
+    t = time.perf_counter()
+    for device in (dev, torch.device("cpu")):
+        net = build_model(cfg, bf16=False)
+        net.load_state_dict(weights)
+        net.to(device)
+        with quant._full_fp32():
+            out = make_eval_step(net, cfg, flip_pairs=tr.train_ds.flip_pairs, device=device)(
+                net, make_prepare_fn(cfg, device)(one))
+        outs.append({k: out[k].float().cpu() for k in ("loss", "preds", "maxvals")})
+    card, cpu = outs
+    lerr = float((card["loss"] - cpu["loss"]).abs() / cpu["loss"].abs().clamp(min=1e-30))
+    merr = float((card["maxvals"] - cpu["maxvals"]).abs().max())
+    same = float(((card["preds"] - cpu["preds"]).abs().amax(-1) <= 1e-3).float().mean())
+    check(lerr <= 1e-4 and merr <= 1e-3 and same >= 0.9,
+          f"{PATH10} {name}: validate card vs CPU: loss {lerr}, maxvals {merr}, joints {same}")
+    line["validate_card_vs_cpu"] = {"loss_rel": lerr, "maxvals_max_abs": merr,
+                                    "joints_within_1e-3_px": same,
+                                    "cpu_s": time.perf_counter() - t}
+
+    if resume_from:  # the resumed model's first loss against a fresh one's on that batch
+        lo = GroupLoader(ds, bs, prefetch=0, num_threads=threads)
+        lo.set_epoch(0)
+        it = iter(lo)
+        hb0 = next(it)
+        it.close()
+        b0 = tr.prepare(hb0)
+        b0 = tr.extra(hb0, b0) if tr.extra is not None else b0
+        fresh = build_model(cfg, bf16=True, generator=torch.Generator().manual_seed(int(cfg.SEED)))
+        tx = make_optimizer(cfg, steps_per_epoch=steps)
+        _, m = make_train_step(fresh, cfg, tx, device=dev)(init_train_state(fresh, tx, dev), b0)
+        line["fresh_model_loss_on_the_first_batch"] = float(m["loss"])
+        check(line["loss_first"] < line["fresh_model_loss_on_the_first_batch"],
+              f"{PATH10} {name}: the resumed model's first loss {line['loss_first']} is not "
+              f"below a fresh model's {line['fresh_model_loss_on_the_first_batch']}")
+    line["final_state"] = os.path.join(tr.output_dir, "final_state")
+    return line, {"b7": seen["decode_heatmaps_kernel"]}
+
+
+def path10(dev, reset_counts, read_counts, card: str) -> dict:
+    """Path 10: the image fixture (data/synthetic.write_image_fixture:
+    MPII's 1280x720 and H36M's 1000x1000 JPEGs in zips), then step 1, MPII
+    pretraining on PATH10_PRESETS[0], and step 2, the mixed retrain on
+    PATH10_PRESETS[1] warm-started from step 1's final_state
+    (:func:`path10_step`). Returns B7's input on a validate batch of each
+    step and its launches in each main path."""
+    import shutil
+    import tempfile
+
+    from posetpu_torch.data.synthetic import write_image_fixture
+
+    tmp = tempfile.mkdtemp(prefix="posetpu-path10-")
+    try:
+        t = time.perf_counter()
+        counts = write_image_fixture(os.path.join(tmp, "data"))
+        log(f"{PATH10}: fixture {counts} written in {time.perf_counter() - t:.1f} s")
+        out = {"b7": {}, "launches": {}}
+        resume = ""
+        for i, preset in enumerate(PATH10_PRESETS):
+            line, got = path10_step(preset, tmp, dev, reset_counts, read_counts, resume)
+            resume = line["final_state"]
+            out["b7"][f"step {i + 1}"] = got["b7"]
+            out["launches"][f"step {i + 1}"] = line["b7_launches"]
+            log(f"{PATH10}, step {i + 1}: " + json.dumps(line) + f" | {card}")
+        return out
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
 def kernel_registers(build_log: str, kernel: str) -> dict:
     """Registers per thread of B8a's two instances, from ptxas' report:
     {"wide": n, "narrow": n} (the template argument: 64-wide conv1/conv2
@@ -1374,6 +1713,13 @@ def main() -> int:
     log(f"{PATH9}: " + json.dumps(line9) + f" | {card}")
     torch.cuda.empty_cache()
 
+    # path 10: the train CLI on images (path10)
+    t0 = time.perf_counter()
+    seen10 = path10(dev, reset_counts,
+                    lambda: {name: wrapper(name).launches for name in wrappers}, card)
+    log(f"{PATH10}: {time.perf_counter() - t0:.1f} s")
+    torch.cuda.empty_cache()
+
     # one more request per path to take each kernel's inputs for phase 4 (the
     # callers look the kernels up on their modules at call time)
     with capture_first_calls([(pt, "fused_subpixel_deconv_batched"),
@@ -1659,8 +2005,10 @@ def main() -> int:
     (hm7c,), kw7c = seen9["decode_heatmaps_kernel"]
     decode_cases = [decode_case("path 4", hm7, kw7), decode_case("path 5b", hm7b, kw7b),
                     decode_case("path 9", hm7c, kw7c)]
+    decode_cases += [decode_case(f"path 10 {step} (validate)", args[0], kw)
+                     for step, (args, kw) in seen10["b7"].items()]
     check([c[0].split(", ")[1] for c in decode_cases]
-          == ["512 maps", "2048 maps", f"{RENDER_CHUNK * 16} maps"],
+          == ["512 maps", "2048 maps", f"{RENDER_CHUNK * 16} maps", "512 maps", "512 maps"],
           f"B7's cases: {[c[0] for c in decode_cases]}")
     # the yardstick takes what the wrapper takes: path 4 hands over a permuted
     # view, which either has to copy before it can read a map as one row
@@ -1672,6 +2020,7 @@ def main() -> int:
                   library={c[0]: flat_max(c[1][0]) for c in decode_cases},
                   peak_ops=PEAK_F32_OPS, headline=0)
     results[-1]["launches_path9"] = launches9["decode_heatmaps_kernel"]
+    results[-1]["launches_path10"] = seen10["launches"]
 
     # B7's wrapper on the host: per call with the launch, with the launch
     # stubbed out (what the Python around the kernel costs), and torch.max's
@@ -1698,7 +2047,7 @@ def main() -> int:
             f"the launch stubbed out; torch.max on the same input {host_us(flat_max(hm)):.2f} us; "
             f"input contiguous f32 (no copy first): "
             f"{hm.is_contiguous() and hm.dtype == torch.float32} | {card}")
-    del decode_cases, hm7c, seen9
+    del decode_cases, hm7c, seen9, seen10
 
     # B8a on each of path 5b's 13 block inputs, and each block within one
     # int8 step of the runner's block on the same input (the folded,

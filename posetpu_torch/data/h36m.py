@@ -6,7 +6,7 @@ thorax/neck, upper-neck/nose, head-top/head renames), grouping by (subject,
 action, subaction, image_id) into 4 camera views with ::5 train / ::64
 validation subsampling, pseudo-label H5 injection, and PCKh evaluation with
 headsize = max(scale) * 200 / 10 at thresholds 0.5/0.4/0.3/0.2/0.1 (mean
-over 15 joints, 'head' excluded). Image loading is not ported yet.
+over 15 joints, 'head' excluded).
 """
 
 from __future__ import annotations
@@ -119,12 +119,9 @@ class MultiViewH36M(JointsDataset):
 
     def evaluate(self, pred, output_dir=None):
         """2D PCKh at 0.5 (and the 0.4/0.3/0.2/0.1 means) with the headsize
-        from the scale (multiview_h36m_compatible.py:184-234). Drawing the
-        predictions into ``output_dir`` is not ported yet (ROADMAP A4b)."""
-        if output_dir is not None:
-            raise NotImplementedError(
-                "MultiViewH36M.evaluate(output_dir=...) draws with utils/vis.py, which is "
-                "not ported yet (ROADMAP A4b)")
+        from the scale (multiview_h36m_compatible.py:184-234). With
+        ``output_dir`` the predictions are also drawn
+        (utils/vis.save_all_preds)."""
         pred = np.asarray(pred)[:, :, :2].copy()
         u = sorted_union_indices(self.u2a_mapping)
         a = np.array(
@@ -138,6 +135,14 @@ class MultiViewH36M(JointsDataset):
         headsizes = np.amax(scales, axis=1, keepdims=True) * 200 / 10.0
 
         dist = np.linalg.norm(gt - pred, axis=2)
+        if output_dir is not None:
+            from posetpu_torch.utils.vis import save_all_preds
+
+            zip_name = "images_nodistortion.zip@" if self.no_distortion else "images.zip@"
+            zip_dir = zip_name if self.data_format == "zip" else ""
+            save_all_preds(gt, pred, dist <= headsizes * 0.5, [self.db[i]["image"] for i in flat],
+                           "h36m", output_dir,
+                           image_root=osp.join(self.root, "h36m", zip_dir, "images"))
         name_values = collections.OrderedDict()
         head_idx = int(np.where(np.array([H36M_JOINTS[x] for x in a]) == "head")[0][0])
 

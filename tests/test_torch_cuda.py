@@ -947,3 +947,49 @@ def test_3d_stages_on_the_card_match_the_cpu(cuda):
     line = chip_smoke.path9_card_vs_cpu({"preds": preds, "cams": cams,
                                          "vis": (maxvals > 0.6).float(), "rpsm_one": one})
     assert "equal" in line
+
+
+def test_image_loader_prepare_bf16_step_and_validate_on_the_card(cuda, tmp_path):
+    """Path 10 at test size: the train CLI's setup on the MPII preset (cut
+    to ResNet-18, 64x64 crops, 16x16 maps, 2 groups a batch) over a small
+    image fixture; the loader's batch prepared on the card equals the CPU's
+    (images within 2 ulp, targets within 1e-6); one bf16 step with finite
+    metrics; validate launches B7 once a batch."""
+    import os
+
+    import numpy as np
+
+    from posetpu_torch.cli import train as train_cli
+    from posetpu_torch.cli.common import load_cfg
+    from posetpu_torch.data.prepare import make_prepare_fn
+    from posetpu_torch.data.synthetic import write_image_fixture
+    from posetpu_torch.train.loop import validate
+
+    write_image_fixture(str(tmp_path / "data"), n_images=8, mpii_size=(160, 120),
+                        h36m_size=(200, 200), mpii_train=16, mpii_valid=12,
+                        h36m_train_groups=2, h36m_valid_groups=2)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    args = train_cli.parse_args(["--cfg", os.path.join(root, "experiments/mpii/resnet50/"
+                                                       "140e_32batch.yaml"),
+                                 "--modelDir", str(tmp_path / "output"), "--logDir",
+                                 str(tmp_path / "log"), "--dataDir", str(tmp_path)])
+    cfg = load_cfg(args)
+    cfg.NETWORK.IMAGE_SIZE, cfg.NETWORK.HEATMAP_SIZE = np.array([64, 64]), np.array([16, 16])
+    cfg.POSE_RESNET.NUM_LAYERS = 18
+    cfg.TRAIN.BATCH_SIZE = cfg.TEST.BATCH_SIZE = 2
+    tr = train_cli.setup(cfg, args, device=cuda)
+    host = next(iter(tr.train_loader))
+    batch = tr.prepare(host)
+    ref = make_prepare_fn(cfg, "cpu")(host)
+    assert batch["images"].is_cuda and batch["target"].shape == (2, 4, 16, 16, 16)
+    assert float((batch["images"].cpu() - ref["images"]).abs().max()) <= 2 * float(
+        np.spacing(np.float32(2.7)))
+    assert float((batch["target"].cpu() - ref["target"]).abs().max()) <= 1e-6
+    state, metrics = tr.train_step(tr.state, batch)
+    assert state.step == 1 and all(bool(torch.isfinite(v).all()) for v in metrics.values())
+    before = tdec.decode_heatmaps_kernel.launches
+    perf, _, preds, _ = validate(cfg, tr.test_loader, tr.test_ds, tr.eval_step, state.params,
+                                 device=cuda)
+    assert tdec.decode_heatmaps_kernel.launches == before + len(tr.test_loader) == before + 2
+    assert preds.shape == (12, 16, 3) and np.isfinite(preds).all() and 0 <= perf <= 1
+    tr.writer.close()
