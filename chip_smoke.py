@@ -9,7 +9,7 @@ Phases, each of which fails the run on its own:
 1. the card: ``nvidia-smi`` name and power limit; no CUDA device -> exit 1;
 2. build every CUDA kernel from ``posetpu_torch/csrc`` (one nvcc per source,
    all started together), printing the build time and ptxas' report;
-3. ten paths at full width. Paths 1-8: ResNet-50, 256x256 input, 4 views,
+3. eleven paths at full width. Paths 1-8: ResNet-50, 256x256 input, 4 views,
    16 joints, 64x64 heatmaps, the S=4096 aggregation bank, random weights
    from a seed, calibrated on 2 batches; each serving path serves a few
    requests through prepare -> infer -> triangulate_points, the first warms
@@ -122,6 +122,24 @@ Phases, each of which fails the run on its own:
      validate on one group card vs CPU in f32 (loss 1e-4, maxvals 1e-3, 90 %
      of the joints within 1e-3 px), every loss finite, step 2 holding step
      1's weights and its first loss below a fresh model's on that batch;
+   - path 11, serving a trained checkpoint (:func:`path11`) on path 10's
+     fixture (24 H36M validation groups, 8 a batch): 11a,
+     ``cli.validate.run`` on path 10's step-2 ``final_state`` at the CLI's
+     defaults (the bf16 R50) and with ``--int8 --calib-batches 2
+     --int8-act4 l12 --int8-subpixel deconv0 --flip-test`` (and in float
+     with ``--flip-test``): perf, the int8 preds' largest and mean pixel
+     distance from the float ones (at the defaults, and both with the flip
+     test), the seconds to calibrate and quantize, validate's groups/s
+     (host clock around the loop, ending in a synchronize; the process is
+     warm), B7's launches and peak memory; 11b, a reference-layout
+     ``final_state.pth.tar`` written from a seed (:func:`reference_checkpoint`: R50 and the 12
+     ChannelWiseFC at 4096x4096, 805 MB in f32), ``cli.convert`` of it,
+     then ``cli.validate --int8 --qat-steps 4 --calib-batches 2
+     --flip-test`` on the result under experiments/mixed/resnet50/
+     256_fusion.yaml (the bank's bf16 product and fuse routing on): the
+     four QAT losses, each QAT step's ms (CUDA events), the write, convert
+     and load seconds, groups/s and perf. Each run's main path must launch
+     B7 once a validate batch and nothing else;
 4. each kernel against its plain PyTorch version on the card, on the inputs
    its path gives it (taken from one more request): outputs must be equal.
    Timed with CUDA events (3 warm-up calls, median of 20): the kernel, its
@@ -136,7 +154,8 @@ Phases, each of which fails the run on its own:
    flattened, from the same input). B7 runs
    at path 4's 512 maps (the numbers of its ``kernels`` entry) and at path
    5b's 2,048, with the wrapper's host time per call beside ``torch.max``'s.
-   B7 also runs on one validate batch of each path-10 step (512 maps).
+   B7 also runs on one validate batch of each path-10 step and on one int8
+   validate batch of path 11 (512 maps each).
    B8a runs on each of the 13 block inputs path 5b gives it (its time is
    their sum; each line carries the block shape its planner chose: rows per
    block, ring stages, staging tiles, shared memory, blocks per SM,
@@ -169,7 +188,13 @@ Phases, each of which fails the run on its own:
    bounds or three times the CPU's own distance under a 1e-7 nudge of the
    images, where that is larger (:func:`gan_card_vs_cpu`); for path 9, on 64
    groups: RANSAC's res_vis equal, the reprojection within 1e-3 px, and one
-   group's RPSM pose within 1 mm a joint (:func:`path9_card_vs_cpu`).
+   group's RPSM pose within 1 mm a joint (:func:`path9_card_vs_cpu`); for
+   path 11, one QAT step at ResNet-18 (:func:`qat_card_vs_cpu`: in float64
+   the loss within 1e-4 relative and at most 0.1 % of the int8 weights off
+   by one; the float32 numbers reported) and the int8 eval step on one group
+   of 11a and of 11b through the same qparams (:func:`eval_step_card_vs_cpu`:
+   without the bank heatmaps and maxvals equal and preds within 1e-4 px;
+   with the bf16 bank within one bf16 step).
 
 The last lines are the card line, one JSON object ``{"kernels": [...]}``
 and ``{"ok": true, "device": {...}}``.
@@ -181,9 +206,11 @@ import copy
 import gc
 import json
 import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from contextlib import contextmanager, nullcontext
 from pathlib import Path
@@ -223,6 +250,14 @@ PATH10 = "path 10 (train CLI: MPII pretraining, then the mixed retrain)"
 PATH10_PRESETS = ("experiments/mpii/resnet50/140e_32batch.yaml",
                   "experiments/mixed/resnet50/256_nofusion_fund5.yaml")
 HELD_BATCHES, PROFILED_STEPS = 8, 5
+# path 11: serving path 10's checkpoint (11a) and a converted reference one
+# with QAT and the bank (11b) through the validate and convert CLIs
+PATH11 = "path 11 (serving a trained checkpoint: validate, convert, int8, QAT)"
+PATH11_PRESET = "experiments/mixed/resnet50/256_fusion.yaml"
+# a full-f32 pass of the card's QAT step against float64, relative to its
+# largest magnitude (TF32 rounds each product's operands to 10 bits)
+F32_PASS_BOUND = 1e-5
+EVAL_ITERS = 30  # path 11's eval step alone on one held batch
 # path 9's kernel families by name (PyTorch's own kernels)
 PATH9_FAMILIES = {"reductions (sum, max, argmax)": ("reduce_kernel",),
                   "gather / index": ("gather", "index", "scatter"),
@@ -236,6 +271,16 @@ TRAIN_FAMILIES = {"convolutions (cuDNN)": ("conv", "cudnn", "fprop", "dgrad", "w
                   "BatchNorm": ("batch_norm", "bn_", "welford"),
                   "optimizer (foreach)": ("foreach", "multi_tensor"),
                   "memcpy/memset": ("Memcpy", "Memset")}
+# path 11's eval steps: the int8 trunk's GEMMs (torch._int_mm, a cutlass
+# "i161616gemm_s8" kernel), the float trunk's convolutions (cuDNN's are
+# named "...cudnn...fprop..." or "..._fprop_implicit_gemm_..."), then
+# cuBLAS's other GEMMs; the first match counts
+PATH11_FAMILIES = {"decode (B7)": ("decode_kernel",),
+                   "int8 GEMMs (torch._int_mm)": ("gemm_s8", "igemm", "imma"),
+                   "convolutions (cuDNN)": ("cudnn", "fprop", "dgrad", "implicit_gemm"),
+                   "BatchNorm": ("batch_norm", "bn_"),
+                   "other GEMMs (cuBLAS)": ("gemm", "Gemm", "cutlass"),
+                   "memcpy/memset": ("Memcpy", "Memset")}
 # path 8's: the critics' dense layers are cuBLAS's f32 GEMMs, named
 # "sm80_xmma_gemm_f32f32..." or cutlass "sgemm" (so "xmma" alone does not
 # mark a convolution here); the samplers' multinomial and top-k kernels
@@ -1161,34 +1206,493 @@ def path10_step(preset: str, tmp: str, dev, reset_counts, read_counts,
     return line, {"b7": seen["decode_heatmaps_kernel"]}
 
 
-def path10(dev, reset_counts, read_counts, card: str) -> dict:
-    """Path 10: the image fixture (data/synthetic.write_image_fixture:
-    MPII's 1280x720 and H36M's 1000x1000 JPEGs in zips), then step 1, MPII
-    pretraining on PATH10_PRESETS[0], and step 2, the mixed retrain on
-    PATH10_PRESETS[1] warm-started from step 1's final_state
-    (:func:`path10_step`). Returns B7's input on a validate batch of each
-    step and its launches in each main path."""
-    import shutil
-    import tempfile
-
+def path10(tmp: str, dev, reset_counts, read_counts, card: str) -> dict:
+    """Path 10: the image fixture under ``tmp``
+    (data/synthetic.write_image_fixture: MPII's 1280x720 and H36M's
+    1000x1000 JPEGs in zips), then step 1, MPII pretraining on
+    PATH10_PRESETS[0], and step 2, the mixed retrain on PATH10_PRESETS[1]
+    warm-started from step 1's final_state (:func:`path10_step`). Returns
+    B7's input on a validate batch of each step, its launches in each main
+    path, and step 2's final_state (path 11 serves it)."""
     from posetpu_torch.data.synthetic import write_image_fixture
 
-    tmp = tempfile.mkdtemp(prefix="posetpu-path10-")
+    t = time.perf_counter()
+    counts = write_image_fixture(os.path.join(tmp, "data"))
+    log(f"{PATH10}: fixture {counts} written in {time.perf_counter() - t:.1f} s")
+    out = {"b7": {}, "launches": {}}
+    resume = ""
+    for i, preset in enumerate(PATH10_PRESETS):
+        line, got = path10_step(preset, tmp, dev, reset_counts, read_counts, resume)
+        resume = line["final_state"]
+        out["b7"][f"step {i + 1}"] = got["b7"]
+        out["launches"][f"step {i + 1}"] = line["b7_launches"]
+        log(f"{PATH10}, step {i + 1}: " + json.dumps(line) + f" | {card}")
+    out["final_state"] = resume
+    return out
+
+
+def reference_checkpoint(path: str, seed: int, s: int) -> float:
+    """A reference-layout ``final_state.pth.tar`` written from ``seed``: a
+    ResNet-50 MultiViewPose (kernels 0.05 N(0, 1), BN weight and bias N(0, 1),
+    running mean 0.1 N(0, 1), running var U(0.5, 1.5), as
+    tests/test_torch_oracle_full.make_resnet50_state) with the 12
+    ChannelWiseFC weights [s, s] U(0, 0.1), inside the reference's envelope
+    ({"state_dict": ...} with DDP's ``module.`` prefixes). Returns the
+    seconds it took."""
+    import torch
+
+    t = time.perf_counter()
+    g = torch.Generator().manual_seed(seed)
+    st = {}
+
+    def conv(name, o, i, k):
+        st[f"{name}.weight"] = torch.randn(o, i, k, k, generator=g) * 0.05
+
+    def bn(name, c):
+        st[f"{name}.weight"] = torch.randn(c, generator=g)
+        st[f"{name}.bias"] = torch.randn(c, generator=g)
+        st[f"{name}.running_mean"] = torch.randn(c, generator=g) * 0.1
+        st[f"{name}.running_var"] = 0.5 + torch.rand(c, generator=g)
+
+    conv("resnet.conv1", 64, 3, 7)
+    bn("resnet.bn1", 64)
+    inp = 64
+    for stage, (planes, blocks) in enumerate(zip((64, 128, 256, 512), (3, 4, 6, 3)), 1):
+        for b in range(blocks):
+            p = f"resnet.layer{stage}.{b}"
+            conv(f"{p}.conv1", planes, inp, 1)
+            bn(f"{p}.bn1", planes)
+            conv(f"{p}.conv2", planes, planes, 3)
+            bn(f"{p}.bn2", planes)
+            conv(f"{p}.conv3", planes * 4, planes, 1)
+            bn(f"{p}.bn3", planes * 4)
+            if b == 0:
+                conv(f"{p}.downsample.0", planes * 4, inp, 1)
+                bn(f"{p}.downsample.1", planes * 4)
+            inp = planes * 4
+    for i in range(3):
+        st[f"resnet.deconv_layers.{3 * i}.weight"] = torch.randn(inp, 256, 4, 4,
+                                                                 generator=g) * 0.05
+        bn(f"resnet.deconv_layers.{3 * i + 1}", 256)
+        inp = 256
+    conv("resnet.final_layer", 16, 256, 1)
+    st["resnet.final_layer.bias"] = torch.randn(16, generator=g)
+    for i in range(12):
+        st[f"aggre_layer.aggre.{i}.weight"] = torch.rand(s, s, generator=g) * 0.1
+    torch.save({"epoch": 30, "state_dict": {f"module.{k}": v for k, v in st.items()},
+                "perf": 0.0}, path)
+    return time.perf_counter() - t
+
+
+def path11(tmp: str, final_state: str, dev, reset_counts, read_counts, card: str) -> dict:
+    """Path 11, serving a trained checkpoint, through the validate and
+    convert CLIs on path 10's fixture under ``tmp`` (24 H36M validation
+    groups of 1000x1000 JPEGs, 8 a batch):
+
+    - 11a: ``cli.validate.run`` on path 10's step-2 ``final_state``
+      (PATH10_PRESETS[1], the bf16 ResNet-50 without the bank) at the CLI's
+      defaults, then with ``--int8 --calib-batches 2 --int8-act4 l12
+      --int8-subpixel deconv0 --flip-test``, then in float with
+      ``--flip-test`` (int8 against float alone);
+    - 11b: :func:`reference_checkpoint` (S = 4096, 805 MB of bank in f32),
+      ``cli.convert`` of it, then ``cli.validate`` with ``--state
+      <converted> --int8 --qat-steps 4 --calib-batches 2 --flip-test`` under
+      experiments/mixed/resnet50/256_fusion.yaml (the bank's bf16 product
+      and fuse routing on).
+
+    Each run's main path must launch B7 once a validate batch and no other
+    hand kernel. Returns its lines, B7's input on one int8 validate batch,
+    B7's launches and what the card-vs-CPU checks take."""
+    import torch
+
+    from posetpu_torch.cli import common
+    from posetpu_torch.cli import convert as convert_cli
+    from posetpu_torch.cli import validate as validate_cli
+    from posetpu_torch.ops import decode as dec
+    from posetpu_torch.train import loop, qat, serve
+
+    have_h5 = True
     try:
+        import h5py  # noqa: F401
+    except ImportError:
+        have_h5 = False
+    phases, kept = {}, {}
+
+    def timed(key, fn):
+        def run(*a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = fn(*a, **kw)
+            torch.cuda.synchronize()
+            phases[key] = time.perf_counter() - t
+            kept[key] = (a, out)
+            return out
+        return run
+
+    def validate_run(tag, preset, *extra):
+        args = validate_cli.parse_args(
+            ["--cfg", str(ROOT / preset), "--modelDir", f"{tmp}/output", "--logDir",
+             f"{tmp}/log", "--dataDir", tmp, *extra])
+        cfg = common.load_cfg(args)
+        phases.clear()
+        reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
-        counts = write_image_fixture(os.path.join(tmp, "data"))
-        log(f"{PATH10}: fixture {counts} written in {time.perf_counter() - t:.1f} s")
-        out = {"b7": {}, "launches": {}}
-        resume = ""
-        for i, preset in enumerate(PATH10_PRESETS):
-            line, got = path10_step(preset, tmp, dev, reset_counts, read_counts, resume)
-            resume = line["final_state"]
-            out["b7"][f"step {i + 1}"] = got["b7"]
-            out["launches"][f"step {i + 1}"] = line["b7_launches"]
-            log(f"{PATH10}, step {i + 1}: " + json.dumps(line) + f" | {card}")
-        return out
+        perf, _, preds, _ = validate_cli.run(cfg, args, device=dev, dump=have_h5)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t
+        counts = {k: v for k, v in read_counts().items() if v}
+        (_, loader, dataset, eval_step, qvars, *_), _ = kept["validate"]
+        n_val = len(loader)
+        check(counts == {"decode_heatmaps_kernel": n_val},
+              f"{PATH11} {tag}: hand kernel launches {counts}, {n_val} validate batches")
+        check(np.isfinite(preds).all() and preds.shape == (len(dataset) * VIEWS, 16, 3),
+              f"{PATH11} {tag}: preds {preds.shape}, finite {np.isfinite(preds).all()}")
+        line = {"run": tag, "preset": preset, "flags": list(extra), "perf": perf,
+                "groups": len(dataset), "validate_batches": n_val, "b7_launches": n_val,
+                "validate_groups_per_s": len(dataset) / phases["validate"],
+                "validate_s": phases["validate"], "run_s": run_s,
+                "load_s": phases["load"],
+                "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+        ctx = {"cfg": cfg, "loader": loader, "dataset": dataset, "eval_step": eval_step,
+               "qvars": qvars}
+        if "quantize" in phases:
+            line["calibrate_and_quantize_s"] = phases["quantize"]
+            ctx["quant"] = kept["quantize"][1]
+        return line, preds, ctx
+
+    orig = loop.validate, serve.build_quant_from_variables, common.load_model_variables
+    loop.validate = timed("validate", orig[0])
+    serve.build_quant_from_variables = timed("quantize", orig[1])
+    common.load_model_variables = timed("load", orig[2])
+    try:
+        # ---- 11a: the float and the int8 serving of path 10's checkpoint
+        state = ["--state", final_state]
+        float_line, float_preds, float_ctx = validate_run("float", PATH10_PRESETS[1], *state)
+        int8_line, int8_preds, int8_ctx = validate_run(
+            "int8", PATH10_PRESETS[1], *state, "--int8", "--calib-batches", "2",
+            "--int8-act4", "l12", "--int8-subpixel", "deconv0", "--flip-test")
+        # the float run with the flip test too: int8 against float alone
+        flip_line, flip_preds, flip_ctx = validate_run("float, flip test", PATH10_PRESETS[1],
+                                                       *state, "--flip-test")
+
+        def px(a, b):
+            d = np.abs(a[..., :2] - b[..., :2]).max(-1)
+            return {"max": float(d.max()), "mean": float(d.mean())}
+
+        log(f"{PATH11}, 11a: " + json.dumps({
+            "float": float_line, "int8": int8_line, "float_flip_test": flip_line,
+            "int8_vs_float_px": px(int8_preds, float_preds),
+            "int8_vs_float_both_flip_test_px": px(int8_preds, flip_preds)}) + f" | {card}")
+
+        # ---- 11b: a reference checkpoint converted, then QAT int8 serving
+        ref_path = os.path.join(tmp, "reference", "final_state.pth.tar")
+        os.makedirs(os.path.dirname(ref_path))
+        conv_args = convert_cli.parse_args(
+            ["--cfg", str(ROOT / PATH11_PRESET), "--dataDir", tmp, "--torch", ref_path,
+             "--out", os.path.join(tmp, "converted", "final_state")])
+        conv_cfg = common.load_cfg(conv_args)
+        s_bank = int(np.prod(conv_cfg.NETWORK.HEATMAP_SIZE))
+        write_s = reference_checkpoint(ref_path, seed=11, s=s_bank)
+        t = time.perf_counter()
+        converted = convert_cli.run(conv_cfg, conv_args)
+        convert_s = time.perf_counter() - t
+        shutil.rmtree(os.path.dirname(ref_path))
+        gc.collect()
+        steps = []  # a CUDA event at each QAT step's start, one after the last
+
+        def mark(fn):
+            def run(*a, **kw):
+                e = torch.cuda.Event(enable_timing=True)
+                e.record()
+                steps.append(e)
+                return fn(*a, **kw)
+            return run
+
+        def teacher_marked(runner, *a, **kw):  # each QAT step starts with the teacher
+            if isinstance(runner, qat._Recorder):
+                return mark(orig_fwd)(runner, *a, **kw)
+            return orig_fwd(runner, *a, **kw)
+
+        orig_fwd, orig_qw = qat._forward, qat.quantize_weights
+        qat._forward, qat.quantize_weights = teacher_marked, mark(orig_qw)
+        losses = []
+        orig_ft = qat._finetune
+
+        def finetune(*a, **kw):
+            q, info = orig_ft(*a, **kw)
+            losses.extend(info["losses"])
+            return q, info
+
+        qat._finetune = finetune
+        try:
+            qat_line, _, qat_ctx = validate_run(
+                "qat", PATH11_PRESET, "--state", converted[:-3], "--int8", "--qat-steps", "4",
+                "--calib-batches", "2", "--flip-test")
+        finally:
+            qat._forward, qat.quantize_weights, qat._finetune = orig_fwd, orig_qw, orig_ft
+        step_ms = [a.elapsed_time(b) for a, b in zip(steps[:-1], steps[1:])]
+        check(len(losses) == 4 and len(step_ms) == 4 and all(np.isfinite(losses)),
+              f"{PATH11} 11b: QAT losses {losses}, {len(step_ms)} steps timed")
+        bank = qat_ctx["qvars"]["bank"]
+        check(bank is not None and bank.dtype == torch.bfloat16 and bank.device.type == dev.type
+              and bank.shape == (12, s_bank, s_bank), f"{PATH11} 11b: no bf16 bank on the card")
+        del bank
+        log(f"{PATH11}, 11b: " + json.dumps({
+            **qat_line, "qat_losses": losses, "qat_step_ms": step_ms,
+            "write_reference_s": write_s, "convert_s": convert_s}) + f" | {card}")
     finally:
-        shutil.rmtree(tmp, ignore_errors=True)
+        loop.validate, serve.build_quant_from_variables, common.load_model_variables = orig
+
+    from posetpu_torch.data.prepare import make_prepare_fn
+
+    # the eval step alone on one held batch of each run, the rates that
+    # compare the int8 trunk with the float one (a validate run's 3 batches
+    # are too few, its first holds the loader's start-up)
+    def held_batch(ctx):
+        it = iter(ctx["loader"])
+        host = next(it)
+        it.close()
+        return make_prepare_fn(ctx["cfg"], dev)(host)
+
+    def eval_step_alone(ctx, batch):
+        step = lambda: ctx["eval_step"](ctx["qvars"], batch)  # noqa: E731
+        for _ in range(3):
+            step()
+        torch.cuda.synchronize()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(EVAL_ITERS + 1)]
+        t = time.perf_counter()
+        ev[0].record()
+        for e in ev[1:]:
+            step()
+            e.record()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t
+        ms = sorted(a.elapsed_time(b) for a, b in zip(ev[:-1], ev[1:]))
+        groups = int(batch["images"].shape[0])
+        return {"groups_a_batch": groups, "batches": EVAL_ITERS,
+                "images_a_batch": groups * VIEWS * (2 if ctx["cfg"].TEST.FLIP_TEST else 1),
+                "ms_median": ms[EVAL_ITERS // 2], "ms_min": ms[0], "ms_max": ms[-1],
+                "groups_per_s": groups * EVAL_ITERS / wall,
+                "profile": profile_request(step, PATH11_FAMILIES)}
+
+    alone = {}
+    for tag, ctx in (("float", float_ctx), ("float, flip test", flip_ctx),
+                     ("int8, flip test", int8_ctx), ("11b qat, flip test, bank", qat_ctx)):
+        alone[tag] = eval_step_alone(ctx, held_batch(ctx))
+    log(f"{PATH11}, the eval step alone on one held batch ({EVAL_ITERS} batches after 3, CUDA "
+        f"events; groups/s on the host clock ending in a synchronize): " + json.dumps(alone)
+        + f" | {card}")
+
+    # B7's input on one int8 validate batch (phase 4), outside the main path;
+    # that batch prepared on the CPU for the card-vs-CPU checks (phase 5)
+
+    it = iter(int8_ctx["loader"])
+    host = next(it)
+    it.close()
+    with capture_first_calls([(dec, "decode_heatmaps_kernel")]) as seen:
+        int8_ctx["eval_step"](int8_ctx["qvars"], make_prepare_fn(int8_ctx["cfg"], dev)(host))
+    one = {k: v[:1] for k, v in host.items()}
+    return {"b7": seen["decode_heatmaps_kernel"],
+            "launches": {"11a float": float_line["b7_launches"],
+                         "11a int8": int8_line["b7_launches"],
+                         "11a float, flip test": flip_line["b7_launches"],
+                         "11b qat": qat_line["b7_launches"]},
+            "card_vs_cpu": [(tag, ctx["cfg"], ctx["dataset"].flip_pairs, ctx["quant"],
+                             make_prepare_fn(ctx["cfg"], "cpu")(one))
+                            for tag, ctx in (("11a int8", int8_ctx), ("11b qat", qat_ctx))]}
+
+
+def _to(tree, device):
+    """A nest of dicts of tensors moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)
+
+
+def eval_step_card_vs_cpu(cfg, flip_pairs, quant, batch, card) -> tuple[str, list]:
+    """``make_quant_eval_step`` on one prepared batch (on the CPU) through
+    the same qparams (and bank) on the card and on the CPU. Without the
+    bank: heatmaps and maxvals equal and every pred within 1e-4 px (the
+    inverse affine's tiny matmul may round otherwise). With it, cuBLAS's
+    bf16 product sums in another order than the CPU's: the heatmaps and
+    maxvals within one bf16 step of the largest map value times the
+    routing's 0.6, and the preds of every joint whose map has a clear peak
+    (maximum > 0, its two best pixels and the neighbours that set the
+    quarter-pixel nudge more than two such steps apart) within 1e-4 px.
+    Returns (its line, failures)."""
+    import torch
+
+    from posetpu_torch.train.serve import make_quant_eval_step
+
+    qparams, qfwd, bank = quant
+    outs = []
+    for device in (card, torch.device("cpu")):
+        step = make_quant_eval_step(qfwd, cfg, flip_pairs=flip_pairs,
+                                    has_aggre=bank is not None, device=device)
+        out = step({"q": _to(qparams, device), "bank": None if bank is None else bank.to(device)},
+                   {k: v.to(device) for k, v in batch.items()})
+        outs.append({k: out[k].float().cpu() for k in ("preds", "maxvals", "heatmaps")})
+    got, ref = outs
+    hm = ref["heatmaps"]
+    hm_err = float((got["heatmaps"] - hm).abs().max())
+    bound = 0.0 if bank is None else 0.6 * 2.0 ** -7 * float(hm.abs().max())
+    m_err = float((got["maxvals"] - ref["maxvals"]).abs().max())
+    p_err = (got["preds"] - ref["preds"]).abs().amax(-1)
+    sure = torch.ones_like(p_err, dtype=torch.bool)
+    if bank is not None:
+        n, v, h, w, j = hm.shape
+        maps = hm.movedim(-1, 2).reshape(n, v, j, h * w)
+        top2 = maps.topk(2, dim=-1).values
+        sure &= (ref["maxvals"] > 0) & (top2[..., 0] - top2[..., 1] > 2 * bound)
+        idx = maps.argmax(-1)
+        py, px = idx // w, idx % w
+        pick = lambda dy, dx: maps.gather(-1, ((py + dy).clamp(0, h - 1) * w  # noqa: E731
+                                               + (px + dx).clamp(0, w - 1))[..., None])[..., 0]
+        inner = (px > 0) & (px < w - 1) & (py > 0) & (py < h - 1)
+        sure &= ~(inner & (((pick(0, 1) - pick(0, -1)).abs() <= 2 * bound)
+                           | ((pick(1, 0) - pick(-1, 0)).abs() <= 2 * bound)))
+    clear = float(p_err[sure].max()) if bool(sure.any()) else float("nan")
+    failures = []
+    if hm_err > bound or m_err > bound:
+        failures.append(f"heatmaps {hm_err}, maxvals {m_err} over {bound}")
+    if bool(sure.any()) and clear > 1e-4:
+        failures.append(f"preds {clear} px on {int(sure.sum())} joints with a clear peak")
+    line = (f"heatmaps max abs diff {hm_err} (bound {bound}), maxvals {m_err}, preds {clear} px "
+            f"on the {int(sure.sum())} of {sure.numel()} joints with a clear peak (all joints: "
+            f"{float(p_err.max())})")
+    return line, failures
+
+
+def qat_card_vs_cpu(card) -> tuple[str, list]:
+    """One QAT step of a ResNet-18 at 64x64 on 2 groups (8 images) from one
+    set of trained-like weights (:func:`trained_like_`) and one calibration
+    (the CPU's), on the card and on the CPU:
+
+    - float64: the loss within 1e-10 relative and every tuned int8 weight
+      equal (2.3e-15 and none off, measured);
+    - float32, the package's dtype: the fake-quantised forward is chaotic
+      there (a conv sum in another order rounds one activation the other
+      way and the difference spreads, tests/test_torch_qat.py), so the
+      step's loss is reported, not held, as is that of the entry point with
+      each device calibrating itself. What is held is each full-f32 pass of
+      the card's step against a float64 recomputation on the CPU from the
+      card's own inputs: the teacher's heatmaps, and the head's output and
+      its two gradients (the weights' and the input's), each within
+      F32_PASS_BOUND of its largest magnitude. cuDNN's TF32 default, which
+      ``_full_fp32`` turns off for the step and its backward, rounds each
+      product's operands to 10 bits; the same passes with ``_full_fp32``
+      left out are printed beside.
+
+    Returns (its line, failures)."""
+    from contextlib import nullcontext
+
+    import torch
+
+    from posetpu_torch.models import quant
+    from posetpu_torch.models.pose_resnet import PoseResNet
+    from posetpu_torch.train import qat
+
+    model = PoseResNet(num_layers=18)
+    trained_like_(model, torch.Generator().manual_seed(12))
+    model.eval()
+    dks = model.deconv_kernels
+    x = np.random.RandomState(12).randn(2 * VIEWS, 64, 64, 3).astype(np.float32)
+    folded, scales = quant.calibrate(model, [x], "cpu")
+    folded64 = {k: (w.astype(np.float64), b.astype(np.float64)) for k, (w, b) in folded.items()}
+    t = time.perf_counter()
+
+    def finetune(f, device):
+        return qat._finetune(f, scales, 18, dks, [x], lr=3e-6, target_fn=None, device=device)
+
+    def f32_step_on_card(full_fp32: bool):
+        """The card's f32 step with its teacher's heatmaps and the head's
+        inputs, weights, output and gradients captured."""
+        cap = {}
+        keep = lambda key: (lambda g: cap.__setitem__(key, g.detach().clone()))  # noqa: E731
+        orig = qat._forward, qat._FakeQuantRunner, qat._full_fp32
+
+        def forward(runner, *a, **kw):
+            out = orig[0](runner, *a, **kw)
+            if isinstance(runner, qat._Recorder):
+                cap["teacher"] = out.detach().clone()
+            return out
+
+        class Runner(orig[1]):
+            def conv_f32(self, h, s_h, name, stride=1):
+                if name != "final":  # the blocks' last convs
+                    return super().conv_f32(h, s_h, name, stride)
+                w, b = self.p[name]
+                cap.update(h=h.detach().clone(), wq=self._fq_w(w).detach().clone(),
+                           b=b.detach().clone(), stride=stride)
+                w.register_hook(keep("gw"))
+                h.register_hook(keep("gh"))
+                y = super().conv_f32(h, s_h, name, stride)
+                y.register_hook(keep("gy"))
+                cap["y"] = y.detach().clone()
+                return y
+
+        qat._forward, qat._FakeQuantRunner = forward, Runner
+        if not full_fp32:
+            qat._full_fp32 = nullcontext
+        try:
+            _, info = finetune(folded, card)
+        finally:
+            qat._forward, qat._FakeQuantRunner, qat._full_fp32 = orig
+        return cap, info
+
+    def f32_pass_errors(cap):
+        """Each captured pass against float64 on the CPU from the same
+        inputs, relative to its largest magnitude."""
+        f64 = lambda v: v.cpu().double()  # noqa: E731
+        rel = lambda got, ref: float((f64(got) - ref).abs().max() / ref.abs().max())  # noqa: E731
+        with torch.no_grad():
+            teacher = quant._forward(quant._Recorder(folded64, "cpu"),
+                                     torch.from_numpy(x).double(), 18, dks)
+        h, wq = f64(cap["h"]).requires_grad_(), f64(cap["wq"]).requires_grad_()
+        y = quant._conv_f32(h, wq, stride=cap["stride"]) + f64(cap["b"])
+        y.backward(f64(cap["gy"]))
+        return {"teacher": rel(cap["teacher"], teacher), "head": rel(cap["y"], y.detach()),
+                "head weight grad": rel(cap["gw"], wq.grad),
+                "head input grad": rel(cap["gh"], h.grad)}
+
+    q64 = [finetune(folded64, device) for device in (card, torch.device("cpu"))]
+    cap, info32 = f32_step_on_card(full_fp32=True)
+    passes = f32_pass_errors(cap)
+    tf32 = f32_pass_errors(f32_step_on_card(full_fp32=False)[0])
+    cpu32 = finetune(folded, "cpu")[1]
+    entry = [qat.qat_finetune(model, [x], [x], device=device)
+             for device in (card, torch.device("cpu"))]
+
+    def loss_rel(ia, ib):
+        return abs(ia["losses"][0] - ib["losses"][0]) / abs(ib["losses"][0])
+
+    def weights_off(qa, qb):
+        off = total = worst = 0
+        for k, wq in qb["weights"].items():
+            d = (qa["weights"][k].cpu().int() - wq.int()).abs()
+            off, total, worst = off + int((d > 0).sum()), total + d.numel(), max(worst, int(d.max()))
+        return off / total, worst
+
+    (qa, ia), (qb, ib) = q64
+    l64, (off64, worst64) = loss_rel(ia, ib), weights_off(qa, qb)
+    l32 = loss_rel(entry[0][1], entry[1][1])
+    off32, worst32 = weights_off(entry[0][0], entry[1][0])
+    failures = []
+    if not (l64 <= 1e-10 and off64 == 0):
+        failures.append(f"f64: loss {l64}, int8 weights off {off64} (at most {worst64})")
+    over = {k: v for k, v in passes.items() if not v <= F32_PASS_BOUND}
+    if over:
+        failures.append(f"f32 passes over {F32_PASS_BOUND}: {over}")
+    fmt = lambda d: ", ".join(f"{k} {v:.2e}" for k, v in d.items())  # noqa: E731
+    line = (f"float64: loss relative {l64:.3e}, int8 weights off by one {off64:.2e} (at most "
+            f"{worst64}); float32 passes of the card's step against float64 (bound "
+            f"{F32_PASS_BOUND}): {fmt(passes)}; the same with TF32 allowed: {fmt(tf32)}; "
+            f"float32 loss relative, one calibration {loss_rel(info32, cpu32):.3e}, the entry "
+            f"point with each device calibrating {l32:.3e}, int8 weights off {off32:.2e} (at "
+            f"most {worst32}) ({time.perf_counter() - t:.1f} s)")
+    return line, failures
 
 
 def kernel_registers(build_log: str, kernel: str) -> dict:
@@ -1713,11 +2217,20 @@ def main() -> int:
     log(f"{PATH9}: " + json.dumps(line9) + f" | {card}")
     torch.cuda.empty_cache()
 
-    # path 10: the train CLI on images (path10)
-    t0 = time.perf_counter()
-    seen10 = path10(dev, reset_counts,
-                    lambda: {name: wrapper(name).launches for name in wrappers}, card)
-    log(f"{PATH10}: {time.perf_counter() - t0:.1f} s")
+    # path 10: the train CLI on images (path10); path 11: serving its
+    # checkpoint and a converted reference one (path11), on its fixture
+    read_counts = lambda: {name: wrapper(name).launches for name in wrappers}  # noqa: E731
+    tmp = tempfile.mkdtemp(prefix="posetpu-path10-")
+    try:
+        t0 = time.perf_counter()
+        seen10 = path10(tmp, dev, reset_counts, read_counts, card)
+        log(f"{PATH10}: {time.perf_counter() - t0:.1f} s")
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        seen11 = path11(tmp, seen10["final_state"], dev, reset_counts, read_counts, card)
+        log(f"{PATH11}: {time.perf_counter() - t0:.1f} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     torch.cuda.empty_cache()
 
     # one more request per path to take each kernel's inputs for phase 4 (the
@@ -2007,9 +2520,11 @@ def main() -> int:
                     decode_case("path 9", hm7c, kw7c)]
     decode_cases += [decode_case(f"path 10 {step} (validate)", args[0], kw)
                      for step, (args, kw) in seen10["b7"].items()]
+    decode_cases.append(decode_case("path 11 (int8 validate)", seen11["b7"][0][0],
+                                    seen11["b7"][1]))
     check([c[0].split(", ")[1] for c in decode_cases]
-          == ["512 maps", "2048 maps", f"{RENDER_CHUNK * 16} maps", "512 maps", "512 maps"],
-          f"B7's cases: {[c[0] for c in decode_cases]}")
+          == ["512 maps", "2048 maps", f"{RENDER_CHUNK * 16} maps", "512 maps", "512 maps",
+              "512 maps"], f"B7's cases: {[c[0] for c in decode_cases]}")
     # the yardstick takes what the wrapper takes: path 4 hands over a permuted
     # view, which either has to copy before it can read a map as one row
     def flat_max(hm):
@@ -2021,6 +2536,7 @@ def main() -> int:
                   peak_ops=PEAK_F32_OPS, headline=0)
     results[-1]["launches_path9"] = launches9["decode_heatmaps_kernel"]
     results[-1]["launches_path10"] = seen10["launches"]
+    results[-1]["launches_path11"] = seen11["launches"]
 
     # B7's wrapper on the host: per call with the launch, with the launch
     # stubbed out (what the Python around the kernel costs), and torch.max's
@@ -2048,6 +2564,7 @@ def main() -> int:
             f"input contiguous f32 (no copy first): "
             f"{hm.is_contiguous() and hm.dtype == torch.float32} | {card}")
     del decode_cases, hm7c, seen9, seen10
+    seen11.pop("b7")
 
     # B8a on each of path 5b's 13 block inputs, and each block within one
     # int8 step of the runner's block on the same input (the folded,
@@ -2283,6 +2800,19 @@ def main() -> int:
         check(not failures, f"card vs CPU, path 8 parity {parity}: {failures}")
 
     log(path9_card_vs_cpu(checks9))
+
+    # path 11: one QAT step (qat_card_vs_cpu) and the int8 eval step on one
+    # group of 11a (no bank) and of 11b (the bf16 bank), through the same
+    # qparams on both
+    line, failures = qat_card_vs_cpu(dev)
+    log(f"card vs CPU, {PATH11}'s QAT step (R18, 64x64, 2 groups): {line}")
+    check(not failures, f"card vs CPU, {PATH11} QAT: {failures}")
+    for tag, cfg_, pairs_, quant_, batch_ in seen11.pop("card_vs_cpu"):
+        t = time.perf_counter()
+        line, failures = eval_step_card_vs_cpu(cfg_, pairs_, quant_, batch_, dev)
+        log(f"card vs CPU, {PATH11} {tag}'s int8 eval step on one group: {line} "
+            f"({time.perf_counter() - t:.1f} s)")
+        check(not failures, f"card vs CPU, {PATH11} {tag}: {failures}")
 
     log(f"whole run: {time.perf_counter() - t_start:.1f} s")
     log(card)

@@ -36,28 +36,35 @@ def build_model(cfg, bf16: bool = True, generator=None):
 
 def load_model_variables(path: str, drop_aggre: bool = False) -> dict:
     """A model's {"params", "batch_stats"} (state-dict entries, CPU tensors)
-    from one of the port's checkpoints (train/checkpoint.py): ``path`` is
-    ``<dir>/<name>`` or ``<dir>/<name>.pt``, as the train CLI writes
-    ``<output dir>/final_state.pt``; its base model is read, never its
-    optimizer state. ``drop_aggre`` leaves the bank out.
-
-    The port reads no other format: a reference ``.pth`` / ``.pth.tar``
-    needs models/convert_torch.py (not ported yet, ROADMAP A6), and an
+    from a checkpoint: a reference torch checkpoint (``.pth`` /
+    ``.pth.tar``, converted by models/convert_torch.py; a bare PoseResNet's
+    keys are nested under ``resnet.``), or one of the port's own
+    (train/checkpoint.py), ``path`` being ``<dir>/<name>`` or
+    ``<dir>/<name>.pt`` as the train CLI writes ``<output
+    dir>/final_state.pt`` and cli/convert.py its output: its base model is
+    read, never its optimizer state. ``drop_aggre`` leaves the bank out. An
     Orbax directory written by the JAX package is refused."""
     import os
 
     from posetpu_torch.train.checkpoint import CheckpointManager
 
     if path.endswith((".pth", ".pth.tar")):
-        raise NotImplementedError(
-            f"{path}: a reference torch checkpoint needs models/convert_torch.py, which is "
-            f"not ported yet (ROADMAP A6)")
+        from posetpu_torch.models.convert_torch import convert_multiview, load_torch_state
+
+        state = load_torch_state(path)
+        if not any(k.startswith("resnet.") for k in state):
+            state = {f"resnet.{k}": v for k, v in state.items()}
+        variables, unused = convert_multiview(state, drop_aggre=drop_aggre)
+        if unused:
+            print(f"warning: {len(unused)} unconverted torch keys, e.g. {unused[:5]}")
+        return variables
     stem = path[:-3] if path.endswith(".pt") else path
     if not os.path.isfile(stem + ".pt"):
         if os.path.isdir(path):
             raise ValueError(
                 f"{path} is a directory (an Orbax checkpoint of the JAX package?): the port "
-                f"reads its own checkpoints, <dir>/<name>.pt")
+                f"reads its own checkpoints, <dir>/<name>.pt, and reference .pth / .pth.tar "
+                f"files")
         raise FileNotFoundError(f"no checkpoint {stem}.pt")
     states = CheckpointManager(os.path.dirname(os.path.abspath(stem))).restore_model(
         os.path.basename(stem))

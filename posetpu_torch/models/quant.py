@@ -368,11 +368,29 @@ class _Recorder:
         return h, s_h
 
 
+def conv_dtype_policy(qparams) -> dict:
+    """The JAX package's per-site conv compute dtype: {site: "bf16"} for
+    every site whose contraction K = kh*kw*cin is <= 128 with >= 256
+    output channels, the sites its TPU runs faster in bf16 than in int8.
+    bf16 is exact there (every product is an integer <= 127^2 and
+    |acc| <= 128*127^2 < 2^23, inside the f32 accumulator's exact range),
+    so the policy changes speed, not results. :class:`_Int8Runner` takes no
+    policy: every site is an exact int8 GEMM (ops/int_mm.py), which gives
+    the same numbers."""
+    policy = {}
+    for name, wq in qparams["weights"].items():
+        kh, kw, cin, cout = wq.shape
+        if kh * kw * cin <= 128 and cout >= 256:
+            policy[name] = "bf16"
+    return policy
+
+
 class _Int8Runner:
     """int8-mode executor. Every tensor between convs (block outputs,
     intra-block activations, branch outputs) is int8 with a calibrated
     scale; dequantize -> affine -> ReLU -> requantize happen in f32 on each
-    conv's int32 output.
+    conv's int32 output. Every site runs as an exact int8 GEMM, so the
+    runner takes no :func:`conv_dtype_policy`.
 
     ``act4``: boundary names (e.g. "layer1_0.out") stored at 4 bits: the
     same calibrated amax over 7 steps instead of 127. ``act4_mode="s4"``

@@ -208,9 +208,13 @@ def test_load_model_variables_refuses_other_formats(tmp_path, kind):
     elif kind == "missing":
         with pytest.raises(FileNotFoundError):
             load_model_variables(str(tmp_path / "final_state"))
-    else:
-        with pytest.raises(NotImplementedError, match="convert_torch.py"):
-            load_model_variables(str(tmp_path / f"model.{kind}"))
+    else:  # a reference checkpoint is read through models/convert_torch.py, not refused
+        w = torch.arange(6.0).reshape(1, 2, 1, 3)
+        torch.save({"state_dict": {"module.conv1.weight": w, "module.fc.bias": torch.ones(2)}},
+                   str(tmp_path / f"model.{kind}"))
+        got = load_model_variables(str(tmp_path / f"model.{kind}"))
+        assert set(got["params"]) == {"resnet.conv1.weight"} and not got["batch_stats"]
+        assert torch.equal(got["params"]["resnet.conv1.weight"], w)
 
 
 def test_load_model_variables_drops_the_bank(tmp_path):

@@ -993,3 +993,47 @@ def test_image_loader_prepare_bf16_step_and_validate_on_the_card(cuda, tmp_path)
     assert tdec.decode_heatmaps_kernel.launches == before + len(tr.test_loader) == before + 2
     assert preds.shape == (12, 16, 3) and np.isfinite(preds).all() and 0 <= perf <= 1
     tr.writer.close()
+
+
+def test_qat_and_the_int8_eval_step_on_the_card_match_the_cpu(cuda):
+    """chip_smoke.py's path 11 card-vs-CPU checks at test size: one QAT step
+    of a ResNet-18 at 64x64 on 2 groups (chip_smoke.qat_card_vs_cpu: in
+    float64 the loss within 1e-4 relative and at most 0.1 % of the int8
+    weights off by one), then make_quant_eval_step with the flip test on 2
+    groups through the same PTQ qparams, without the bank (heatmaps and
+    maxvals equal, preds within 1e-4 px) and with a U(0, 0.1) bank at
+    S = 256 (within one bf16 step; chip_smoke.eval_step_card_vs_cpu); B7
+    decodes on the card once a step."""
+    import numpy as np
+
+    import chip_smoke
+    from posetpu_torch.config import default_config
+    from posetpu_torch.models.multiview import get_multiview_pose_net
+    from posetpu_torch.train.serve import build_quant_from_variables
+
+    line, failures = chip_smoke.qat_card_vs_cpu(cuda)
+    assert not failures, (failures, line)
+    cfg = default_config()
+    cfg.NETWORK.IMAGE_SIZE, cfg.NETWORK.HEATMAP_SIZE = np.array([64, 64]), np.array([16, 16])
+    cfg.POSE_RESNET.NUM_LAYERS = 18
+    cfg.NETWORK.AGGRE = cfg.TEST.FUSE_OUTPUT = cfg.TEST.FLIP_TEST = True
+    gen = torch.Generator().manual_seed(4)
+    model = get_multiview_pose_net(cfg, gen)
+    chip_smoke.trained_like_(model, gen)
+    sd = model.state_dict()
+    stats = {k: v for k, v in sd.items() if k.endswith(("running_mean", "running_var"))}
+    variables = {"params": {k: v for k, v in sd.items() if k not in stats},
+                 "batch_stats": stats}
+    rs = np.random.RandomState(4)
+    batch = {"images": torch.from_numpy(rs.randn(2, 4, 64, 64, 3).astype(np.float32)),
+             "is_h36m": torch.ones(2), "center": torch.full((2, 4, 2), 100.0),
+             "scale": torch.full((2, 4, 2), 1.0)}
+    quant = build_quant_from_variables(cfg, variables, [batch["images"].reshape(-1, 64, 64, 3)],
+                                       device="cpu")
+    for bank in (None, quant[2]):
+        before = tdec.decode_heatmaps_kernel.launches
+        line, failures = chip_smoke.eval_step_card_vs_cpu(
+            cfg, [(0, 5), (1, 4), (2, 3), (10, 15), (11, 14), (12, 13)],
+            (quant[0], quant[1], bank), batch, cuda)
+        assert not failures, (failures, line)
+        assert tdec.decode_heatmaps_kernel.launches == before + 1

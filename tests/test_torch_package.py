@@ -52,7 +52,9 @@ def test_every_module_imports_with_jax_blocked():
             "posetpu_torch.data.base", "posetpu_torch.data.mpii", "posetpu_torch.data.coco",
             "posetpu_torch.data.mixed", "posetpu_torch.data.loader",
             "posetpu_torch.data.prepare", "posetpu_torch.train.loop",
-            "posetpu_torch.cli.train"} <= set(mods)
+            "posetpu_torch.cli.train", "posetpu_torch.train.qat", "posetpu_torch.train.serve",
+            "posetpu_torch.models.convert_torch", "posetpu_torch.cli.validate",
+            "posetpu_torch.cli.convert"} <= set(mods)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'posetpu'):\n"
             "    sys.modules[m] = None\n"
