@@ -1,14 +1,19 @@
 """Training entry point: run/pose2d/train.py's equivalent.
 
     python -m posetpu_torch.cli.train --cfg experiments/mixed/resnet50/...yaml \
-        [--pseudo-path X.h5] [--no-distortion] [--epochs N] [--batch N] [--f32]
+        [--pseudo-path X.h5] [--no-distortion] [--epochs N] [--batch N] [--f32] \
+        [--coordinator host:port --num-processes W --process-id i]
 
-One process on one card (CUDA). The train state warm-starts from
-``TRAIN.RESUME_PATH`` (one of the port's own checkpoints: ``<output
-dir>/final_state``) and, with ``TRAIN.ON_SERVER_CLUSTER``, resumes from the
-run's last ``checkpoint``. An enabled MI or domain loss switches to the
-adversarial step. Data parallelism over several processes
-(``--coordinator``, ``--num-processes``) is not ported yet (ROADMAP A6).
+One process a card (CUDA). Over W cards, start the command once per card
+with the same ``--coordinator`` and ``--num-processes`` and its own
+``--process-id``: the processes form a data mesh (parallel/mesh.py, NCCL),
+each reads its shard of the training set (``TRAIN.BATCH_SIZE`` groups a
+process, so the global batch is W times that) and steps on the global
+batch; rank 0 logs and writes the checkpoints. The train state
+warm-starts from ``TRAIN.RESUME_PATH`` (one of the port's own checkpoints:
+``<output dir>/final_state``) and, with ``TRAIN.ON_SERVER_CLUSTER``,
+resumes from the run's last ``checkpoint``. An enabled MI or domain loss
+switches to the adversarial step.
 """
 
 from __future__ import annotations
@@ -99,6 +104,7 @@ class Training:
     begin_epoch: int
     extra: Callable | None
     timer: Any = None  # a utils/profiling.StepTimer the loop times its steps with
+    mesh: Any = None  # the steps' parallel/mesh.DataMesh (two or more processes), or None
 
     @property
     def base(self):
@@ -116,7 +122,14 @@ def setup(cfg, args, device=None, log=None) -> Training:
     train state and the supervised or adversarial step (the samplers seeded
     from ``cfg.SEED``), the warm start from ``TRAIN.RESUME_PATH``, the
     auto-resume (``TRAIN.ON_SERVER_CLUSTER``) and the fundamental extras.
-    ``log``: a logging.Logger to write to in place of the run's own."""
+    ``log``: a logging.Logger to write to in place of the run's own.
+
+    With ``--coordinator`` this process joins the group of
+    ``--num-processes`` (parallel/mesh.initialize_distributed: NCCL on
+    CUDA, gloo for ``device="cpu"``); over two or more processes
+    everything runs over its data mesh, and a group of one runs the plain
+    steps (parallel/mesh.use_mesh, the validate CLI's rule too). The caller
+    ends the group (:func:`run` does)."""
     import torch
 
     from posetpu_torch import resolve_device
@@ -125,20 +138,29 @@ def setup(cfg, args, device=None, log=None) -> Training:
     from posetpu_torch.data.prepare import make_prepare_fn
     from posetpu_torch.data.registry import get_dataset
     from posetpu_torch.models.discriminators import build_discriminators
+    from posetpu_torch.parallel.mesh import (
+        data_mesh,
+        initialize_distributed,
+        replicate,
+        use_mesh,
+    )
     from posetpu_torch.train.checkpoint import CheckpointManager
     from posetpu_torch.train.optim import make_optimizer
     from posetpu_torch.train.step import init_train_state, make_eval_step, make_train_step
     from posetpu_torch.utils.logging import ScalarWriter, create_logger
 
-    if args.coordinator or args.num_processes > 1:
-        raise NotImplementedError(
-            "--coordinator / --num-processes: training over several processes is not "
-            "ported yet (ROADMAP A6)")
     if args.epochs:
         cfg.TRAIN.END_EPOCH = args.epochs
     if args.batch:
         cfg.TRAIN.BATCH_SIZE = args.batch
-    dev = resolve_device(device)
+    if args.num_processes > 1 and not args.coordinator:
+        raise ValueError("--num-processes > 1 needs --coordinator host:port")
+    initialize_distributed(args.coordinator or None, args.num_processes or None,
+                           args.process_id, device=device)
+    group = data_mesh() if args.coordinator else None
+    dev = resolve_device(device) if group is None else group.device
+    n_proc, rank = (1, 0) if group is None else (group.size, group.rank)
+    mesh = use_mesh(group)
 
     logger, output_dir, tb_dir = create_logger(cfg, args.cfg, "train")
     logger = log or logger
@@ -156,7 +178,7 @@ def setup(cfg, args, device=None, log=None) -> Training:
     # the reference's DataLoader workers become the loader's image threads
     threads = int(cfg.WORKERS)
     train_loader = GroupLoader(train_ds, cfg.TRAIN.BATCH_SIZE, shuffle=cfg.TRAIN.SHUFFLE,
-                               num_threads=threads)
+                               num_shards=n_proc, shard_index=rank, num_threads=threads)
     if cfg.DATASET.IF_SAMPLE and hasattr(train_ds, "group_weights"):
         train_loader.set_weights(train_ds.group_weights(cfg))
         logger.info(f"IF_SAMPLE balancing on: h36m={cfg.DATASET.H36M_WEIGHT} "
@@ -164,12 +186,23 @@ def setup(cfg, args, device=None, log=None) -> Training:
     test_loader = GroupLoader(test_ds, cfg.TEST.BATCH_SIZE, shuffle=False, drop_last=False,
                               num_threads=threads)
     logger.info(f"train groups: {len(train_ds)}, test groups: {len(test_ds)}")
+    # the 1-D data mesh over the processes, one device each (the DDP world,
+    # train.py:129-225): each rank's shard of the batch, the model replicated
+    logger.info(f"data mesh: {n_proc} devices, {n_proc} process(es)")
+    local_ndev = 1  # one device a process
+    assert cfg.TRAIN.BATCH_SIZE % local_ndev == 0, (
+        f"TRAIN.BATCH_SIZE ({cfg.TRAIN.BATCH_SIZE}) must be a multiple of the local device "
+        f"count ({local_ndev}) for even batch sharding")
+    assert cfg.TEST.BATCH_SIZE % n_proc == 0, (
+        f"TEST.BATCH_SIZE ({cfg.TEST.BATCH_SIZE}) must be a multiple of the total device "
+        f"count ({n_proc})")
 
     gen = torch.Generator().manual_seed(int(cfg.SEED))
     model = build_model(cfg, bf16=not args.f32, generator=gen)
     steps = max(len(train_loader), 1)
     tx = make_optimizer(cfg, steps_per_epoch=steps)
-    eval_step = make_eval_step(model, cfg, flip_pairs=train_ds.flip_pairs, device=dev)
+    eval_step = make_eval_step(model, cfg, flip_pairs=train_ds.flip_pairs, mesh=mesh,
+                               device=dev)
     prepare = make_prepare_fn(cfg, dev)
     state = init_train_state(model, tx, device=dev)
 
@@ -185,19 +218,19 @@ def setup(cfg, args, device=None, log=None) -> Training:
 
         tx_disc = {n: make_optimizer(cfg, steps, discriminator=True) for n in disc_models}
         gan_step = make_adversarial_train_step(model, disc_models, cfg, tx, tx_disc,
-                                               device=dev, seed=int(cfg.SEED))
+                                               mesh=mesh, device=dev, seed=int(cfg.SEED))
         state = {"base_model": state,
                  **init_discriminator_states(disc_models, tx_disc, device=dev)}
 
         def train_step(states, batch):
             return gan_step(states, batch, epoch_parity=run_ctx["parity"])
     else:
-        train_step = make_train_step(model, cfg, tx, device=dev)
+        train_step = make_train_step(model, cfg, tx, mesh=mesh, device=dev)
 
     tr = Training(cfg, dev, logger, output_dir, writer, train_ds, test_ds, train_loader,
                   test_loader, prepare, eval_step, train_step, state, adversarial, run_ctx,
-                  CheckpointManager(output_dir, async_save=True), int(cfg.TRAIN.BEGIN_EPOCH),
-                  None)
+                  CheckpointManager(output_dir, async_save=True, mesh=mesh),
+                  int(cfg.TRAIN.BEGIN_EPOCH), None, mesh=mesh)
     # warm start / resume (train.py:250-286)
     if cfg.TRAIN.RESUME and cfg.TRAIN.RESUME_PATH:
         variables = load_model_variables(cfg.TRAIN.RESUME_PATH,
@@ -211,6 +244,8 @@ def setup(cfg, args, device=None, log=None) -> Training:
         logger.info(f"=> auto-resume at epoch {tr.begin_epoch}")
     if cfg.LOSS.USE_FUNDAMENTAL_LOSS:
         tr.extra = build_fund_extra(cfg, train_ds, dev)
+    if mesh is not None:  # every rank starts from rank 0's state
+        replicate(tr.states(), mesh)
     return tr
 
 
@@ -218,27 +253,44 @@ def train_epochs(tr: Training, eval_output_dir: str | None) -> float:
     """The epoch loop from ``tr.begin_epoch`` to ``TRAIN.END_EPOCH``: train,
     validate (the H5 dump into ``eval_output_dir`` where given), the
     per-epoch and best checkpoints (on a better perf, or every
-    ``CHECKPOINT_EVERY``), then ``final_state``. Returns the best perf."""
+    ``CHECKPOINT_EVERY``), then ``final_state``. Returns the best perf.
+
+    Over a data mesh every rank runs the loop (its shard of the training
+    set, the full test set in lockstep); rank 0 logs the steps, writes the
+    scalars, the debug drawings, the H5 dump and the checkpoints."""
+    from posetpu_torch.parallel.mesh import (
+        global_batch_from_full_host,
+        is_primary,
+        shard_host_batch,
+    )
     from posetpu_torch.train.loop import train_epoch, validate
 
-    cfg = tr.cfg
+    cfg, mesh = tr.cfg, tr.mesh
+    primary = is_primary(mesh)
+    train_place = None if mesh is None else (lambda t: shard_host_batch(t, mesh))
+    eval_place = None if mesh is None else (lambda t: global_batch_from_full_host(t, mesh))
     best_perf = -1.0
     every = max(1, int(getattr(cfg.TRAIN, "CHECKPOINT_EVERY", 1)))
-    debug_dir = os.path.join(tr.output_dir, "debug") if cfg.DEBUG.DEBUG else None
+    debug_dir = (os.path.join(tr.output_dir, "debug") if cfg.DEBUG.DEBUG and primary
+                 else None)
     for epoch in range(tr.begin_epoch, cfg.TRAIN.END_EPOCH):
         tr.run_ctx["parity"] = epoch % 2
         tr.state = train_epoch(cfg, tr.train_loader, tr.prepare, tr.train_step, tr.state, epoch,
-                               logger=tr.logger, writer=tr.writer, extra_batch_fn=tr.extra,
-                               debug_dir=debug_dir, timer=tr.timer)
+                               logger=tr.logger if primary else None,
+                               writer=tr.writer if primary else None, extra_batch_fn=tr.extra,
+                               debug_dir=debug_dir, place_fn=train_place, timer=tr.timer)
         perf, _, _, _ = validate(cfg, tr.test_loader, tr.test_ds, tr.eval_step, tr.base.params,
-                                 output_dir=eval_output_dir, logger=tr.logger, device=tr.device)
-        tr.writer.add_scalar("valid_perf", perf, epoch)
+                                 output_dir=eval_output_dir, logger=tr.logger,
+                                 place_fn=eval_place, device=tr.device, mesh=mesh)
+        if primary:
+            tr.writer.add_scalar("valid_perf", perf, epoch)
         is_best = perf > best_perf
         best_perf = max(best_perf, perf)
         if is_best or (epoch + 1) % every == 0:
             tr.ckpt.save_epoch(epoch + 1, tr.states(), perf, is_best)
     tr.ckpt.save_final(tr.states())
-    tr.logger.info(f"done; best perf {best_perf:.4f}")
+    if primary:
+        tr.logger.info(f"done; best perf {best_perf:.4f}")
     return best_perf
 
 
@@ -252,7 +304,10 @@ def run(cfg, args, device=None, log=None) -> Training:
     then :func:`train_epochs` with the H5 dump in the output directory.
     While it runs, SIGTERM exits at once (code 143) so that a cluster
     preempting the job resumes it (``ON_SERVER_CLUSTER``), as the reference
-    installs it (train.py:47-48). Returns the finished Training."""
+    installs it (train.py:47-48). With ``--coordinator`` the process group
+    :func:`setup` joined ends with the run. Returns the finished Training."""
+    import torch.distributed as dist
+
     main_thread = threading.current_thread() is threading.main_thread()
     previous = signal.signal(signal.SIGTERM, _sigterm) if main_thread else None
     try:
@@ -263,6 +318,8 @@ def run(cfg, args, device=None, log=None) -> Training:
             tr.writer.close()
         return tr
     finally:
+        if args.coordinator and dist.is_initialized():
+            dist.destroy_process_group()
         if main_thread:
             signal.signal(signal.SIGTERM, previous)
 

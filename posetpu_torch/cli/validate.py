@@ -5,7 +5,8 @@ the PCKh table.
     python -m posetpu_torch.cli.validate --cfg <yaml> --state <ckpt> \\
         [--trainset] [--flip-test] [--f32] \\
         [--int8 [--calib-batches N] [--qat-steps N [--qat-lr LR]] \\
-                [--int8-act4 l12|<names>] [--int8-subpixel deconv0,...]]
+                [--int8-act4 l12|<names>] [--int8-subpixel deconv0,...]] \\
+        [--coordinator host:port --num-processes W --process-id i]
 
 ``--state`` is a reference torch checkpoint (``.pth`` / ``.pth.tar``,
 converted on the fly by models/convert_torch.py) or one of the port's own
@@ -13,9 +14,14 @@ converted on the fly by models/convert_torch.py) or one of the port's own
 output). ``--int8`` serves the int8 trunk (train/serve.py), calibrated on the
 first ``--calib-batches`` batches and, with ``--qat-steps``, QAT fine-tuned
 on them first. ``--trainset`` mirrors run/pose2d/valid_trainset.py:
-inference over the training grouping, to mint pseudo labels from. One
-process on one card (CUDA); evaluation over several devices is not ported
-yet (ROADMAP A6).
+inference over the training grouping, to mint pseudo labels from.
+
+One process a card (CUDA). Over W cards, start the command once per card
+with the same ``--coordinator`` and ``--num-processes`` and its own
+``--process-id``: the float evaluation then runs over the data mesh
+(each rank its rows of every batch, the outputs gathered; the JAX package's
+rule: W > 1 and ``TEST.BATCH_SIZE`` a multiple of W), and rank 0 writes the
+dump. The int8 serving runs whole on each process.
 """
 
 from __future__ import annotations
@@ -51,6 +57,9 @@ def parse_args(argv=None):
                    help="with --int8: comma-separated deconv names to "
                         "quantize in per-phase subpixel form (finer weight "
                         "scales)")
+    p.add_argument("--coordinator", default="", help="process-group rendezvous host:port")
+    p.add_argument("--num-processes", type=int, default=0)
+    p.add_argument("--process-id", type=int, default=0)
     return p.parse_args(argv)
 
 
@@ -67,8 +76,27 @@ def run(cfg, args, device=None, log=None, dump: bool = True):
     """Validate as ``python -m posetpu_torch.cli.validate`` does, on
     ``device`` (CUDA unless given). ``log``: a logging.Logger to write to in
     place of the run's own; ``dump``: write the heatmap H5 into the output
-    directory (it needs h5py). Returns the validate loop's (perf,
-    name_values, preds [N*V, J, 3], heatmaps [N*V, J, h, w])."""
+    directory (it needs h5py; rank 0 writes it). Returns the validate
+    loop's (perf, name_values, preds [N*V, J, 3], heatmaps [N*V, J, h,
+    w]). With ``--coordinator`` this process joins the group of
+    ``--num-processes`` for the run and leaves it at the end."""
+    import torch.distributed as dist
+
+    from posetpu_torch.parallel.mesh import data_mesh, initialize_distributed
+
+    if args.num_processes > 1 and not args.coordinator:
+        raise ValueError("--num-processes > 1 needs --coordinator host:port")
+    initialize_distributed(args.coordinator or None, args.num_processes or None,
+                           args.process_id, device=device)
+    try:
+        return _run(cfg, args, device, log, dump,
+                    data_mesh() if args.coordinator else None)
+    finally:
+        if args.coordinator and dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _run(cfg, args, device, log, dump, mesh):
     import torch
 
     from posetpu_torch import resolve_device
@@ -76,12 +104,13 @@ def run(cfg, args, device=None, log=None, dump: bool = True):
     from posetpu_torch.data.loader import GroupLoader
     from posetpu_torch.data.prepare import make_prepare_fn
     from posetpu_torch.data.registry import get_dataset
+    from posetpu_torch.parallel.mesh import global_batch_from_full_host, is_primary, use_mesh
     from posetpu_torch.train.loop import validate
     from posetpu_torch.train.serve import build_quant_from_variables, make_quant_eval_step
     from posetpu_torch.train.step import make_eval_step
     from posetpu_torch.utils.logging import create_logger
 
-    dev = resolve_device(device)
+    dev = resolve_device(device) if mesh is None else mesh.device
     # valid.py forces the MI / fundamental losses off at eval (valid.py:133-135)
     cfg.LOSS.USE_FUNDAMENTAL_LOSS = False
     cfg.LOSS.USE_LOCAL_MI_LOSS = False
@@ -111,7 +140,7 @@ def run(cfg, args, device=None, log=None, dump: bool = True):
     if not state_path:
         raise ValueError("--state (or TEST.STATE) required")
     variables = load_model_variables(state_path, drop_aggre=not cfg.NETWORK.AGGRE)
-    dump_dir = output_dir if dump else None
+    dump_dir = output_dir if dump and is_primary(mesh) else None
 
     if args.int8:
         prep = make_prepare_fn(cfg, dev)
@@ -152,10 +181,16 @@ def run(cfg, args, device=None, log=None, dump: bool = True):
         model.load_state_dict({**variables["params"], **variables["batch_stats"]})
         del variables
         model.to(dev)
-        eval_step = make_eval_step(model, cfg, flip_pairs=dataset.flip_pairs, device=dev)
-        logger.info("eval devices: 1")
+        # the evaluation over the data mesh (valid.py:169-171's DataParallel)
+        # where the batch splits evenly over its processes
+        eval_mesh = use_mesh(mesh, int(cfg.TEST.BATCH_SIZE))
+        eval_step = make_eval_step(model, cfg, flip_pairs=dataset.flip_pairs, mesh=eval_mesh,
+                                   device=dev)
+        place = (None if eval_mesh is None
+                 else lambda t: global_batch_from_full_host(t, eval_mesh))
+        logger.info(f"eval devices: {1 if eval_mesh is None else eval_mesh.size}")
         out = validate(cfg, loader, dataset, eval_step, model, output_dir=dump_dir,
-                       logger=logger, device=dev)
+                       logger=logger, place_fn=place, device=dev, mesh=eval_mesh)
     logger.info(f"perf indicator: {out[0]:.4f}")
     return out
 

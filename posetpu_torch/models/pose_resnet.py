@@ -21,6 +21,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from posetpu_torch.parallel.batchnorm import batch_stats_mesh, global_batch_norm
+
 BN_MOMENTUM = 0.1  # torch's convention; Flax's 0.9 = 1 - 0.1
 
 # (block kind, per-stage block counts) per depth — the standard ResNet family
@@ -39,12 +41,20 @@ class BatchNorm(nn.BatchNorm2d):
     the *biased* batch variance (``nn.BatchNorm2d`` uses the unbiased one),
     reduced in f32 whatever the input's dtype; the input is normalised by
     the batch statistics. The output keeps the input's dtype; the scale,
-    shift and statistics stay f32."""
+    shift and statistics stay f32.
+
+    Under parallel/batchnorm.sync_batch_stats (a train step over several
+    processes) the moments are the global batch's, Flax's ``mean(x)`` and
+    ``mean(x^2) - mean(x)^2`` from sums all-reduced over the ranks; the
+    input is normalised by them and the running averages move by them."""
 
     def forward(self, x):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                                 self.bias, False, 0.0, self.eps)
+        mesh = batch_stats_mesh()
+        if mesh is not None:
+            return self._global(x, mesh)
         # momentum 1 leaves the batch's mean and unbiased variance in the
         # temporaries, from the same pass that normalises x
         mean = torch.zeros_like(self.running_mean)
@@ -55,6 +65,14 @@ class BatchNorm(nn.BatchNorm2d):
             m = 1.0 - BN_MOMENTUM
             self.running_mean.mul_(m).add_(mean * BN_MOMENTUM)
             self.running_var.mul_(m).add_(var * ((n - 1) / n) * BN_MOMENTUM)
+        return y
+
+    def _global(self, x, mesh):
+        y, mean, var = global_batch_norm(x, self.weight, self.bias, self.eps, mesh)
+        with torch.no_grad():
+            m = 1.0 - BN_MOMENTUM
+            self.running_mean.mul_(m).add_(mean.to(self.running_mean.dtype) * BN_MOMENTUM)
+            self.running_var.mul_(m).add_(var.to(self.running_var.dtype) * BN_MOMENTUM)
         return y
 
 

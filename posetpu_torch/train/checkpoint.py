@@ -7,6 +7,11 @@ Each checkpoint is one ``torch.save`` file ``<name>.pt`` in the directory,
 a dict {component: {"params", "batch_stats", "opt_state", "step"}} of
 tensors on the CPU (a :class:`~posetpu_torch.train.state.TrainState`'s
 ``state_dict``), with its metadata in ``<name>_meta.json``.
+
+Over a data mesh the state is replicated, so rank 0 alone copies and
+writes it and its metadata, in the same way as one process does; every
+rank meets at a barrier when it joins the save, and may then restore from
+the shared directory.
 """
 
 from __future__ import annotations
@@ -18,6 +23,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
+from posetpu_torch.parallel.mesh import barrier, is_primary
 from posetpu_torch.train.state import TrainState
 
 
@@ -41,11 +47,18 @@ class CheckpointManager:
     thread, so the device work stays in the order the caller issued it. One
     save is in flight at a time; :meth:`wait_until_finished` (called before
     every save, :meth:`exists` and restore) joins it and raises its error,
-    if any."""
+    if any.
 
-    def __init__(self, directory: str, async_save: bool = False):
+    With ``mesh`` (parallel/mesh.DataMesh) rank 0 alone copies and saves,
+    inline or on its worker as above; :meth:`wait_until_finished` then
+    waits at a barrier on every rank after rank 0 has joined its save, so
+    each rank sees the finished file once it returns. Every rank calls the
+    manager's methods at the same points."""
+
+    def __init__(self, directory: str, async_save: bool = False, mesh=None):
         self.directory = os.path.abspath(directory)
         os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
         self._pool = (ThreadPoolExecutor(max_workers=1, thread_name_prefix="posetpu-ckpt")
                       if async_save else None)
         self._pending = None
@@ -60,15 +73,19 @@ class CheckpointManager:
     # -------------------------------------------------------------- save
 
     def wait_until_finished(self) -> None:
-        """Join any save in flight, raising its error if it failed."""
+        """Join any save in flight, raising its error if it failed; over a
+        mesh every rank then waits for the others (rank 0 has joined)."""
         if self._pending is not None:
             pending, self._pending = self._pending, None
             pending.result()
+        barrier(self.mesh)
 
     def _run(self, job, states: dict):
         """Join the previous save, copy ``states`` to the host here, then
-        run ``job(host_states)`` inline or on the worker."""
+        run ``job(host_states)`` inline or on the worker (rank 0 alone)."""
         self.wait_until_finished()
+        if not is_primary(self.mesh):
+            return
         host = _to_host(states)
         if self._pool is None:
             job(host)

@@ -47,6 +47,8 @@ from posetpu_torch.core.mi import (
     sample_draws,
     view_mi_loss,
 )
+from posetpu_torch.parallel.batchnorm import sync_batch_stats
+from posetpu_torch.parallel.mesh import all_reduce_grads, check_mesh, gather_rows
 from posetpu_torch.train.state import TrainState
 from posetpu_torch.train.step import _acc, _integral_joints_image_coords, _on
 from posetpu_torch.utils.gradients import grad_norms_wrt_heatmaps
@@ -96,12 +98,19 @@ def make_adversarial_train_step(model, disc_models: dict, cfg, tx_base, tx_disc:
     / jmi_g (parity 1), mse_loss, consistent_loss, fund_loss, loss, acc and,
     with ``LOSS.WATCH_GRAD_NORM``, grad_norm_*; each where its loss runs.
 
-    CUDA unless ``device`` is given. ``mesh`` (data parallelism) is not
-    ported yet: None only."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "make_adversarial_train_step: mesh is not ported; pass mesh=None")
-    dev = resolve_device(device)
+    With ``mesh`` (parallel/mesh.data_mesh) each rank takes its own rows
+    of the global batch. BatchNorm's moments are the global batch's; the
+    four feature maps are gathered (this rank's rows live, the others'
+    detached), and every rank draws the global batch's MI indices from the
+    same seed (``draws``, where given, are the global batch's). The critics
+    then run on the same global features on every rank, so their updates
+    are equal with no reduction; the base model's gradient is this rank's
+    share through the gather, summed over the ranks by one all-reduce a
+    dtype before its optimizer steps.
+
+    CUDA unless ``device`` is given (under a mesh, the mesh's device)."""
+    check_mesh(mesh, "make_adversarial_train_step")
+    dev = resolve_device(device if mesh is None else mesh.device)
     generator = torch.Generator(device=dev).manual_seed(seed)
     loss_cfg = cfg.LOSS
     is_aggre = bool(cfg.NETWORK.AGGRE) and model.aggre_layer is not None
@@ -269,8 +278,6 @@ def make_adversarial_train_step(model, disc_models: dict, cfg, tx_base, tx_disc:
         if epoch_parity not in (0, 1):
             raise ValueError(f"epoch_parity must be 0 or 1, got {epoch_parity}")
         b = _on(batch, dev)
-        draws = (sample_draws(b, cfg, epoch_parity, generator) if draws is None
-                 else _to(draws, dev))
         base = states["base_model"]
         net = base.params
         d_names = [n for n in states if n != "base_model"]
@@ -281,8 +288,15 @@ def make_adversarial_train_step(model, disc_models: dict, cfg, tx_base, tx_disc:
 
         # one base forward: the critics read it detached, the generator's
         # gradients run back through its graph
-        raw, fused, low, high = net(b["images"])
+        with sync_batch_stats(mesh):
+            raw, fused, low, high = net(b["images"])
+        if mesh is not None:
+            raw, fused, low, high = (gather_rows(t, mesh, live=True)
+                                     for t in (raw, fused, low, high))
+            b = gather_rows({k: v for k, v in b.items() if k != "images"}, mesh)
         feats = (raw, raw if fused is None else fused, low, high)
+        draws = (sample_draws(b, cfg, epoch_parity, generator) if draws is None
+                 else _to(draws, dev))
 
         d_total, metrics = d_losses(ds, feats, b, draws["d"], epoch_parity)
         if isinstance(d_total, torch.Tensor) and d_total.requires_grad:
@@ -293,6 +307,8 @@ def make_adversarial_train_step(model, disc_models: dict, cfg, tx_base, tx_disc:
         with _frozen(ds.values()):
             loss, output, g_metrics = g_loss(ds, feats, b, draws["g"], epoch_parity)
             loss.backward()
+            if mesh is not None:
+                all_reduce_grads(net, mesh)
             metrics.update(g_metrics)
             if watch_grad:
                 for k, v in grad_norm_probe(ds, feats, b, draws["g"], epoch_parity).items():

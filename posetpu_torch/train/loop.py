@@ -20,13 +20,6 @@ from posetpu_torch.data.prepare import make_prepare_fn
 from posetpu_torch.utils.logging import AverageMeter
 
 
-def _no_place(place_fn, where: str) -> None:
-    if place_fn is not None:
-        raise NotImplementedError(
-            f"{where}: place_fn (data parallelism over several devices) is not ported yet "
-            f"(ROADMAP A6); pass place_fn=None")
-
-
 def _np(x) -> np.ndarray:
     return x.detach().float().cpu().numpy() if hasattr(x, "detach") else np.asarray(x)
 
@@ -40,18 +33,22 @@ def train_epoch(cfg, loader: GroupLoader, prepare, train_step, state,
     grids every PRINT_FREQ as the reference does (function.py:521-526).
     ``timer`` (a utils/profiling.StepTimer) is the one the loop times its
     steps and data waits with, for a caller that reads it afterwards.
-    ``place_fn`` is None only: data parallelism is not ported (A6)."""
+
+    ``place_fn`` (parallel/mesh.shard_host_batch) places the host batch on
+    the data mesh before ``prepare``: the loader is sharded, so each rank
+    prepares and steps its own rows and the step makes the collectives
+    (run/pose2d/train.py:129-225's DDP)."""
+    from posetpu_torch.parallel.mesh import local_data
     from posetpu_torch.utils.checks import check_finite_metrics
     from posetpu_torch.utils.profiling import StepTimer
 
-    _no_place(place_fn, "train_epoch")
     loader.set_epoch(epoch)
     meters: dict[str, AverageMeter] = {}
     timer = timer if timer is not None else StepTimer()
     nviews = 4
     for i, host_batch in enumerate(loader):
         timer.data_ready()
-        batch = prepare(host_batch)
+        batch = prepare(place_fn(host_batch) if place_fn else host_batch)
         if extra_batch_fn is not None:
             batch = extra_batch_fn(host_batch, batch)
         state, metrics = train_step(state, batch)
@@ -82,18 +79,20 @@ def train_epoch(cfg, loader: GroupLoader, prepare, train_step, state,
                 from posetpu_torch.utils.vis import save_debug_images
 
                 v0 = 0  # the first view, like the reference's per-view loop
-                tgt = batch["target"][:, v0]
-                save_debug_images(
-                    cfg, batch["images"][:, v0], host_batch["joints_crop"][:, v0],
-                    host_batch["joints_vis"][:, v0], host_batch["joints_crop"][:, v0],
-                    tgt, tgt, os.path.join(debug_dir, f"train_view1_{i:08d}"))
+                # this process's rows, paired with as many host rows
+                imgs, tgt = (local_data(batch[k])[:, v0] for k in ("images", "target"))
+                jc, jv = (np.asarray(host_batch[k])[:len(imgs), v0]
+                          for k in ("joints_crop", "joints_vis"))
+                save_debug_images(cfg, imgs, jc, jv, jc, tgt, tgt,
+                                  os.path.join(debug_dir, f"train_view1_{i:08d}"))
         else:
             timer.step_done()
     return state
 
 
 def validate(cfg, loader: GroupLoader, dataset, eval_step, variables,
-             output_dir: str | None = None, logger=None, place_fn=None, device=None):
+             output_dir: str | None = None, logger=None, place_fn=None, device=None,
+             mesh=None):
     """A full validation pass: the eval step a batch, the host accumulation
     in the reference's ``k::nviews`` interleaved layout, the H5 dump of the
     union joints (where ``output_dir`` is given: it needs h5py), then
@@ -101,11 +100,17 @@ def validate(cfg, loader: GroupLoader, dataset, eval_step, variables,
     ``eval_step`` takes: the model (``state.params``). Returns (perf,
     name_values, preds [N*V, J, 3], heatmaps [N*V, J, h, w]).
 
-    One process does it all (the JAX package's process 0); ``place_fn`` is
-    None only (A6). The batches go to ``device`` (CUDA unless given)."""
-    _no_place(place_fn, "validate")
+    Over a data mesh: ``place_fn`` (parallel/mesh.global_batch_from_full_host)
+    gives each rank its rows of a batch, and the eval step (made with the
+    same ``mesh``) gathers its outputs. Every rank iterates the full
+    (unsharded) loader in lockstep, so the collectives line up; only rank 0
+    logs, writes the H5 dump and runs ``dataset.evaluate``, whose numbers
+    the others receive (run/pose2d/train.py:361-391's rank-0 accumulation).
+    The batches go to ``device`` (CUDA unless given)."""
+    from posetpu_torch.parallel.mesh import broadcast_object, is_primary as primary
+
     nviews = 4
-    is_primary = True
+    is_primary = primary(mesh)
     prepare = make_prepare_fn(cfg, device)
     loss_meter = AverageMeter()
     acc_meter = AverageMeter()
@@ -114,7 +119,11 @@ def validate(cfg, loader: GroupLoader, dataset, eval_step, variables,
 
     for host_batch in loader:
         n = host_batch["images"].shape[0]
-        out = eval_step(variables, prepare(host_batch))
+        if place_fn is not None and n < loader.batch_size:
+            # the ragged last batch padded to the batch size, so it splits
+            # over the ranks; the padded rows wrap around and are cut below
+            host_batch = _pad_host_batch(host_batch, loader.batch_size)
+        out = eval_step(variables, eval_prepare(cfg, host_batch, place_fn, prepare=prepare))
         nimgs = n * nviews
         loss_meter.update(float(out["loss"]), nimgs)
         acc_meter.update(float(out["acc"]), nimgs)
@@ -140,8 +149,13 @@ def validate(cfg, loader: GroupLoader, dataset, eval_step, variables,
             logger.info(f"=> heatmap dump: {path}")
 
     preds_dir = output_dir if (output_dir and cfg.DEBUG.SAVE_ALL_PREDS and is_primary) else None
-    name_values, perf = dataset.evaluate(all_preds[:, u, :], preds_dir)
-    if logger and is_primary:
+    result = [None]
+    if is_primary:
+        result[0] = dataset.evaluate(all_preds[:, u, :], preds_dir)
+    if mesh is not None:  # the others take rank 0's numbers
+        broadcast_object(result, mesh)
+    name_values, perf = result[0]
+    if is_primary and logger:
         names = list(name_values.keys())
         logger.info("| Arch " + " ".join(f"| {n}" for n in names) + " |")
         logger.info("|---" * (len(names) + 1) + "|")
@@ -158,7 +172,9 @@ def _pad_host_batch(host_batch: dict, to_n: int) -> dict:
     return {k: np.asarray(v)[idx] for k, v in host_batch.items()}
 
 
-def eval_prepare(cfg, host_batch, place_fn=None, device=None):
-    """One host batch prepared for the eval step on ``device``."""
-    _no_place(place_fn, "eval_prepare")
-    return make_prepare_fn(cfg, device)(host_batch)
+def eval_prepare(cfg, host_batch, place_fn=None, device=None, prepare=None):
+    """One host batch prepared for the eval step on ``device``, placed on
+    the data mesh first by ``place_fn`` where given. ``prepare``: a
+    data/prepare.make_prepare_fn to reuse."""
+    prepare = prepare or make_prepare_fn(cfg, device)
+    return prepare(place_fn(host_batch) if place_fn else host_batch)

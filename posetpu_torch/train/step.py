@@ -26,6 +26,8 @@ from posetpu_torch.core.losses import consistency_loss, fundamental_loss, joints
 from posetpu_torch.models.multiview import aggregate
 from posetpu_torch.ops.affine import affine_transform_points, get_affine_transform
 from posetpu_torch.ops.heatmap import soft_argmax_2d
+from posetpu_torch.parallel.batchnorm import sync_batch_stats
+from posetpu_torch.parallel.mesh import all_reduce_grads, check_mesh, gather_rows
 from posetpu_torch.train.state import TrainState
 from posetpu_torch.utils.gradients import grad_norms_wrt_heatmaps
 
@@ -58,7 +60,7 @@ def _acc(output, target):
 def make_train_step(model, cfg, tx, mesh=None, device=None) -> Callable:
     """The supervised train step: MSE, and from ``cfg.LOSS`` the consistency
     and fundamental losses and the grad-norm probe (the adversarial MI
-    losses are the GAN steps', not ported yet).
+    losses are train/gan.py's).
 
     ``train_step(state, batch) -> (state, metrics)`` runs ``state.params``
     (a MultiViewPose like ``model``) in training mode, back-propagates and
@@ -69,11 +71,16 @@ def make_train_step(model, cfg, tx, mesh=None, device=None) -> Callable:
     loss, mse_loss, consistent_loss, fund_loss, acc (PCK on the routed
     output, as the reference, function.py:463-466) and grad_norm_*.
 
-    CUDA unless ``device`` is given. ``mesh`` (data parallelism) is not
-    ported yet: None only."""
-    if mesh is not None:
-        raise NotImplementedError("make_train_step: mesh is not ported; pass mesh=None")
-    dev = resolve_device(device)
+    With ``mesh`` (parallel/mesh.data_mesh) each rank takes its own rows
+    of the global batch: BatchNorm's moments are the global batch's, the
+    heatmaps are gathered (this rank's rows live, the others' detached), so
+    every rank computes the global batch's losses and metrics and
+    back-propagates its share of the gradient; one all-reduce a dtype sums
+    the shares and every rank steps the same optimizer on the same bytes.
+
+    CUDA unless ``device`` is given (under a mesh, the mesh's device)."""
+    check_mesh(mesh, "make_train_step")
+    dev = resolve_device(device if mesh is None else mesh.device)
     is_aggre = bool(cfg.NETWORK.AGGRE) and model.aggre_layer is not None
     fuse_output = bool(cfg.TEST.FUSE_OUTPUT)
     use_consistent = bool(cfg.LOSS.USE_CONSISTENT_LOSS)
@@ -103,8 +110,16 @@ def make_train_step(model, cfg, tx, mesh=None, device=None) -> Callable:
         # the reference normalises by the h36m subset's size (loss.py:132)
         return fl * (j2d.shape[0] / torch.clamp(b["is_h36m"].sum(), min=1.0)) * fund_w
 
-    def loss_fn(net, b):
-        raw, fused, _, _ = net(b["images"])
+    def forward(net, b):
+        """The heatmaps of the global batch, and the batch itself."""
+        with sync_batch_stats(mesh):
+            raw, fused, _, _ = net(b["images"])
+        if mesh is None:
+            return raw, fused, b
+        rest = gather_rows({k: v for k, v in b.items() if k != "images"}, mesh)
+        return gather_rows(raw, mesh, live=True), gather_rows(fused, mesh, live=True), rest
+
+    def loss_fn(raw, fused, b):
         output = routed(raw, fused, b)
         loss = mse_term(raw, output, b)
         metrics = {"mse_loss": loss}
@@ -140,9 +155,11 @@ def make_train_step(model, cfg, tx, mesh=None, device=None) -> Callable:
         net = state.params
         net.train()
         net.zero_grad(set_to_none=True)
-        b = _on(batch, dev)
-        loss, output, raw, metrics = loss_fn(net, b)
+        raw, fused, b = forward(net, _on(batch, dev))
+        loss, output, raw, metrics = loss_fn(raw, fused, b)
         loss.backward()
+        if mesh is not None:
+            all_reduce_grads(net, mesh)
         if watch_grad:
             for k, v in grad_norm_probe(net, raw, b).items():
                 metrics[f"grad_norm_{k}"] = v
@@ -165,10 +182,15 @@ def make_eval_step(model, cfg, flip_pairs=None, mesh=None, device=None) -> Calla
     ``eval_step(params, batch) -> dict``: params a MultiViewPose like
     ``model`` (``state.params``), run in eval mode; returns loss, acc, preds
     [N, V, J, 2] in source-image pixels, maxvals [N, V, J] and heatmaps
-    [N, V, h, w, J]. CUDA unless ``device`` is given; ``mesh`` None only."""
-    if mesh is not None:
-        raise NotImplementedError("make_eval_step: mesh is not ported; pass mesh=None")
-    dev = resolve_device(device)
+    [N, V, h, w, J].
+
+    With ``mesh`` each rank runs its own rows (parallel/mesh.shard_batch);
+    the heatmaps, preds and maxvals of every rank are gathered in rank
+    order, and the losses and PCK are the global batch's, the same on every
+    rank (JAX's replicated ``out_shardings``). CUDA unless ``device`` is
+    given (under a mesh, the mesh's device)."""
+    check_mesh(mesh, "make_eval_step")
+    dev = resolve_device(device if mesh is None else mesh.device)
     is_aggre = bool(cfg.NETWORK.AGGRE) and model.aggre_layer is not None
     fuse_output = bool(cfg.TEST.FUSE_OUTPUT)
     flip_test = bool(cfg.TEST.FLIP_TEST)
@@ -201,13 +223,19 @@ def make_eval_step(model, cfg, flip_pairs=None, mesh=None, device=None) -> Calla
         else:
             raw, fused, _, _ = params(b["images"])
             output = routed(raw, fused, is_h36m)
+        preds, maxvals = final_preds(_jhw(output), b["center"], b["scale"], post_process=post)
+        if mesh is not None:
+            raw, fused, output, preds, maxvals = (gather_rows(t, mesh) for t in (
+                raw, fused if is_aggre and (use_consistent or pseudo_mse) else None, output,
+                preds, maxvals))
+            b = gather_rows({k: b[k] for k in ("target", "weight", "is_h36m")}, mesh)
+            is_h36m = b["is_h36m"]
         tw = b["weight"] if use_tw else None
         loss = joints_mse_loss(raw, b["target"], tw) * raw.shape[1]
         if is_aggre and use_consistent and fused is not None:
             loss = loss + consistency_loss(raw, fused, is_h36m)
         if is_aggre and pseudo_mse:
             loss = loss + joints_mse_loss(output, b["target"], tw) * raw.shape[1] * mse_w
-        preds, maxvals = final_preds(_jhw(output), b["center"], b["scale"], post_process=post)
         return {"loss": loss, "acc": _acc(output, b["target"]), "preds": preds,
                 "maxvals": maxvals, "heatmaps": output}
 

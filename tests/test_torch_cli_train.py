@@ -10,7 +10,8 @@ ResNet-18 at 64x64 / 16x16:
   through ``RESUME_PATH`` (the weights are the checkpoint's) and resumed
   through ``ON_SERVER_CLUSTER`` (the epoch and every state are the
   checkpoint's);
-- the adversarial switch; the flags and checkpoint formats that raise."""
+- the adversarial switch; ``--coordinator`` (one gloo process) and the
+  flags and checkpoint formats that raise."""
 
 from __future__ import annotations
 
@@ -190,12 +191,39 @@ def test_adversarial_losses_switch_to_the_adversarial_step(data, tmp_path):
     assert all(st.step == 1 for st in tr.states().values())
 
 
-@pytest.mark.parametrize("flag", [["--coordinator", "localhost:1234"],
+@pytest.mark.parametrize("flag", [["--coordinator", "file://{tmp}/rdzv"],
                                   ["--num-processes", "2"]])
-def test_several_processes_raise_naming_a6(data, tmp_path, flag):
-    args = _args(tmp_path, MPII, *flag)
-    with pytest.raises(NotImplementedError, match="A6"):
-        tcli.setup(_cfg(args, data), args, device="cpu")
+def test_several_processes(data, tmp_path, flag):
+    """``--coordinator`` joins a process group (here gloo, one process: the
+    data mesh over 1 device, logged as the JAX CLI logs it; the loader
+    sharded by it; the steps plain, as parallel/mesh.use_mesh decides for a
+    group of one); ``--num-processes 2`` without a coordinator is refused.
+    tests/test_torch_parallel.py runs two processes."""
+    import torch.distributed as dist
+
+    args = _args(tmp_path, MPII, *[f.format(tmp=tmp_path) for f in flag])
+    if not args.coordinator:
+        with pytest.raises(ValueError, match="--coordinator"):
+            tcli.setup(_cfg(args, data), args, device="cpu")
+        assert not dist.is_initialized()
+        return
+    log, lines = _quiet(), []
+    handler = logging.Handler()
+    handler.emit = lambda record: lines.append(record.getMessage())
+    log.addHandler(handler)
+    log.setLevel(logging.INFO)
+    try:
+        tr = tcli.setup(_cfg(args, data), args, device="cpu", log=log)
+        assert dist.is_initialized() and dist.get_backend() == "gloo"
+        assert (dist.get_world_size(), dist.get_rank(), tr.device.type) == (1, 0, "cpu")
+        assert tr.mesh is None
+        assert (tr.train_loader.num_shards, tr.train_loader.shard_index) == (1, 0)
+        assert tr.ckpt.mesh is tr.mesh
+        assert "data mesh: 1 devices, 1 process(es)" in lines
+        tr.writer.close()
+    finally:
+        log.removeHandler(handler)
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("kind", ["pth", "pth.tar", "orbax", "missing"])

@@ -107,8 +107,14 @@ def _run(data, *extra, **kw):
      "--int8-subpixel", "deconv0", "--modelDir", "m", "--logDir", "l", "--dataDir", "d"],
 ])
 def test_parse_args_match_jax(monkeypatch, argv):
+    """The JAX package's flags, and the process-group flags the port adds
+    (one process a GPU; JAX's validate spans its local devices without
+    them), at their defaults."""
     monkeypatch.setattr("sys.argv", ["validate", *argv])
-    assert vars(tvalidate.parse_args(argv)) == vars(jvalidate.parse_args())
+    got = vars(tvalidate.parse_args(argv))
+    group = {k: got.pop(k) for k in ("coordinator", "num_processes", "process_id")}
+    assert got == vars(jvalidate.parse_args())
+    assert group == {"coordinator": "", "num_processes": 0, "process_id": 0}
     conv = ["--cfg", "x.yaml", "--torch", "a.pth.tar", "--out", "o"]
     monkeypatch.setattr("sys.argv", ["convert", *conv])
     assert vars(tconvert.parse_args(conv)) == vars(jconvert.parse_args())

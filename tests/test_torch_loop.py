@@ -9,8 +9,8 @@
 - ``validate`` on MPII's validation set with the flip test: the preds,
   the heatmaps, the H5 dump and the PCKh within test_torch_train.py's
   eval-step bounds;
-- the loop's logging line, scalars and debug drawings; ``place_fn`` raising
-  until data parallelism is ported; ``_pad_host_batch``;
+- the loop's logging line, scalars and debug drawings; ``place_fn``
+  placing each batch before ``prepare``; ``_pad_host_batch``;
 - the logger's layout, ``scalars.jsonl`` byte for byte, the meters, the
   batch-shape and finite-metric guards, the step timer and the trace."""
 
@@ -228,16 +228,82 @@ def test_train_epoch_logs_scalars_and_debug_images(root, monkeypatch, tmp_path, 
     assert len(drawn) == 4 * n and drawn[0] == "train_view1_00000000_gt.jpg"
 
 
+class _Loader:
+    """Host batches of 3, 3 and 1 groups (the last one ragged)."""
+
+    batch_size = 3
+
+    def __init__(self):
+        self.batches = [{"images": np.full((n, 4, 2, 2, 3), i, np.uint8),
+                         "is_h36m": np.zeros(n, np.float32),
+                         "joints_crop": np.zeros((n, 4, 2, 2), np.float32),
+                         "joints_vis": np.ones((n, 4, 2), np.float32),
+                         "supervise": np.ones(n, np.float32),
+                         "center": np.full((n, 4, 2), i, np.float32),
+                         "scale": np.ones((n, 4, 2), np.float32)}
+                        for i, n in enumerate((3, 3, 1))]
+
+    def set_epoch(self, epoch):
+        pass
+
+    def __len__(self):
+        return len(self.batches)
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
+class _Dataset:
+    u2a_mapping = {0: 0, 1: 1}
+    subset, dataset_type = "valid", "fake"
+
+    def evaluate(self, preds, output_dir):
+        return {"PCKh": 0.5}, float(preds.shape[0])
+
+
 @pytest.mark.parametrize("where", ["train_epoch", "validate", "eval_prepare"])
-def test_place_fn_raises_until_data_parallelism_is_ported(where):
-    place = lambda tree: tree
-    with pytest.raises(NotImplementedError, match="A6"):
-        if where == "train_epoch":
-            tloop.train_epoch(default_config(), None, None, None, None, 0, place_fn=place)
-        elif where == "validate":
-            tloop.validate(default_config(), [], None, None, None, place_fn=place)
-        else:
-            tloop.eval_prepare(default_config(), {}, place_fn=place)
+def test_place_fn_places_each_batch_before_prepare(where):
+    """``place_fn`` (parallel/mesh's shard_host_batch for train,
+    global_batch_from_full_host for validate) takes every host batch before
+    ``prepare``; validate pads the ragged last batch to the batch size
+    first and keeps the true rows."""
+    placed = []
+
+    def place(tree):
+        placed.append(len(tree["images"]))
+        return {**tree, "placed": np.ones(len(tree["images"]))}
+
+    def prepare(host_batch):
+        assert "placed" in host_batch
+        return {k: torch.as_tensor(v) for k, v in host_batch.items()}
+
+    if where == "train_epoch":
+        seen = []
+
+        def step(state, batch):
+            seen.append(float(batch["placed"].sum()))
+            return state, {"loss": torch.tensor(1.0)}
+
+        assert tloop.train_epoch(default_config(), _Loader(), prepare, step, "s", 0,
+                                 place_fn=place) == "s"
+        assert placed == [3, 3, 1] and seen == [3.0, 3.0, 1.0]
+    elif where == "validate":
+        def eval_step(variables, batch):
+            n = len(batch["images"])
+            return {"loss": torch.tensor(1.0), "acc": torch.tensor(0.5),
+                    "preds": batch["center"][:, :, None, :].expand(n, 4, 2, 2),
+                    "maxvals": torch.ones(n, 4, 2), "heatmaps": torch.zeros(n, 4, 1, 1, 2)}
+
+        cfg = default_config()
+        perf, names, preds, maps = tloop.validate(cfg, _Loader(), _Dataset(), eval_step, None,
+                                                  place_fn=place, device="cpu")
+        assert placed == [3, 3, 3]  # the last batch padded by wrapping around
+        assert perf == 7 * 4 and preds.shape == (28, 2, 3) and maps.shape == (28, 2, 1, 1)
+        np.testing.assert_array_equal(preds[-4:, 0, 0], [2, 2, 2, 2])
+    else:
+        out = tloop.eval_prepare(default_config(), _Loader().batches[0], place_fn=place,
+                                 prepare=prepare)
+        assert placed == [3] and out["placed"].tolist() == [1.0, 1.0, 1.0]
 
 
 def test_pad_host_batch_and_eval_prepare_match_jax(rng):

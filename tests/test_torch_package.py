@@ -54,7 +54,11 @@ def test_every_module_imports_with_jax_blocked():
             "posetpu_torch.data.prepare", "posetpu_torch.train.loop",
             "posetpu_torch.cli.train", "posetpu_torch.train.qat", "posetpu_torch.train.serve",
             "posetpu_torch.models.convert_torch", "posetpu_torch.cli.validate",
-            "posetpu_torch.cli.convert"} <= set(mods)
+            "posetpu_torch.cli.convert", "posetpu_torch.parallel",
+            "posetpu_torch.parallel.mesh", "posetpu_torch.parallel.batchnorm",
+            "posetpu_torch.utils.pose_utils",
+            "posetpu_torch.cli.generate", "posetpu_torch.cli.diagnostics",
+            "posetpu_torch.cli.pipeline"} <= set(mods)
     code = ("import sys, importlib\n"
             "for m in ('jax', 'jaxlib', 'flax', 'optax', 'orbax', 'posetpu'):\n"
             "    sys.modules[m] = None\n"
@@ -81,6 +85,18 @@ def test_every_module_imports_with_h5py_and_cv2_blocked():
             "print('ok')\n")
     r = _run(code)
     assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr
+
+
+@pytest.mark.parametrize("module", ["posetpu_torch.models.pose_resnet",
+                                    "posetpu_torch.parallel.mesh",
+                                    "posetpu_torch.parallel.batchnorm"])
+def test_model_and_mesh_layers_import_nothing_of_train(module):
+    """The layers depend downwards: the model and the data mesh import
+    nothing of train/ (the steps import them, never the reverse)."""
+    code = (f"import sys, importlib\nimportlib.import_module({module!r})\n"
+            "print(sorted(m for m in sys.modules if m.startswith('posetpu_torch.train')))\n")
+    r = _run(code)
+    assert r.returncode == 0 and r.stdout.strip() == "[]", (r.stdout, r.stderr)
 
 
 @pytest.mark.parametrize("path", sorted(str(p.relative_to(ROOT)) for p in
@@ -140,8 +156,10 @@ def test_training_entry_points_refuse_a_missing_gpu():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             build()
     assert init_train_state(model, tx, device="cpu").step == 0
-    with pytest.raises(NotImplementedError, match="mesh"):
-        make_train_step(model, cfg, tx, mesh=object(), device="cpu")
+    for build in (lambda: make_train_step(model, cfg, tx, mesh=object(), device="cpu"),
+                  lambda: make_eval_step(model, cfg, mesh=object(), device="cpu")):
+        with pytest.raises(TypeError, match="DataMesh"):
+            build()
 
 
 def test_adversarial_entry_points_refuse_a_missing_gpu():
@@ -171,7 +189,7 @@ def test_adversarial_entry_points_refuse_a_missing_gpu():
     states = init_discriminator_states(critics, tx_d, device="cpu")
     assert set(states) == {"domain_discriminator", "view_discriminator"}
     assert all(st.step == 0 and st.opt_state["count"] == 0 for st in states.values())
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="DataMesh"):
         make_adversarial_train_step(model, critics, cfg, tx, tx_d, mesh=object(), device="cpu")
 
 
