@@ -143,10 +143,20 @@ Phases, each of which fails the run on its own:
    - path 12, data parallelism and the last CLIs (:func:`path12`) on path
      10's fixture: 12b, ``cli/train.py``'s ``setup`` and ``train_epochs``
      with ``--coordinator 127.0.0.1:<free port> --num-processes 1
-     --process-id 0`` (NCCL, this process alone) for CLI_STEPS steps of
-     PATH10_PRESETS[0] and one validate batch, the steps plain as
+     --process-id 0`` (NCCL, this process alone) for one epoch of
+     PATH10_PRESETS[0] on a fixture of its own (:func:`cli_fixture`:
+     CLI_STEPS batches, one validate batch), the steps plain as
      ``parallel/mesh.use_mesh`` decides for a group of one: the ``data
      mesh: 1 devices, 1 process(es)`` line, ``final_state.pt``, B7 once;
+     12g (:func:`path12g`), ``python -m posetpu_torch.cli.train`` and then
+     ``python -m posetpu_torch.cli.validate`` on its final_state, each one
+     command with no process flags on 12b's fixture: each must start one
+     rank per card (their ``rank r of W`` lines); on one card the same
+     CLI_STEPS plain steps as 12b, whose first loss must equal 12b's; on
+     N > 1 the mesh's one f32 step on the host batch held against the
+     plain step (:func:`hold_cli_step`) and the validate CLI's perf
+     against the plain evaluation's (the command's B7 launches are in
+     another process: not counted);
      12c, ``cli.validate.run`` with the same flags on path 11a's
      checkpoint, then ``loop.validate`` with ``make_eval_step(mesh=)`` and
      ``global_batch_from_full_host`` over a one-process group: both preds
@@ -237,6 +247,7 @@ import copy
 import gc
 import json
 import os
+import re
 import shutil
 import statistics
 import subprocess
@@ -293,7 +304,8 @@ EVAL_ITERS = 30  # path 11's eval step alone on one held batch
 # generate, the diagnostics and the pipeline, on path 10's fixture
 PATH12 = "path 12 (data parallelism, generate, diagnostics, pipeline)"
 MESH_GROUPS = 8  # 12a's hold of the mesh step against the plain one, in f32
-CLI_STEPS = 4  # 12b: train steps of the train CLI over the group
+CLI_STEPS = 4  # 12b and 12g (one card): train steps of the train CLI, one epoch
+CLI_TIMEOUT_S = 600  # 12g: the longest a CLI command may take
 UNDISTORT_GROUPS = 4  # 12e: four-view groups remapped by generate undistort
 VALID_GROUPS = 24  # the image fixture's H36M validation groups (12e decodes them all)
 # path 9's kernel families by name (PyTorch's own kernels)
@@ -1681,6 +1693,45 @@ def _one_step(cfg, make, batch, mesh, nudge: float, parity=None, draws=None):
     return float(m["loss"]), grads, params, buffers
 
 
+def supervised_states(cfg, mesh, dev, dtype=None):
+    """Path 7's model from seed 12 in ``dtype`` (f32 by default), its train
+    state on ``dev`` and its train step over ``mesh`` (None: plain)."""
+    import torch
+
+    from posetpu_torch.models.multiview import get_multiview_pose_net
+    from posetpu_torch.train.optim import make_optimizer
+    from posetpu_torch.train.step import init_train_state, make_train_step
+
+    net = get_multiview_pose_net(cfg, torch.Generator().manual_seed(12),
+                                 dtype=dtype or torch.float32)
+    tx = make_optimizer(cfg, steps_per_epoch=1000)
+    return ({"base_model": init_train_state(net, tx, device=dev)},
+            make_train_step(net, cfg, tx, mesh=mesh, device=dev))
+
+
+def adversarial_states(cfg, mesh, dev):
+    """Path 8's model and five critics from seed 13 (trained-like base
+    weights), their train states on ``dev`` and the adversarial step over
+    ``mesh`` (None: plain)."""
+    import torch
+
+    from posetpu_torch.models.discriminators import build_discriminators
+    from posetpu_torch.models.multiview import get_multiview_pose_net
+    from posetpu_torch.train.gan import init_discriminator_states, make_adversarial_train_step
+    from posetpu_torch.train.optim import make_optimizer
+    from posetpu_torch.train.step import init_train_state
+
+    gen = torch.Generator().manual_seed(13)
+    net, critics = get_multiview_pose_net(cfg, gen), build_discriminators(cfg, gen)
+    trained_like_(net, gen)
+    tx = make_optimizer(cfg, steps_per_epoch=1000)
+    tx_d = {n: make_optimizer(cfg, 1000, discriminator=True) for n in critics}
+    states = {"base_model": init_train_state(net, tx, device=dev),
+              **init_discriminator_states(critics, tx_d, device=dev)}
+    return states, make_adversarial_train_step(net, critics, cfg, tx, tx_d, mesh=mesh,
+                                               device=dev, seed=13)
+
+
 def path12_steps(dev, mesh, card) -> tuple[dict, list]:
     """12a and 12d over ``mesh`` (NCCL, this process alone): the supervised
     step at path 7's configuration and the adversarial step at path 8's,
@@ -1688,33 +1739,15 @@ def path12_steps(dev, mesh, card) -> tuple[dict, list]:
     MESH_GROUPS groups, then path 7's bf16 step at GROUPS groups timed over
     the mesh and plain (3 warm-ups, 10 steps each, CUDA events), its
     collectives a step counted."""
+    import functools
+
     import torch
 
     from posetpu_torch.core.mi import sample_draws
-    from posetpu_torch.models.discriminators import build_discriminators
-    from posetpu_torch.models.multiview import get_multiview_pose_net
     from posetpu_torch.parallel import mesh as pm
-    from posetpu_torch.train.gan import init_discriminator_states, make_adversarial_train_step
-    from posetpu_torch.train.optim import make_optimizer
-    from posetpu_torch.train.step import init_train_state, make_train_step
 
-    def supervised(cfg, m, dtype=torch.float32):
-        net = get_multiview_pose_net(cfg, torch.Generator().manual_seed(12), dtype=dtype)
-        tx = make_optimizer(cfg, steps_per_epoch=1000)
-        return ({"base_model": init_train_state(net, tx, device=dev)},
-                make_train_step(net, cfg, tx, mesh=m, device=dev))
-
-    def adversarial(cfg, m):
-        gen = torch.Generator().manual_seed(13)
-        net, critics = get_multiview_pose_net(cfg, gen), build_discriminators(cfg, gen)
-        trained_like_(net, gen)
-        tx = make_optimizer(cfg, steps_per_epoch=1000)
-        tx_d = {n: make_optimizer(cfg, 1000, discriminator=True) for n in critics}
-        states = {"base_model": init_train_state(net, tx, device=dev),
-                  **init_discriminator_states(critics, tx_d, device=dev)}
-        return states, make_adversarial_train_step(net, critics, cfg, tx, tx_d, mesh=m,
-                                                   device=dev, seed=13)
-
+    supervised = functools.partial(supervised_states, dev=dev)
+    adversarial = functools.partial(adversarial_states, dev=dev)
     failures, out = [], {}
     # ---- 12a: the supervised step, mesh against plain
     cfg7 = train_config(50, 256, 64)
@@ -1749,7 +1782,7 @@ def path12_steps(dev, mesh, card) -> tuple[dict, list]:
     batch7 = train_batch(GROUPS, 256, 64, 16, dev, seed=7)
     timed = {}
     for tag, m in (("plain", None), ("mesh", mesh), ("mesh again", mesh), ("plain again", None)):
-        states, step = supervised(cfg7, m, torch.bfloat16)
+        states, step = supervised(cfg7, m, dtype=torch.bfloat16)
         st = states["base_model"]
         ev, losses = [], []
         for i in range(TRAIN_WARMUP + TRAIN_STEPS):
@@ -1788,10 +1821,255 @@ def path12_steps(dev, mesh, card) -> tuple[dict, list]:
     return out, failures
 
 
+def cli_fixture(tmp: str) -> str:
+    """12b's and 12g's data (``--dataDir``): MPII in path 10's shapes with
+    CLI_STEPS batches of the preset's 8 training groups and one validate
+    batch, under ``tmp``."""
+    from posetpu_torch.data.synthetic import write_image_fixture
+
+    root = os.path.join(tmp, "cli12")
+    write_image_fixture(os.path.join(root, "data"), n_images=16, mpii_train=CLI_STEPS * 8 * 4,
+                        mpii_valid=8 * 4, h36m_train_groups=4, h36m_valid_groups=4)
+    return root
+
+
+def run_command(module: str, argv: list, out_path: str, env: dict | None = None) -> dict:
+    """``python -m <module> <argv>`` from the repository's root with its
+    output in ``out_path``: the exit code, the ranks that set up (each
+    logs ``rank r of W``), the worlds they named, and the output's tail."""
+    import re
+
+    with open(out_path, "w") as f:
+        try:
+            rc = subprocess.run([sys.executable, "-m", module, *argv], cwd=ROOT, stdout=f,
+                                stderr=subprocess.STDOUT, env={**os.environ, **(env or {})},
+                                timeout=CLI_TIMEOUT_S).returncode
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+    text = Path(out_path).read_text()
+    found = re.findall(r"rank (\d+) of (\d+) \(host", text)
+    return {"rc": rc, "ranks": sorted(int(r) for r, _ in found),
+            "worlds": sorted({int(w) for _, w in found}), "text": text,
+            "tail": text.splitlines()[-12:]}
+
+
+def first_train_loss(log_dir: str) -> float:
+    """The first ``train_loss`` the train CLI's rank 0 wrote (its
+    utils/logging.ScalarWriter, after step 1)."""
+    for path in sorted(Path(log_dir).rglob("scalars.jsonl")):
+        for row in map(json.loads, path.read_text().splitlines()):
+            if row["tag"] == "train_loss":
+                return float(row["value"])
+    raise FileNotFoundError(f"no train_loss under {log_dir}")
+
+
+def path12g(tmp: str, data: str, dev, loss12b: float, env: dict | None = None,
+            tag: str = "12g") -> tuple[dict, list]:
+    """The train CLI (PATH10_PRESETS[0] on :func:`cli_fixture`'s ``data``)
+    and then the validate CLI on its final_state, each started as one
+    command with no process flags, with ``env`` added to this process's
+    (``CUDA_VISIBLE_DEVICES`` picks the cards). Each must start one rank
+    per visible card. On one card the steps are plain: CLI_STEPS bf16
+    steps whose first loss must equal 12b's (``loss12b``) on the same
+    batch. On N > 1 the ranks form the mesh: one f32 step (``--batch``
+    CLI_STEPS * 8, TF32 off through NVIDIA_TF32_OVERRIDE=0) held against
+    the plain step on the host batch in this process on ``dev``
+    (:func:`hold_mesh_step`: its parameters, BatchNorm buffers and Adam's
+    first moment, the gradient times 0.1, from the command's final_state,
+    its loss from the scalars), and the validate CLI's perf within 0.005
+    of the plain evaluation's. Returns (the line, the failures)."""
+    import torch
+
+    from posetpu_torch.cli import validate as validate_cli
+    from posetpu_torch.cli.common import load_cfg
+    from posetpu_torch.train.checkpoint import CheckpointManager
+
+    visible = (env or {}).get("CUDA_VISIBLE_DEVICES", os.environ.get("CUDA_VISIBLE_DEVICES"))
+    n = len(visible.split(",")) if visible else torch.cuda.device_count()
+    out = os.path.join(tmp, f"out{tag}")
+    env = {**(env or {}), **({"NVIDIA_TF32_OVERRIDE": "0"} if n > 1 else {})}
+    common = ["--cfg", str(ROOT / PATH10_PRESETS[0]), "--modelDir", f"{out}/output",
+              "--logDir", f"{out}/log", "--dataDir", data]
+    extra = ["--epochs", "1"] + (["--f32", "--batch", str(CLI_STEPS * 8)] if n > 1 else [])
+    failures, line = [], {"cards": n}
+    train = run_command("posetpu_torch.cli.train", common + extra, f"{out}_train.log", env)
+    line["train"] = {k: train[k] for k in ("rc", "ranks", "worlds")}
+    if train["rc"] != 0 or train["ranks"] != list(range(n)) or train["worlds"] != [n]:
+        return line, [f"{tag} train CLI: rc {train['rc']}, ranks {train['ranks']} of "
+                      f"{train['worlds']} (want {n}): {train['tail']}"]
+    if f"data mesh: {n} devices, 1 process(es)" not in train["text"]:
+        failures.append(f"{tag}: no 'data mesh: {n} devices, 1 process(es)' line")
+    final = next(Path(out, "output").rglob("final_state.pt"))
+    loss = first_train_loss(f"{out}/log")
+    line["first_loss"] = loss
+    if n == 1:
+        line["first_loss_12b"] = loss12b
+        if loss != loss12b:
+            failures.append(f"{tag}: first loss {loss} against 12b's {loss12b}")
+    else:
+        cfg = load_cfg(argparse.Namespace(cfg=common[1], modelDir="", logDir="", dataDir=data))
+        cfg.TRAIN.BATCH_SIZE = CLI_STEPS * 8
+        states, _ = CheckpointManager(str(final.parent)).restore("final_state")
+        held, f = hold_cli_step(cfg, states["base_model"], loss, dev, f"{tag} (W={n})")
+        line["hold"] = held
+        failures += f
+
+    vextra = ["--state", str(final.with_suffix(""))] + (["--f32"] if n > 1 else [])
+    val = run_command("posetpu_torch.cli.validate", common + vextra, f"{out}_validate.log", env)
+    line["validate"] = {k: val[k] for k in ("rc", "ranks", "worlds")}
+    perf = [float(x) for x in re.findall(r"perf indicator: (\S+)", val["text"])]
+    line["validate"]["perf"] = perf
+    if val["rc"] != 0 or val["ranks"] != list(range(n)) or val["worlds"] != [n]:
+        failures.append(f"{tag} validate CLI: rc {val['rc']}, ranks {val['ranks']} of "
+                        f"{val['worlds']}: {val['tail']}")
+    elif f"eval devices: {n}" not in val["text"] or len(perf) != 1 or not np.isfinite(perf[0]):
+        failures.append(f"{tag} validate CLI: eval devices / perf {perf}: {val['tail']}")
+    elif n > 1:  # the plain evaluation in this process, TF32 off as the command's
+        from posetpu_torch.models import quant
+
+        vargs = validate_cli.parse_args(common + vextra)
+        with quant._full_fp32():
+            ref = validate_cli.run(load_cfg(vargs), vargs, device=dev, dump=False)[0]
+        line["validate"]["perf_plain"] = ref
+        if abs(perf[0] - ref) > 0.005:
+            failures.append(f"{tag} validate CLI: perf {perf[0]} against plain {ref}")
+    return line, failures
+
+
+def hold_cli_step(cfg, saved: dict, loss: float, dev, label: str) -> tuple[dict, list]:
+    """The train CLI's first step over the mesh (``saved``: its
+    final_state's base model after that one step, ``loss`` its first loss)
+    against the plain step on the host batch, as JAX's loader draws it
+    (one process, ``TRAIN.BATCH_SIZE`` groups), from the CLI's initial
+    weights (its seed) in f32 with TF32 off, and the nudged steps
+    (:func:`hold_mesh_step`)."""
+    import torch
+
+    from posetpu_torch.cli.common import build_model
+    from posetpu_torch.data.loader import GroupLoader
+    from posetpu_torch.data.prepare import make_prepare_fn
+    from posetpu_torch.data.registry import get_dataset
+    from posetpu_torch.models import quant
+    from posetpu_torch.train.optim import Optimizer, make_optimizer
+    from posetpu_torch.train.step import init_train_state, make_train_step
+
+    ds = get_dataset(cfg.DATASET.TRAIN_DATASET)(cfg, cfg.DATASET.TRAIN_SUBSET, True)
+    loader = GroupLoader(ds, cfg.TRAIN.BATCH_SIZE, shuffle=cfg.TRAIN.SHUFFLE,
+                         num_threads=int(cfg.WORKERS))
+    if cfg.DATASET.IF_SAMPLE and hasattr(ds, "group_weights"):
+        loader.set_weights(ds.group_weights(cfg))
+    loader.set_epoch(0)
+    it = iter(loader)
+    host = next(it)
+    it.close()
+    batch = make_prepare_fn(cfg, dev)(host)
+
+    def one(nudge: float):
+        model = build_model(cfg, bf16=False,
+                            generator=torch.Generator().manual_seed(int(cfg.SEED)))
+        tx = make_optimizer(cfg, steps_per_epoch=max(len(loader), 1))
+        st = init_train_state(model, tx, device=dev)
+        step = make_train_step(model, cfg, tx, device=dev)
+        b = dict(batch, images=batch["images"] * nudge) if nudge != 1.0 else batch
+        with quant._full_fp32():
+            _, m = step(st, b)
+        names = dict(model.named_parameters())
+        grads = {k: p.grad.double() for k, p in names.items() if p.grad is not None}
+        params = {k: p.detach().double() for k, p in names.items()}
+        buffers = {k: v.detach().double() if v.is_floating_point() else v.detach().clone()
+                   for k, v in model.named_buffers()}
+        return float(m["loss"]), {"base_model": grads}, {"base_model": params}, {
+            "base_model": buffers}
+
+    runs = {k: one(f) for k, f in (("plain", 1.0), ("nudge +", 1 + 1e-7),
+                                   ("nudge -", 1 - 1e-7))}
+    plain = runs["plain"]
+    sd = {**saved["params"], **saved["batch_stats"]}
+    mu = saved["opt_state"]["mu"]
+    one_minus_b1 = torch.tensor(1 - Optimizer.B1, dtype=torch.float32)
+    runs["mesh"] = (
+        loss,
+        {"base_model": {k: (mu[k].float() / one_minus_b1).double().to(dev)
+                        for k in plain[1]["base_model"]}},
+        {"base_model": {k: sd[k].double().to(dev) for k in plain[2]["base_model"]}},
+        {"base_model": {k: (sd[k].double() if sd[k].is_floating_point() else sd[k]).to(dev)
+                        for k in plain[3]["base_model"]}})
+    held, failures = hold_mesh_step(label, runs, float(cfg.TRAIN.LR), loss_floor=1e-6)
+    held["groups"] = int(cfg.TRAIN.BATCH_SIZE)
+    return held, failures
+
+
+def path12_train_cli(tmp: str, dev, reset_counts, read_counts, logger, lines: list, card: str,
+                     env: dict | None = None) -> int:
+    """12b and 12g on :func:`cli_fixture`'s data under ``tmp``: the train
+    CLI's ``setup`` and ``train_epochs`` over a one-process group
+    (``logger`` writes into ``lines``), then :func:`path12g` with ``env``.
+    Returns 12b's B7 launches."""
+    import torch
+    import torch.distributed as dist
+
+    from posetpu_torch.cli import train as train_cli
+    from posetpu_torch.cli.common import load_cfg
+    from posetpu_torch.data import h5io
+
+    group = ["--coordinator", f"127.0.0.1:{free_port()}", "--num-processes", "1",
+             "--process-id", "0"]
+
+    # ---- 12b: the train CLI over a one-process group, a few steps, on
+    # 12g's fixture (CLI_STEPS batches of MPII, one validate batch)
+    t = time.perf_counter()
+    data12 = cli_fixture(tmp)
+    args = train_cli.parse_args(["--cfg", str(ROOT / PATH10_PRESETS[0]), "--modelDir",
+                                 f"{tmp}/output12", "--logDir", f"{tmp}/log12", "--dataDir",
+                                 data12, "--epochs", "1", *group])
+    cfg = load_cfg(args)
+    reset_counts()
+    tr = train_cli.setup(cfg, args, device=dev, log=logger)
+    try:
+        step, losses = tr.train_step, []
+
+        def recording(st, b):
+            st, m = step(st, b)
+            losses.append(m["loss"])
+            return st, m
+
+        tr.train_step = recording
+        backend, size, step_mesh = dist.get_backend(), dist.get_world_size(), tr.mesh
+        train_cli.train_epochs(tr, tr.output_dir if h5io.available() else None)
+        tr.writer.close()
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    counts = {k: v for k, v in read_counts().items() if v}
+    final12 = os.path.join(tr.output_dir, "final_state.pt")
+    check(backend == "nccl" and size == 1, f"{PATH12} 12b: backend {backend}, {size} ranks")
+    check(step_mesh is None, f"{PATH12} 12b: a group of one runs the plain steps "
+          f"(parallel/mesh.use_mesh), got {step_mesh}")
+    check("data mesh: 1 devices, 1 process(es)" in lines, f"{PATH12} 12b: no data mesh line")
+    check(os.path.exists(final12) and len(losses) == CLI_STEPS
+          and bool(torch.isfinite(torch.stack(losses)).all()),
+          f"{PATH12} 12b: final_state {os.path.exists(final12)}, {len(losses)} steps")
+    check(counts == {"decode_heatmaps_kernel": 1}, f"{PATH12} 12b: hand kernel launches {counts}")
+    log(f"{PATH12}, 12b (train CLI, --coordinator, 1 process): " + json.dumps({
+        "preset": PATH10_PRESETS[0], "steps": len(losses),
+        "losses": [float(x) for x in losses], "backend": backend, "final_state": final12,
+        "launches": counts, "seconds": time.perf_counter() - t}) + f" | {card}")
+
+    # ---- 12g: the train and validate CLIs as commands on every card
+    t = time.perf_counter()
+    line12g, failures = path12g(tmp, data12, dev, float(losses[0]), env)
+    line12g["seconds"] = time.perf_counter() - t
+    log(f"{PATH12}, 12g (the train and validate CLIs, one command each, no process flags): "
+        + json.dumps(line12g) + f" | {card}")
+    check(not failures, f"{PATH12} 12g: {failures}")
+    return counts.get("decode_heatmaps_kernel", 0)
+
+
 def path12(tmp: str, seen10: dict, seen11: dict, dev, reset_counts, read_counts,
            card: str) -> dict:
     """Path 12 on path 10's fixture under ``tmp``: the train CLI over a
-    one-process data mesh (12b), the validate CLI with the group's flags and
+    one-process data mesh (12b) and both CLIs as commands on every card
+    (12g; :func:`path12_train_cli`), the validate CLI with the group's flags and
     the mesh eval step on path 11a's run (12c), the mesh steps (12a, 12d:
     :func:`path12_steps`), generate and the diagnostics bodies on the card
     (12e), the pipeline where h5py is present (12f). Returns B7's launches
@@ -1803,7 +2081,6 @@ def path12(tmp: str, seen10: dict, seen11: dict, dev, reset_counts, read_counts,
     import torch.distributed as dist
 
     from posetpu_torch.cli import diagnostics, generate
-    from posetpu_torch.cli import train as train_cli
     from posetpu_torch.cli import validate as validate_cli
     from posetpu_torch.cli.common import build_model, load_cfg, load_model_variables
     from posetpu_torch.core.inference import final_preds
@@ -1830,47 +2107,10 @@ def path12(tmp: str, seen10: dict, seen11: dict, dev, reset_counts, read_counts,
     seen = {"launches": {}}
     b7 = lambda counts: counts.get("decode_heatmaps_kernel", 0)  # noqa: E731
 
-    # ---- 12b: the train CLI over a one-process group, a few steps
-    t = time.perf_counter()
-    args = train_cli.parse_args(["--cfg", str(ROOT / PATH10_PRESETS[0]), "--modelDir",
-                                 f"{tmp}/output12", "--logDir", f"{tmp}/log12", "--dataDir", tmp,
-                                 "--epochs", "1", *group])
-    cfg = load_cfg(args)
-    reset_counts()
-    tr = train_cli.setup(cfg, args, device=dev, log=logger)
-    try:
-        bs = int(cfg.TRAIN.BATCH_SIZE)
-        tr.train_ds.grouping = tr.train_ds.grouping[:CLI_STEPS * bs]
-        tr.test_ds.grouping = tr.test_ds.grouping[:int(cfg.TEST.BATCH_SIZE)]
-        step, losses = tr.train_step, []
-
-        def recording(st, b):
-            st, m = step(st, b)
-            losses.append(m["loss"])
-            return st, m
-
-        tr.train_step = recording
-        backend, size, step_mesh = dist.get_backend(), dist.get_world_size(), tr.mesh
-        train_cli.train_epochs(tr, tr.output_dir if have_h5 else None)
-        tr.writer.close()
-        torch.cuda.synchronize()
-    finally:
-        dist.destroy_process_group()
-    counts = {k: v for k, v in read_counts().items() if v}
-    final12 = os.path.join(tr.output_dir, "final_state.pt")
-    check(backend == "nccl" and size == 1, f"{PATH12} 12b: backend {backend}, {size} ranks")
-    check(step_mesh is None, f"{PATH12} 12b: a group of one runs the plain steps "
-          f"(parallel/mesh.use_mesh), got {step_mesh}")
-    check("data mesh: 1 devices, 1 process(es)" in lines, f"{PATH12} 12b: no data mesh line")
-    check(os.path.exists(final12) and len(losses) == CLI_STEPS
-          and bool(torch.isfinite(torch.stack(losses)).all()),
-          f"{PATH12} 12b: final_state {os.path.exists(final12)}, {len(losses)} steps")
-    check(counts == {"decode_heatmaps_kernel": 1}, f"{PATH12} 12b: hand kernel launches {counts}")
-    seen["launches"]["12b"] = b7(counts)
-    log(f"{PATH12}, 12b (train CLI, --coordinator, 1 process): " + json.dumps({
-        "preset": PATH10_PRESETS[0], "steps": len(losses),
-        "losses": [float(x) for x in losses], "backend": backend, "final_state": final12,
-        "launches": counts, "seconds": time.perf_counter() - t}) + f" | {card}")
+    # ---- 12b and 12g: the train CLI over a one-process group, then the CLIs
+    # as commands on every card
+    seen["launches"]["12b"] = path12_train_cli(tmp, dev, reset_counts, read_counts, logger,
+                                               lines, card)
 
     # ---- 12c: the validate CLI with the group's flags on path 11a's run
     t = time.perf_counter()
@@ -2319,7 +2559,10 @@ def main() -> int:
     t_start = time.perf_counter()
     # ------------------------------------------------------------ 1. the card
     card = card_line()
-    dev = torch.device("cuda")
+    # the paths run in this process on the first card (the CLIs' in-process
+    # entry points start one rank where the device names its GPU); 12g runs
+    # the CLI commands on every card
+    dev = torch.device("cuda", 0)
     log(f"card: {card} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
 

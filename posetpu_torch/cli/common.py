@@ -1,9 +1,13 @@
-"""Shared CLI plumbing: argument and config parsing, the model, and its
-weights from a checkpoint."""
+"""Shared CLI plumbing: argument and config parsing, the launcher of a
+host's ranks, the model, and its weights from a checkpoint."""
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
+import os
+import signal
+import threading
 
 from posetpu_torch.config import load_config, update_dir
 
@@ -15,6 +19,71 @@ def base_parser(description: str) -> argparse.ArgumentParser:
     p.add_argument("--logDir", default="", help="log directory")
     p.add_argument("--dataDir", default="", help="data directory")
     return p
+
+
+def add_process_flags(p: argparse.ArgumentParser) -> None:
+    """``--coordinator``, ``--num-processes``, ``--process-id``:
+    ``jax.distributed.initialize``'s meaning, processes are hosts; each
+    host's command starts one rank per visible GPU (:func:`launch`)."""
+    p.add_argument("--coordinator", default="",
+                   help="host:port of process 0, where the hosts meet")
+    p.add_argument("--num-processes", type=int, default=0, help="hosts (processes)")
+    p.add_argument("--process-id", type=int, default=0, help="this host's index")
+
+
+def launch(fn, layout, *args, collect: bool = False):
+    """``fn(layout, *args)`` in each of this host's ``layout.local_ranks``
+    ranks (parallel/mesh.Layout; ``fn`` a module-level function, ``args``
+    picklable): one rank runs in this process; more are spawned, one
+    process each with its ``local`` index, meeting at ``layout.url`` or,
+    with no coordinator, at a rendezvous file made here. Returns local rank
+    0's value (of spawned ranks only with ``collect``, through a file).
+
+    This process waits for the ranks. SIGTERM is passed on to each; when a
+    rank fails, the others are stopped (SIGTERM, SIGKILL after 30 s) and
+    the failure raised: the rank's traceback, or SystemExit with its exit
+    code (128 + the signal for one killed by a signal)."""
+    if layout.local_ranks == 1:
+        return fn(layout, *args)
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    tmp = tempfile.mkdtemp(prefix="posetpu-ranks-")
+    url = layout.url or f"file://{tmp}/rendezvous"
+    result = os.path.join(tmp, "result.pt") if collect else None
+    ranks = mp.start_processes(_local_rank, args=(fn, layout, url, args, result),
+                               nprocs=layout.local_ranks, join=False, start_method="spawn")
+
+    def pass_on(_sig, _frm):
+        for p in ranks.processes:
+            if p.is_alive():
+                p.terminate()
+
+    main_thread = threading.current_thread() is threading.main_thread()
+    previous = signal.signal(signal.SIGTERM, pass_on) if main_thread else None
+    try:
+        try:
+            while not ranks.join(timeout=1.0):
+                pass
+        except mp.ProcessExitedException as e:
+            code = e.exit_code
+            raise SystemExit(code if code > 0 else 128 - code) from e
+        return torch.load(result, weights_only=False) if collect else None
+    finally:
+        if main_thread:
+            signal.signal(signal.SIGTERM, previous)
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _local_rank(local, fn, layout, url, args, result):
+    out = fn(dataclasses.replace(layout, local=local, url=url), *args)
+    if result is not None and local == 0:
+        import torch
+
+        torch.save(out, result)
 
 
 def load_cfg(args, **overrides):

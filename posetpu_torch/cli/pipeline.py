@@ -11,7 +11,8 @@ the reference's ``-f`` flag does.
         [--ransac] [--use-reproj] [--adaptive-thre] [--fresh] [--epochs N]
 
 The stages hand off through H5 files, so the loop needs h5py. They run on
-CUDA unless the caller passes ``device="cpu"``.
+CUDA unless the caller passes ``device="cpu"``; the train stage on every
+GPU of the host, as the train CLI (cli/common.launch).
 """
 
 from __future__ import annotations
@@ -46,56 +47,27 @@ def default_stage_fns(args, log=print, device=None):
     -> (TrainState, output dir)``, ``validate_fn(cfg, that, it) -> H5
     path``, ``mint_fn(cfg, h5 path, it) -> pseudo-label H5 path``."""
     import numpy as np
-    import torch
 
     from posetpu_torch import resolve_device
 
     dev = resolve_device(device)
 
     def train_fn(cfg, pseudo_path, it):
-        from posetpu_torch.cli.common import build_model
-        from posetpu_torch.cli.train import build_fund_extra
-        from posetpu_torch.data.loader import GroupLoader
-        from posetpu_torch.data.prepare import make_prepare_fn
-        from posetpu_torch.data.registry import get_dataset
+        from posetpu_torch.cli.common import build_model, launch
+        from posetpu_torch.parallel.mesh import host_layout
         from posetpu_torch.train.checkpoint import CheckpointManager
-        from posetpu_torch.train.loop import train_epoch
-        from posetpu_torch.train.optim import make_optimizer
-        from posetpu_torch.train.step import init_train_state, make_train_step
-        from posetpu_torch.utils.logging import create_logger
+        from posetpu_torch.train.state import TrainState
 
-        logger, output_dir, _ = create_logger(cfg, args.cfg, f"pipeline_it{it}")
-        train_ds = get_dataset(cfg.DATASET.TRAIN_DATASET)(
-            cfg, cfg.DATASET.TRAIN_SUBSET, True, pseudo_label_path=pseudo_path,
-            no_distortion=args.no_distortion)
-        loader = GroupLoader(train_ds, cfg.TRAIN.BATCH_SIZE, shuffle=True,
-                             num_threads=int(cfg.WORKERS))
-        if cfg.DATASET.IF_SAMPLE and hasattr(train_ds, "group_weights"):
-            # source-balanced sampling (as cli/train.py): at iteration 0
-            # every h36m group has zero supervision weight, so an unbalanced
-            # mixed epoch wastes most of its steps
-            loader.set_weights(train_ds.group_weights(cfg))
-        model = build_model(cfg, bf16=False,
-                            generator=torch.Generator().manual_seed(int(cfg.SEED)))
-        tx = make_optimizer(cfg, steps_per_epoch=max(len(loader), 1))
-        step = make_train_step(model, cfg, tx, device=dev)
-        prepare = make_prepare_fn(cfg, dev)
-        state = init_train_state(model, tx, device=dev)
-        ckpt = CheckpointManager(output_dir)
-        if it > 0 and ckpt.exists("final_state"):
-            # the warm start from the previous iteration's model: the
-            # reference's pseudo configs set TRAIN.RESUME with RESUME_PATH
-            # at the previous final_state (train.sh:86-109), the model
-            # alone with a fresh optimizer (run/pose2d/train.py:250-275)
-            prev = ckpt.restore_model("final_state")["base_model"]
-            state.params.load_state_dict({**prev["params"], **prev["batch_stats"]})
-            logger.info("=> warm start from the previous iteration's final_state")
-        extra = build_fund_extra(cfg, train_ds, dev) if cfg.LOSS.USE_FUNDAMENTAL_LOSS else None
-        for epoch in range(args.epochs or cfg.TRAIN.END_EPOCH):
-            state = train_epoch(cfg, loader, prepare, step, state, epoch, logger=logger,
-                                extra_batch_fn=extra)
-        ckpt.save_final({"base_model": state})
-        return state, output_dir
+        # one rank per GPU in use, as the train CLI (cli/common.launch)
+        layout = host_layout(device=dev)
+        if layout.local_ranks == 1:
+            return _train_stage(layout, cfg, args, pseudo_path, it, dev)
+        output_dir = launch(_train_stage, layout, cfg, args, pseudo_path, it, dev, collect=True)
+        # the ranks' final_state, read back for the validate stage
+        model = build_model(cfg, bf16=False)
+        saved = CheckpointManager(output_dir).restore_model("final_state")["base_model"]
+        model.load_state_dict({**saved["params"], **saved["batch_stats"]})
+        return TrainState(model.to(dev), None, 0), output_dir
 
     def validate_fn(cfg, state_and_dir, it):
         from posetpu_torch.data.loader import GroupLoader
@@ -147,6 +119,75 @@ def default_stage_fns(args, log=print, device=None):
         return os.path.join(out_dir, f"{args.confidence_thre}_1_pseudo_label.h5")
 
     return train_fn, validate_fn, mint_fn
+
+
+def _train_stage(layout, cfg, args, pseudo_path, it, device):
+    """The train stage on one rank (parallel/mesh.Layout): MPII [+ the
+    pseudo labels] for ``--epochs`` epochs over the host's ranks (each its
+    rows of the batch, the steps over the data mesh where there are two or
+    more), warm-started from the previous iteration's final_state; rank 0
+    logs and writes the new one. Returns (the TrainState, the output
+    directory) in this process where the host runs one rank, else the
+    output directory."""
+    import torch
+    import torch.distributed as dist
+
+    from posetpu_torch import resolve_device
+    from posetpu_torch.cli.common import build_model
+    from posetpu_torch.cli.train import build_fund_extra
+    from posetpu_torch.data.loader import GroupLoader
+    from posetpu_torch.data.prepare import make_prepare_fn
+    from posetpu_torch.data.registry import get_dataset
+    from posetpu_torch.parallel.mesh import is_primary, join, shard_host_batch, use_mesh
+    from posetpu_torch.train.checkpoint import CheckpointManager
+    from posetpu_torch.train.loop import train_epoch
+    from posetpu_torch.train.optim import make_optimizer
+    from posetpu_torch.train.step import init_train_state, make_train_step
+    from posetpu_torch.utils.logging import create_logger
+
+    group = join(layout, device)
+    try:
+        mesh = use_mesh(group)
+        dev = resolve_device(device) if group is None else group.device
+        logger, output_dir, _ = create_logger(cfg, args.cfg, f"pipeline_it{it}")
+        train_ds = get_dataset(cfg.DATASET.TRAIN_DATASET)(
+            cfg, cfg.DATASET.TRAIN_SUBSET, True, pseudo_label_path=pseudo_path,
+            no_distortion=args.no_distortion)
+        loader = GroupLoader(train_ds, cfg.TRAIN.BATCH_SIZE, shuffle=True,
+                             num_threads=max(1, int(cfg.WORKERS) // layout.local_ranks),
+                             part=(layout.local, layout.local_ranks))
+        if cfg.DATASET.IF_SAMPLE and hasattr(train_ds, "group_weights"):
+            # source-balanced sampling (as cli/train.py): at iteration 0
+            # every h36m group has zero supervision weight, so an unbalanced
+            # mixed epoch wastes most of its steps
+            loader.set_weights(train_ds.group_weights(cfg))
+        model = build_model(cfg, bf16=False,
+                            generator=torch.Generator().manual_seed(int(cfg.SEED)))
+        tx = make_optimizer(cfg, steps_per_epoch=max(len(loader), 1))
+        step = make_train_step(model, cfg, tx, mesh=mesh, device=dev)
+        prepare = make_prepare_fn(cfg, dev)
+        state = init_train_state(model, tx, device=dev)
+        ckpt = CheckpointManager(output_dir, mesh=mesh)
+        if it > 0 and ckpt.exists("final_state"):
+            # the warm start from the previous iteration's model: the
+            # reference's pseudo configs set TRAIN.RESUME with RESUME_PATH
+            # at the previous final_state (train.sh:86-109), the model
+            # alone with a fresh optimizer (run/pose2d/train.py:250-275)
+            prev = ckpt.restore_model("final_state")["base_model"]
+            state.params.load_state_dict({**prev["params"], **prev["batch_stats"]})
+            logger.info("=> warm start from the previous iteration's final_state")
+        extra = build_fund_extra(cfg, train_ds, dev) if cfg.LOSS.USE_FUNDAMENTAL_LOSS else None
+        place = None if mesh is None else (lambda t: shard_host_batch(t, mesh))
+        primary = is_primary(mesh)
+        for epoch in range(args.epochs or cfg.TRAIN.END_EPOCH):
+            state = train_epoch(cfg, loader, prepare, step, state, epoch,
+                                logger=logger if primary else None, extra_batch_fn=extra,
+                                place_fn=place)
+        ckpt.save_final({"base_model": state})
+        return (state, output_dir) if layout.local_ranks == 1 else output_dir
+    finally:
+        if group is not None:
+            dist.destroy_process_group()
 
 
 def pipeline_state_path(cfg, args) -> str:

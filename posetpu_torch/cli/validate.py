@@ -6,7 +6,7 @@ the PCKh table.
         [--trainset] [--flip-test] [--f32] \\
         [--int8 [--calib-batches N] [--qat-steps N [--qat-lr LR]] \\
                 [--int8-act4 l12|<names>] [--int8-subpixel deconv0,...]] \\
-        [--coordinator host:port --num-processes W --process-id i]
+        [--coordinator host:port --num-processes H --process-id h]
 
 ``--state`` is a reference torch checkpoint (``.pth`` / ``.pth.tar``,
 converted on the fly by models/convert_torch.py) or one of the port's own
@@ -16,19 +16,21 @@ first ``--calib-batches`` batches and, with ``--qat-steps``, QAT fine-tuned
 on them first. ``--trainset`` mirrors run/pose2d/valid_trainset.py:
 inference over the training grouping, to mint pseudo labels from.
 
-One process a card (CUDA). Over W cards, start the command once per card
-with the same ``--coordinator`` and ``--num-processes`` and its own
-``--process-id``: the float evaluation then runs over the data mesh
-(each rank its rows of every batch, the outputs gathered; the JAX package's
-rule: W > 1 and ``TEST.BATCH_SIZE`` a multiple of W), and rank 0 writes the
-dump. The int8 serving runs whole on each process.
+One command a host evaluates on every GPU it sees, one rank each
+(cli/common.launch), as the JAX CLI does over a host's devices: the float
+evaluation runs over the data mesh (each rank decodes and steps its rows of
+every batch, the outputs gathered; the JAX package's rule: more than one
+device and ``TEST.BATCH_SIZE`` a multiple of their count), and rank 0
+writes the dump. The process flags keep ``jax.distributed.initialize``'s
+meaning, processes are hosts (cli/train.py). The int8 serving runs whole on
+each host's first GPU.
 """
 
 from __future__ import annotations
 
 
 def parse_args(argv=None):
-    from posetpu_torch.cli.common import base_parser
+    from posetpu_torch.cli.common import add_process_flags, base_parser
 
     p = base_parser("Validate multi-view pose network")
     p.add_argument("--state", default="", help="checkpoint path (reference torch or the port's)")
@@ -57,9 +59,7 @@ def parse_args(argv=None):
                    help="with --int8: comma-separated deconv names to "
                         "quantize in per-phase subpixel form (finer weight "
                         "scales)")
-    p.add_argument("--coordinator", default="", help="process-group rendezvous host:port")
-    p.add_argument("--num-processes", type=int, default=0)
-    p.add_argument("--process-id", type=int, default=0)
+    add_process_flags(p)
     return p.parse_args(argv)
 
 
@@ -72,39 +72,49 @@ def act4_names(spec: str) -> tuple:
     return tuple(filter(None, spec.split(",")))
 
 
-def run(cfg, args, device=None, log=None, dump: bool = True):
-    """Validate as ``python -m posetpu_torch.cli.validate`` does, on
-    ``device`` (CUDA unless given). ``log``: a logging.Logger to write to in
-    place of the run's own; ``dump``: write the heatmap H5 into the output
-    directory (it needs h5py; rank 0 writes it). Returns the validate
-    loop's (perf, name_values, preds [N*V, J, 3], heatmaps [N*V, J, h,
-    w]). With ``--coordinator`` this process joins the group of
-    ``--num-processes`` for the run and leaves it at the end."""
+def run(cfg, args, device=None, log=None, dump: bool = True, local_ranks: int | None = None):
+    """Validate as ``python -m posetpu_torch.cli.validate`` does: one rank
+    per GPU in use on this host (parallel/mesh.host_layout; on the CPU
+    ``local_ranks`` gloo ranks, default 1) through cli/common.launch.
+    ``log``: a logging.Logger to write to in place of the run's own;
+    ``dump``: write the heatmap H5 into the output directory (rank 0 does,
+    where h5py is installed). Returns local rank 0's validate loop's (perf,
+    name_values, preds [N*V, J, 3], heatmaps [N*V, J, h, w])."""
+    from posetpu_torch.cli.common import launch
+    from posetpu_torch.parallel.mesh import Layout, host_layout
+
+    layout = host_layout(args.coordinator, args.num_processes, args.process_id, device,
+                         local_ranks)
+    if args.int8:  # the int8 serving runs whole, one rank on each host's first device
+        layout, dump = Layout(), dump and layout.host == 0
+    return launch(_rank, layout, cfg, args, device, log, dump, collect=True)
+
+
+def _rank(layout, cfg, args, device, log, dump):
+    """One rank of :func:`run`: it joins the group for the run."""
     import torch.distributed as dist
 
-    from posetpu_torch.parallel.mesh import data_mesh, initialize_distributed
+    from posetpu_torch.parallel.mesh import join
 
-    if args.num_processes > 1 and not args.coordinator:
-        raise ValueError("--num-processes > 1 needs --coordinator host:port")
-    initialize_distributed(args.coordinator or None, args.num_processes or None,
-                           args.process_id, device=device)
+    dump = dump and layout.rank == 0
+    mesh = join(layout, device)
     try:
-        return _run(cfg, args, device, log, dump,
-                    data_mesh() if args.coordinator else None)
+        return _run(cfg, args, device, log, dump, mesh, layout)
     finally:
-        if args.coordinator and dist.is_initialized():
+        if mesh is not None:
             dist.destroy_process_group()
 
 
-def _run(cfg, args, device, log, dump, mesh):
+def _run(cfg, args, device, log, dump, mesh, layout):
     import torch
 
     from posetpu_torch import resolve_device
     from posetpu_torch.cli.common import build_model, load_model_variables
+    from posetpu_torch.data import h5io
     from posetpu_torch.data.loader import GroupLoader
     from posetpu_torch.data.prepare import make_prepare_fn
     from posetpu_torch.data.registry import get_dataset
-    from posetpu_torch.parallel.mesh import global_batch_from_full_host, is_primary, use_mesh
+    from posetpu_torch.parallel.mesh import use_mesh
     from posetpu_torch.train.loop import validate
     from posetpu_torch.train.serve import build_quant_from_variables, make_quant_eval_step
     from posetpu_torch.train.step import make_eval_step
@@ -124,7 +134,8 @@ def _run(cfg, args, device, log, dump, mesh):
 
     logger, output_dir, _ = create_logger(cfg, args.cfg, "valid")
     logger = log or logger
-    logger.info(f"device: {dev}"
+    logger.info(f"rank {layout.rank} of {layout.world} (host {layout.host} of {layout.hosts}): "
+                f"{dev}"
                 + (f" ({torch.cuda.get_device_name(dev)})" if dev.type == "cuda" else ""))
     subset = "train" if args.trainset else cfg.DATASET.TEST_SUBSET
     # --trainset keeps is_train=True: valid_trainset.py:155 builds the TRAIN
@@ -133,14 +144,21 @@ def _run(cfg, args, device, log, dump, mesh):
     dataset = get_dataset(cfg.DATASET.TEST_DATASET)(
         cfg, subset, args.trainset,
         no_distortion=args.no_distortion or cfg.DATASET.NO_DISTORTION)
+    # the evaluation over the data mesh (valid.py:169-171's DataParallel)
+    # where the batch splits evenly over its ranks: each rank loads its rows
+    # of every batch; the int8 serving loads them all
+    eval_mesh = None if args.int8 else use_mesh(mesh, int(cfg.TEST.BATCH_SIZE))
     loader = GroupLoader(dataset, cfg.TEST.BATCH_SIZE, shuffle=False, drop_last=False,
-                         num_threads=int(cfg.WORKERS))
+                         num_threads=max(1, int(cfg.WORKERS) // layout.local_ranks),
+                         part=(0, 1) if eval_mesh is None else (eval_mesh.rank, eval_mesh.size))
     logger.info(f"groups: {len(dataset)}")
     state_path = args.state or cfg.TEST.STATE or cfg.TEST.MODEL_FILE
     if not state_path:
         raise ValueError("--state (or TEST.STATE) required")
     variables = load_model_variables(state_path, drop_aggre=not cfg.NETWORK.AGGRE)
-    dump_dir = output_dir if dump and is_primary(mesh) else None
+    if dump and not h5io.available():
+        logger.info("h5py is not installed: no heatmap H5 dump")
+    dump_dir = output_dir if dump and h5io.available() else None
 
     if args.int8:
         prep = make_prepare_fn(cfg, dev)
@@ -181,17 +199,13 @@ def _run(cfg, args, device, log, dump, mesh):
         model.load_state_dict({**variables["params"], **variables["batch_stats"]})
         del variables
         model.to(dev)
-        # the evaluation over the data mesh (valid.py:169-171's DataParallel)
-        # where the batch splits evenly over its processes
-        eval_mesh = use_mesh(mesh, int(cfg.TEST.BATCH_SIZE))
         eval_step = make_eval_step(model, cfg, flip_pairs=dataset.flip_pairs, mesh=eval_mesh,
                                    device=dev)
-        place = (None if eval_mesh is None
-                 else lambda t: global_batch_from_full_host(t, eval_mesh))
         logger.info(f"eval devices: {1 if eval_mesh is None else eval_mesh.size}")
         out = validate(cfg, loader, dataset, eval_step, model, output_dir=dump_dir,
-                       logger=logger, place_fn=place, device=dev, mesh=eval_mesh)
-    logger.info(f"perf indicator: {out[0]:.4f}")
+                       logger=logger, device=dev, mesh=eval_mesh)
+    if layout.rank == 0:
+        logger.info(f"perf indicator: {out[0]:.4f}")
     return out
 
 

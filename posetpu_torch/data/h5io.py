@@ -17,6 +17,14 @@ from __future__ import annotations
 import numpy as np
 
 
+def available() -> bool:
+    """Whether h5py is installed: the train and validate CLIs write their
+    heatmap dump only then (and say so when they do not)."""
+    import importlib.util
+
+    return importlib.util.find_spec("h5py") is not None
+
+
 def save_heatmaps(path: str, heatmaps, locations, joint_names_order) -> None:
     import h5py
 

@@ -9,6 +9,10 @@ augmentation from a seed of its own, and collates numpy batches; the device
 side is data/prepare.py. A batch's images are decoded, flipped, warped and
 jittered on a pool of ``num_threads`` threads (cv2 releases the GIL there),
 and a prefetch thread keeps ``prefetch`` batches ready ahead of the step.
+
+A host's ranks each take a part of its batches (``part``): each makes every
+draw of a batch, in the order one loader makes them, and decodes only its
+own rows.
 """
 
 from __future__ import annotations
@@ -55,6 +59,7 @@ class GroupLoader:
         shard_index: int = 0,
         prefetch: int = 2,
         num_threads: int = 4,
+        part: tuple[int, int] = (0, 1),
     ):
         self.dataset = dataset
         self.batch_size = batch_size
@@ -65,6 +70,13 @@ class GroupLoader:
         self.shard_index = shard_index
         self.prefetch = prefetch
         self.num_threads = num_threads
+        # (index, count): this loader yields rows [index * B / count, (index
+        # + 1) * B / count) of each batch of B, a short last batch first
+        # padded to B by wrapping around its groups
+        index, count = (int(x) for x in part)
+        if not 0 <= index < count or batch_size % count:
+            raise ValueError(f"part {part} of a batch of {batch_size} groups")
+        self.part = (index, count)
         self.epoch = 0
         # per-group sampling weights (the reference's unimplemented IF_SAMPLE
         # balancing, lib/utils/utils.py:119-126): when set, each epoch draws
@@ -75,7 +87,8 @@ class GroupLoader:
         """Complete every deferred record of a batch: each record's decode,
         flip, warp and jitter on ``pool`` (inline where it is None). The
         first failure raises, naming its file."""
-        jobs = [v for g in groups for v in g if "_image_job" in v]
+        # a group twice in a padded part is completed once
+        jobs = list({id(v): v for g in groups for v in g if "_image_job" in v}.values())
         if pool is None:
             for v in jobs:
                 self.dataset.finalize_record(v)
@@ -113,6 +126,17 @@ class GroupLoader:
         n = len(self._indices())
         return n // self.batch_size if self.drop_last else int(np.ceil(n / self.batch_size))
 
+    def batch_rows(self, b: int) -> int:
+        """Groups in batch ``b`` of the whole batch, before any padding."""
+        return min(self.batch_size, len(self._indices()) - b * self.batch_size)
+
+    def _part_rows(self, n: int) -> np.ndarray:
+        """This part's rows of a batch of ``n`` groups padded to the batch
+        size (the mesh eval step's rule, train/loop.validate)."""
+        index, count = self.part
+        per = self.batch_size // count
+        return (np.arange(self.batch_size) % n)[index * per:(index + 1) * per]
+
     def __iter__(self) -> Iterator[dict]:
         idx = self._indices()
         nb = len(self)
@@ -126,6 +150,8 @@ class GroupLoader:
             )
             groups = [self.dataset.load_group(int(g), rs, defer_images=True)
                       for g in batch_ids]
+            if self.part[1] > 1:  # every draw made; this part's images alone
+                groups = [groups[r] for r in self._part_rows(len(groups))]
             self._run_image_jobs(groups, pool)
             return collate_groups(groups)
 

@@ -2,11 +2,13 @@
 
 The reference scales with one process per GPU under NCCL DDP
 (run/pose2d/train.py:129-225); the JAX package lays a 1-D ``data`` mesh over
-its devices and lets jit insert the collectives. Here the mesh is the world
-of processes, each driving one device (:class:`DataMesh`): the model and its
-optimizer stay whole on every rank, each rank holds its own rows of the
-global batch, and the steps (train/step.py, train/gan.py) make the
-collectives themselves:
+every device of every process and lets jit insert the collectives. A JAX
+process is a host (``jax.distributed.initialize``) driving its local
+devices; here a host's command starts one rank, a process of its own, per
+local device (:class:`Layout`, cli/common.launch), and the mesh is the world
+of ranks (:class:`DataMesh`): the model and its optimizer stay whole on
+every rank, each rank holds its own rows of the global batch, and the steps
+(train/step.py, train/gan.py) make the collectives themselves:
 
 - :func:`gather_rows`: the ranks' rows joined in rank order, the global
   batch as ``jax.make_array_from_process_local_data`` builds it. With
@@ -47,6 +49,94 @@ class DataMesh:
     rank: int
     size: int
     device: torch.device
+
+
+# the longest a collective waits for the other ranks: a rank that fails ends
+# its siblings' waits (seconds)
+COLLECTIVE_TIMEOUT_S = 900.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a rank sits, in JAX's terms: ``hosts`` processes of
+    ``jax.distributed.initialize`` (``--num-processes``), this rank's
+    ``host`` (``--process-id``), each host driving ``local_ranks`` devices,
+    one rank each, ``local`` this rank's index on its host. The world is
+    hosts x local_ranks ranks and a rank is ``host * local_ranks + local``:
+    the order in which ``jax.make_array_from_process_local_data`` lays the
+    hosts' rows, each host's split over its devices in turn. ``url``: the
+    group's rendezvous, None for a lone rank, which joins no group."""
+
+    hosts: int = 1
+    host: int = 0
+    local_ranks: int = 1
+    local: int = 0
+    url: str | None = None
+
+    @property
+    def world(self) -> int:
+        return self.hosts * self.local_ranks
+
+    @property
+    def rank(self) -> int:
+        return self.host * self.local_ranks + self.local
+
+    def rows(self, batch_size: int) -> tuple[int, int]:
+        """This rank's rows [start, stop) of its host's batch of
+        ``batch_size``."""
+        if batch_size % self.local_ranks:
+            raise ValueError(f"a batch of {batch_size} does not split over "
+                             f"{self.local_ranks} local ranks")
+        per = batch_size // self.local_ranks
+        return self.local * per, (self.local + 1) * per
+
+
+def host_layout(coordinator: str = "", num_processes: int = 0, process_id: int = 0,
+                device=None, local_ranks: int | None = None) -> Layout:
+    """The layout of a host's command (its local rank 0) from the CLIs'
+    process flags, which keep ``jax.distributed.initialize``'s meaning:
+    ``num_processes`` hosts, this one ``process_id``, meeting at
+    ``coordinator`` (``host:port``, or a URL given whole). On CUDA a host
+    runs one rank per visible GPU (``CUDA_VISIBLE_DEVICES`` narrows them),
+    or one on the GPU that ``device`` names (``cuda:<i>``); ``local_ranks``
+    may only confirm that count. On the CPU ``local_ranks`` (default 1)
+    gloo ranks, as ``--xla_force_host_platform_device_count`` gives JAX CPU
+    devices."""
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        n = 1 if dev.index is not None else torch.cuda.device_count()
+        if local_ranks not in (None, n):
+            raise ValueError(f"{local_ranks} local ranks asked on a host with {n} GPU(s) in "
+                             f"use: a host runs one rank per visible GPU (narrow them with "
+                             f"CUDA_VISIBLE_DEVICES, or pin one with device='cuda:<i>')")
+    else:
+        n = int(local_ranks or 1)
+    hosts = int(num_processes or 1)
+    if hosts > 1 and not coordinator:
+        raise ValueError("--num-processes > 1 needs --coordinator host:port")
+    if not 0 <= int(process_id) < hosts:
+        raise ValueError(f"--process-id {process_id} is not one of {hosts} processes")
+    url = None
+    if coordinator:
+        url = coordinator if "://" in coordinator else f"tcp://{coordinator}"
+    return Layout(hosts, int(process_id), n, 0, url)
+
+
+def join(layout: Layout, device=None, timeout: float = COLLECTIVE_TIMEOUT_S) -> DataMesh | None:
+    """This rank into its group (:func:`initialize_distributed` at
+    ``layout.url``, each collective waiting at most ``timeout`` seconds):
+    the mesh over the world, on CUDA the GPU of its local index (or the one
+    ``device`` names). A lone rank (no url) joins nothing: None."""
+    if layout.url is None:
+        if layout.world > 1:
+            raise ValueError(f"{layout.world} ranks need a rendezvous (a coordinator, or "
+                             f"the local one cli/common.launch makes)")
+        return None
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", layout.local)
+    initialize_distributed(layout.url, layout.world, layout.rank, device=dev, timeout=timeout)
+    return data_mesh()
 
 
 def initialize_distributed(coordinator: str | None = None, num_processes: int | None = None,
@@ -201,10 +291,12 @@ def global_batch_from_full_host(batch, mesh: DataMesh):
 
 
 def shard_host_batch(batch, mesh: DataMesh):
-    """Train's placement: the loader already sharded the data set
-    (``GroupLoader(num_shards=mesh.size, shard_index=mesh.rank)``), so the
-    process-local batch is this rank's rows as it stands; every leaf must
-    have the same row count (the collectives join equal shards)."""
+    """Train's placement: the loader already gave this rank its rows (the
+    data set sharded by host, ``GroupLoader(num_shards=hosts,
+    shard_index=host)``, and each host batch split over its local ranks,
+    ``part=(local, local_ranks)``), so the batch is taken as it stands;
+    every leaf must have the same row count (the collectives join equal
+    shards)."""
     rows = {k: np.shape(v)[0] for k, v in batch.items()}
     if len(set(rows.values())) > 1:
         raise ValueError(f"shard_host_batch: uneven rows {rows}")

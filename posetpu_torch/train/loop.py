@@ -35,8 +35,8 @@ def train_epoch(cfg, loader: GroupLoader, prepare, train_step, state,
     steps and data waits with, for a caller that reads it afterwards.
 
     ``place_fn`` (parallel/mesh.shard_host_batch) places the host batch on
-    the data mesh before ``prepare``: the loader is sharded, so each rank
-    prepares and steps its own rows and the step makes the collectives
+    the data mesh before ``prepare``: the loader gives each rank its own
+    rows, which it prepares and steps, and the step makes the collectives
     (run/pose2d/train.py:129-225's DDP)."""
     from posetpu_torch.parallel.mesh import local_data
     from posetpu_torch.utils.checks import check_finite_metrics
@@ -100,13 +100,15 @@ def validate(cfg, loader: GroupLoader, dataset, eval_step, variables,
     ``eval_step`` takes: the model (``state.params``). Returns (perf,
     name_values, preds [N*V, J, 3], heatmaps [N*V, J, h, w]).
 
-    Over a data mesh: ``place_fn`` (parallel/mesh.global_batch_from_full_host)
-    gives each rank its rows of a batch, and the eval step (made with the
-    same ``mesh``) gathers its outputs. Every rank iterates the full
-    (unsharded) loader in lockstep, so the collectives line up; only rank 0
-    logs, writes the H5 dump and runs ``dataset.evaluate``, whose numbers
-    the others receive (run/pose2d/train.py:361-391's rank-0 accumulation).
-    The batches go to ``device`` (CUDA unless given)."""
+    Over a data mesh each rank takes its rows of every batch of the
+    (unsharded) set, in lockstep so that the collectives line up: the
+    loader yields them (``GroupLoader(part=(rank, world))``) or
+    ``place_fn`` (parallel/mesh.global_batch_from_full_host) cuts them from
+    the whole batch; the eval step (made with the same ``mesh``) gathers
+    the outputs. Only rank 0 logs, writes the H5 dump and runs
+    ``dataset.evaluate``, whose numbers the others receive
+    (run/pose2d/train.py:361-391's rank-0 accumulation). The batches go to
+    ``device`` (CUDA unless given)."""
     from posetpu_torch.parallel.mesh import broadcast_object, is_primary as primary
 
     nviews = 4
@@ -117,8 +119,9 @@ def validate(cfg, loader: GroupLoader, dataset, eval_step, variables,
     all_preds: list[np.ndarray] = []
     all_heatmaps: list[np.ndarray] = []
 
-    for host_batch in loader:
-        n = host_batch["images"].shape[0]
+    parted = getattr(loader, "part", (0, 1))[1] > 1  # each rank loads its rows
+    for b, host_batch in enumerate(loader):
+        n = loader.batch_rows(b) if parted else host_batch["images"].shape[0]
         if place_fn is not None and n < loader.batch_size:
             # the ragged last batch padded to the batch size, so it splits
             # over the ranks; the padded rows wrap around and are cut below
