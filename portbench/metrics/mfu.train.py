@@ -1,0 +1,15 @@
+"""mfu.train: the model's FLOPs a step (the forward's convolutions,
+deconvolutions and fusion products, two a multiply-accumulate, three times
+for the forward and backward, from the configuration's shapes) times the
+window's steps, over the window's seconds and the chip's 989 TFLOP/s bf16
+peak."""
+
+from portbench import counts
+
+
+def read(rec):
+    if rec.kind != "train" or not rec.window_s > 0 or not rec.groups:
+        return None
+    flops = counts.train_step_flops(rec.cfg, rec.cell["groups"], rec.cell["views"])
+    steps = rec.groups / rec.cell["groups"]
+    return 100.0 * flops * steps / rec.window_s / counts.PEAK_BF16_FLOPS
