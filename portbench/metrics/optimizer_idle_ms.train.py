@@ -1,0 +1,10 @@
+"""optimizer_idle_ms.train: milliseconds a step in which the device was idle
+while the host was inside the program's ``train.optimizer`` span (or one of
+its children), the gap taken at its middle, from the traced sub-window
+(portbench/program_spans.py)."""
+
+from portbench.program_spans import per_iteration
+
+
+def read(rec):
+    return per_iteration(rec, "train", "train.optimizer", "idle")

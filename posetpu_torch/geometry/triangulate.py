@@ -25,6 +25,7 @@ from posetpu_torch.geometry.cameras import (
     pixels_to_normalized,
     project_points,
 )
+from posetpu_torch.utils.profiling import span
 
 # World-unit rescale for DLT conditioning; H36M worlds are in mm.
 _T_SCALE = 1000.0
@@ -72,17 +73,18 @@ def triangulate_points(poses2d, cams: CameraParams, joints_vis=None,
                        no_distortion: bool = False):
     """Triangulate [G, V, J, 2] pixel observations to [G, J, 3] world points.
     Joints with fewer than two visible views return zeros."""
-    g, v, j, _ = poses2d.shape
-    if joints_vis is None:
-        joints_vis = torch.ones((g, v, j), device=poses2d.device)
-    joints_vis = joints_vis.float()
-    flat = cams.map(lambda x: x.reshape((g * v,) + x.shape[2:]))
-    yn = pixels_to_normalized(poses2d.reshape(g * v, j, 2), flat,
-                              no_distortion=no_distortion).reshape(g, v, j, 2)
-    P = extrinsic_matrix(cams, t_scale=_T_SCALE)  # [G, V, 3, 4]
-    pts = _dlt_solve(yn, P, joints_vis) * _T_SCALE  # [G, J, 3]
-    enough = joints_vis.sum(dim=1) >= 2  # [G, J]
-    return pts * enough[..., None].to(pts.dtype)
+    with span("geometry.triangulate"):
+        g, v, j, _ = poses2d.shape
+        if joints_vis is None:
+            joints_vis = torch.ones((g, v, j), device=poses2d.device)
+        joints_vis = joints_vis.float()
+        flat = cams.map(lambda x: x.reshape((g * v,) + x.shape[2:]))
+        yn = pixels_to_normalized(poses2d.reshape(g * v, j, 2), flat,
+                                  no_distortion=no_distortion).reshape(g, v, j, 2)
+        P = extrinsic_matrix(cams, t_scale=_T_SCALE)  # [G, V, 3, 4]
+        pts = _dlt_solve(yn, P, joints_vis) * _T_SCALE  # [G, J, 3]
+        enough = joints_vis.sum(dim=1) >= 2  # [G, J]
+        return pts * enough[..., None].to(pts.dtype)
 
 
 def triangulate_poses(poses2d, cams: CameraParams, joints_vis=None,

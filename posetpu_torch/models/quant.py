@@ -43,6 +43,7 @@ the JAX association, so each rounds as it does there.
 from __future__ import annotations
 
 import contextlib
+import itertools
 from typing import Any
 
 import numpy as np
@@ -56,6 +57,7 @@ from posetpu_torch.ops import deconv as _dc
 from posetpu_torch.ops import phase_tail as _pt
 from posetpu_torch.ops import resblock as _rb
 from posetpu_torch.ops.int_mm import int_mm
+from posetpu_torch.utils.profiling import span
 
 
 # --------------------------------------------------------------- BN folding
@@ -273,21 +275,28 @@ def _dilate2(x):
 def _im2col(x, kh, kw, stride, pad):
     """int8 NHWC [N, H, W, C] -> ([N*Ho*Wo, kh*kw*C], (N, Ho, Wo)), columns
     in HWIO order so an HWIO kernel reshaped to [kh*kw*C, O] is the other
-    GEMM operand. ``pad`` = ((top, bottom), (left, right)), zeros."""
+    GEMM operand. ``pad`` = ((top, bottom), (left, right)), zeros. Its span
+    counts the bytes it writes: the padded input, and the columns unless
+    they are a view of the (contiguous) input (1x1, stride 1)."""
     n, h, w, c = x.shape
     (pt, pb), (pl, pr) = pad
-    if pt or pb or pl or pr:
-        xp = x.new_zeros(n, h + pt + pb, w + pl + pr, c)
-        xp[:, pt:pt + h, pl:pl + w] = x
-        x, h, w = xp, h + pt + pb, w + pl + pr
-    ho, wo = (h - kh) // stride + 1, (w - kw) // stride + 1
-    if kh == kw == 1:
-        cols = x[:, ::stride, ::stride] if stride > 1 else x
-        return cols.reshape(n * ho * wo, c), (n, ho, wo)
-    cols = [x[:, dy:dy + stride * (ho - 1) + 1:stride,
-              dx:dx + stride * (wo - 1) + 1:stride]
-            for dy in range(kh) for dx in range(kw)]
-    return torch.stack(cols, dim=3).reshape(n * ho * wo, kh * kw * c), (n, ho, wo)
+    padded = bool(pt or pb or pl or pr)
+    hp, wp = h + pt + pb, w + pl + pr
+    ho, wo = (hp - kh) // stride + 1, (wp - kw) // stride + 1
+    copied = kh * kw > 1 or stride > 1
+    with span("quant.im2col", bytes=(n * hp * wp * c if padded else 0)
+              + (n * ho * wo * kh * kw * c if copied else 0)):
+        if padded:
+            xp = x.new_zeros(n, hp, wp, c)
+            xp[:, pt:pt + h, pl:pl + w] = x
+            x = xp
+        if kh == kw == 1:
+            cols = x[:, ::stride, ::stride] if stride > 1 else x
+            return cols.reshape(n * ho * wo, c), (n, ho, wo)
+        cols = [x[:, dy:dy + stride * (ho - 1) + 1:stride,
+                  dx:dx + stride * (wo - 1) + 1:stride]
+                for dy in range(kh) for dx in range(kw)]
+        return torch.stack(cols, dim=3).reshape(n * ho * wo, kh * kw * c), (n, ho, wo)
 
 
 def _conv_int8(x, wq, stride=1, padding=None):
@@ -297,7 +306,8 @@ def _conv_int8(x, wq, stride=1, padding=None):
         p = (kh - 1) // 2
         padding = ((p, p), (p, p))
     cols, (n, ho, wo) = _im2col(x, kh, kw, stride, padding)
-    y = int_mm(cols, wq.reshape(kh * kw * cin, cout))
+    with span("quant.int_mm", macs=cols.shape[0] * cols.shape[1] * cout):
+        y = int_mm(cols, wq.reshape(kh * kw * cin, cout))
     return y.reshape(n, ho, wo, cout)
 
 
@@ -436,11 +446,12 @@ class _Int8Runner:
             # the padded [2, 2, I, 4*O] phase conv; requantize BEFORE the
             # depth-to-space, so the interleave moves int8 bytes
             z = _conv_int8(h_q, wq, 1, ((1, 1), (1, 1)))  # [N, H+1, W+1, 4*O]
-            zf = z.float() * (s_h * ws) + b.repeat(4)
-            if relu:
-                zf = torch.relu(zf)
-            return _subpixel_interleave(self._quant(zf, s_out), h_q.shape[1],
-                                        h_q.shape[2]), s_out
+            with span("quant.requant"):
+                zf = z.float() * (s_h * ws) + b.repeat(4)
+                if relu:
+                    zf = torch.relu(zf)
+                zq = self._quant(zf, s_out)
+            return _subpixel_interleave(zq, h_q.shape[1], h_q.shape[2]), s_out
         if dilated:
             # a stride-2 deconv as the input-dilated stride-1 conv with the
             # flipped kernel (lhs_dilation=(2, 2) in the JAX package)
@@ -449,22 +460,24 @@ class _Int8Runner:
             pad = k - 1 - p
             h_q, padding = _dilate2(h_q), ((pad, pad + opad), (pad, pad + opad))
         y = _conv_int8(h_q, wq, stride, padding)
-        y = y.float() * (s_h * ws) + b
-        if relu:
-            y = torch.relu(y)
-        if f"{name}.out" in self.act4:
-            # intra-block 4-bit boundary: int8 values in either mode (nibble
-            # packing is not plumbed through conv consumers, as in the JAX
-            # package)
-            s4 = s_out * (127.0 / 7.0)
-            return torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8), s4
-        return self._quant(y, s_out), s_out
+        with span("quant.requant"):
+            y = y.float() * (s_h * ws) + b
+            if relu:
+                y = torch.relu(y)
+            if f"{name}.out" in self.act4:
+                # intra-block 4-bit boundary: int8 values in either mode (nibble
+                # packing is not plumbed through conv consumers, as in the JAX
+                # package)
+                s4 = s_out * (127.0 / 7.0)
+                return torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8), s4
+            return self._quant(y, s_out), s_out
 
     def conv_f32(self, h_q, s_h, name, stride=1):
         ws = self.q["w_scales"][name]
         b = self.q["biases"][name]
         y = _conv_int8(h_q, self.q["weights"][name], stride)
-        return y.float() * (s_h * ws) + b
+        with span("quant.requant"):
+            return y.float() * (s_h * ws) + b
 
     def final_jns(self, h_q, s_h, dtype=torch.float32):
         """The 1x1 head in the S-minor layout: h_q [N, H, W, C] int8 ->
@@ -519,11 +532,12 @@ class _Int8Runner:
 
     def requant(self, y, name):
         s = self.q["act_scales"][name]
-        if name in self.act4:
-            s4 = s * (127.0 / 7.0)
-            q4 = torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8)
-            return (q4 if self.act4_mode == "s4" else pack_nibbles(q4)), s4
-        return self._quant(y, s), s
+        with span("quant.requant"):
+            if name in self.act4:
+                s4 = s * (127.0 / 7.0)
+                q4 = torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8)
+                return (q4 if self.act4_mode == "s4" else pack_nibbles(q4)), s4
+            return self._quant(y, s), s
 
     def unwrap(self, h_q, s_h):
         """Undo a nibble-packed boundary at its consumer; int8 passes through."""
@@ -547,7 +561,8 @@ def _run_block(runner, h_q, s_h, info):
                                  stride=info["stride"], relu=False)
     else:
         r_q, r_s = h_q, s_h
-    out = torch.relu(y + runner.dequant(r_q, r_s))
+    with span("quant.requant"):  # the residual add
+        out = torch.relu(y + runner.dequant(r_q, r_s))
     return runner.requant(out, f"{name}.out")
 
 
@@ -571,63 +586,80 @@ def _forward(runner, x, num_layers, deconv_kernels, subpixel_deconvs=False,
     num_deconvs = len(deconv_kernels)
     q = getattr(runner, "q", None)  # None: the calibration recorder
     h_q, s_h = runner.input(x)
-    for kind, info in plan:
-        if kind == "stem":
-            if q is not None and stem_s2d:
-                h_q, s_h = runner.qchain(h_q, s_h, "stem", s2d=stem_s2d)
-            else:
-                h_q, s_h = runner.qchain(h_q, s_h, "stem", stride=2)
-            # max-pool commutes with the (positive-scale) quantization
-            h_q = runner.max_pool(h_q)
-        elif kind == "block":
-            # a nibble-packed boundary unpacks here, at its consumers
-            h_q, s_h = runner.unwrap(h_q, s_h)
-            h_q, s_h = _run_block(runner, h_q, s_h, info)
-        elif kind == "deconv":
-            h_q, s_h = runner.unwrap(h_q, s_h)
-            name, k = info["name"], info["kernel"]
-            if q is None:
-                h_q, s_h = runner.qchain(h_q, s_h, name, deconv=True)
-                continue
-            n, hh, ww, c = h_q.shape
-            is_last = name == f"deconv{num_deconvs - 1}"
-            if (jns_head == "phase" and k == 4
-                    and name == f"deconv{num_deconvs - 2}" and "phase_tail2" in q):
-                # deconv1 + deconv2 + head: the B1 kernel; heatmaps come out
-                # in the levels=2 packing
-                return _pt.fused_phase_tail2(h_q.reshape(n, hh * ww, c),
-                                             q["phase_tail2"], h=hh, w=ww)
-            if jns_head == "phase" and is_last and k == 4:
-                if phase_kernel:
-                    # last deconv + head: the B5 kernel, levels=1 packing
-                    return _pt.fused_phase_tail(h_q.reshape(n, hh * ww, c),
-                                                q["phase_tail"], h=hh, w=ww)
-                # the same in plain PyTorch: four phase convs whose groups
-                # flow straight into the head (no depth-to-space)
-                h_q, s_h = runner.subpixel_phases(h_q, s_h, name)
-            elif k == 4 and _subpixel_wants(subpixel_deconvs, name):
-                if phase_kernel and f"subpix_{name}" in q:
-                    x3 = h_q.reshape(n, hh * ww, c)
-                    if _pt.SUBPIX_BATCHED:
-                        z = _pt.fused_subpixel_deconv_batched(
-                            x3, q[f"subpix_{name}"], h=hh, w=ww)
-                        h_q = _pt.subpixel_interleave_packed_nmajor(z).contiguous()
+    # each stage of the trunk in one span: the stem, layer1-4, the deconvs
+    # before the tail, and the tail (from the deconv where a phase tail
+    # starts, else the head alone)
+    tail_from = num_deconvs
+    if q is not None and jns_head == "phase":
+        tail_from = num_deconvs - (2 if "phase_tail2" in q else 1)
+
+    def stage(entry):
+        kind, info = entry
+        if kind == "block":
+            return info["name"].split("_")[0]
+        if kind == "deconv" and int(info["name"][len("deconv"):]) < tail_from:
+            return info["name"]
+        return "stem" if kind == "stem" else "tail"
+
+    for stage_name, entries in itertools.groupby(plan, key=stage):
+        with span(f"trunk.{stage_name}"):
+            for kind, info in entries:
+                if kind == "stem":
+                    if q is not None and stem_s2d:
+                        h_q, s_h = runner.qchain(h_q, s_h, "stem", s2d=stem_s2d)
                     else:
-                        z = _pt.fused_subpixel_deconv(
-                            x3, q[f"subpix_{name}"], h=hh, w=ww)
-                        h_q = _pt.subpixel_interleave_packed(z).contiguous()
-                    s_h = q["act_scales"][f"{name}.out"]
+                        h_q, s_h = runner.qchain(h_q, s_h, "stem", stride=2)
+                    # max-pool commutes with the (positive-scale) quantization
+                    h_q = runner.max_pool(h_q)
+                elif kind == "block":
+                    # a nibble-packed boundary unpacks here, at its consumers
+                    h_q, s_h = runner.unwrap(h_q, s_h)
+                    h_q, s_h = _run_block(runner, h_q, s_h, info)
+                elif kind == "deconv":
+                    h_q, s_h = runner.unwrap(h_q, s_h)
+                    name, k = info["name"], info["kernel"]
+                    if q is None:
+                        h_q, s_h = runner.qchain(h_q, s_h, name, deconv=True)
+                        continue
+                    n, hh, ww, c = h_q.shape
+                    is_last = name == f"deconv{num_deconvs - 1}"
+                    if (jns_head == "phase" and k == 4
+                            and name == f"deconv{num_deconvs - 2}" and "phase_tail2" in q):
+                        # deconv1 + deconv2 + head: the B1 kernel; heatmaps come out
+                        # in the levels=2 packing
+                        return _pt.fused_phase_tail2(h_q.reshape(n, hh * ww, c),
+                                                     q["phase_tail2"], h=hh, w=ww)
+                    if jns_head == "phase" and is_last and k == 4:
+                        if phase_kernel:
+                            # last deconv + head: the B5 kernel, levels=1 packing
+                            return _pt.fused_phase_tail(h_q.reshape(n, hh * ww, c),
+                                                        q["phase_tail"], h=hh, w=ww)
+                        # the same in plain PyTorch: four phase convs whose groups
+                        # flow straight into the head (no depth-to-space)
+                        h_q, s_h = runner.subpixel_phases(h_q, s_h, name)
+                    elif k == 4 and _subpixel_wants(subpixel_deconvs, name):
+                        if phase_kernel and f"subpix_{name}" in q:
+                            x3 = h_q.reshape(n, hh * ww, c)
+                            if _pt.SUBPIX_BATCHED:
+                                z = _pt.fused_subpixel_deconv_batched(
+                                    x3, q[f"subpix_{name}"], h=hh, w=ww)
+                                h_q = _pt.subpixel_interleave_packed_nmajor(z).contiguous()
+                            else:
+                                z = _pt.fused_subpixel_deconv(
+                                    x3, q[f"subpix_{name}"], h=hh, w=ww)
+                                h_q = _pt.subpixel_interleave_packed(z).contiguous()
+                            s_h = q["act_scales"][f"{name}.out"]
+                        else:
+                            h_q, s_h = runner.qchain(h_q, s_h, name, subpixel=True)
+                    else:
+                        h_q, s_h = runner.qchain(h_q, s_h, name, dilated=True)
+                elif q is None or not jns_head:  # final 1x1 head, row-major [N, h, w, J]
+                    h_q = runner.conv_f32(h_q, s_h, "final")
+                elif jns_head == "phase":  # over subpixel_phases' groups
+                    h_q = runner.final_phase(h_q, s_h)
                 else:
-                    h_q, s_h = runner.qchain(h_q, s_h, name, subpixel=True)
-            else:
-                h_q, s_h = runner.qchain(h_q, s_h, name, dilated=True)
-        elif q is None or not jns_head:  # final 1x1 head, row-major [N, h, w, J]
-            h_q = runner.conv_f32(h_q, s_h, "final")
-        elif jns_head == "phase":  # over subpixel_phases' groups
-            h_q = runner.final_phase(h_q, s_h)
-        else:
-            h_q = runner.final_jns(
-                h_q, s_h, torch.bfloat16 if jns_head == "bf16" else torch.float32)
+                    h_q = runner.final_jns(
+                        h_q, s_h, torch.bfloat16 if jns_head == "bf16" else torch.float32)
     return h_q
 
 

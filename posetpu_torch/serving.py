@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from posetpu_torch import resolve_device
+from posetpu_torch.utils.profiling import span
 
 
 class ServingPipeline(NamedTuple):
@@ -169,35 +170,38 @@ def build_serving_pipeline(cfg, model, calib_batches, *, flip_test=False,
 
     @torch.no_grad()
     def infer(params, x, center, scale, is_h36m):
-        u8_quant = make_u8_quant(params["q"], mean, std)
-        if flip_test is True:
-            x = torch.cat([x, mirror_s2d_hwcn(x)], dim=3)
-        # premirrored: x arrives [H/2, W/2, 12, 2*N*V], mirrored by prepare
-        flat = x.permute(3, 0, 1, 2)  # [N*V, H/2, W/2, 12]: bytes already N-minor
-        hm = qfwd(params["q"], u8_quant(flat).contiguous())  # [J, N*V(*2), S] packed
-        if flip_test:
-            hm, hm_f = hm.split(hm.shape[1] // 2, dim=1)
-            hm = flip_test_merge_packed(hm, hm_f, pairs, (hm_h, hm_w),
-                                        levels=tables["levels"])
-        n = hm.shape[1] // views
-        raw = hm.reshape(hm.shape[0], n, views, hm.shape[-1])
-        if params["qagg"] is not None:
-            fused = aggregate(params["qagg"], raw)
-            out = fuse_routing_jns(raw, fused, is_h36m)
-        else:
+        with span("serve.infer"):
+            if flip_test is True:
+                x = torch.cat([x, mirror_s2d_hwcn(x)], dim=3)
+            # premirrored: x arrives [H/2, W/2, 12, 2*N*V], mirrored by prepare
+            flat = x.permute(3, 0, 1, 2)  # [N*V, H/2, W/2, 12]: bytes already N-minor
+            with span("serve.u8_affine"):
+                x_q = make_u8_quant(params["q"], mean, std)(flat).contiguous()
+            hm = qfwd(params["q"], x_q)  # [J, N*V(*2), S] packed
+            if flip_test:
+                hm, hm_f = hm.split(hm.shape[1] // 2, dim=1)
+                hm = flip_test_merge_packed(hm, hm_f, pairs, (hm_h, hm_w),
+                                            levels=tables["levels"])
+            n = hm.shape[1] // views
+            raw = hm.reshape(hm.shape[0], n, views, hm.shape[-1])
             out = raw
-        return final_preds_packed(out, center, scale, (hm_h, hm_w), tables)
+            if params["qagg"] is not None:
+                with span("serve.fuse"):
+                    out = fuse_routing_jns(raw, aggregate(params["qagg"], raw), is_h36m)
+            with span("serve.decode"):
+                return final_preds_packed(out, center, scale, (hm_h, hm_w), tables)
 
     def prepare(images: np.ndarray) -> torch.Tensor:
         # pack on the device: for 128 images at 256^2 the strided 25 MB
         # transpose took 180 ms in numpy on an H100 machine's host and 4 ms
         # (upload included) on the card (chip_smoke.py, PERF.md)
         n, v, h, w, c = images.shape
-        packed = pack_hwcn(torch.from_numpy(images.reshape(n * v, h, w, c)).to(dev))
-        if flip_test == "premirrored":
-            # the mirrored half rides in the upper batch-minor indices
-            packed = torch.cat([packed, mirror_s2d_hwcn(packed)], dim=3)
-        return packed
+        with span("serve.prepare", bytes=images.nbytes):
+            packed = pack_hwcn(torch.from_numpy(images.reshape(n * v, h, w, c)).to(dev))
+            if flip_test == "premirrored":
+                # the mirrored half rides in the upper batch-minor indices
+                packed = torch.cat([packed, mirror_s2d_hwcn(packed)], dim=3)
+            return packed
 
     return ServingPipeline(infer=infer, params=params, prepare=prepare,
                            views=views, flip_test=flip_test)

@@ -30,6 +30,7 @@ from posetpu_torch.parallel.batchnorm import sync_batch_stats
 from posetpu_torch.parallel.mesh import all_reduce_grads, check_mesh, gather_rows
 from posetpu_torch.train.state import TrainState
 from posetpu_torch.utils.gradients import grad_norms_wrt_heatmaps
+from posetpu_torch.utils.profiling import span
 
 
 def _integral_joints_image_coords(output, center, scale, heatmap_size):
@@ -152,22 +153,29 @@ def make_train_step(model, cfg, tx, mesh=None, device=None) -> Callable:
         return grad_norms_wrt_heatmaps(terms, raw)
 
     def train_step(state: TrainState, batch):
-        net = state.params
-        net.train()
-        net.zero_grad(set_to_none=True)
-        raw, fused, b = forward(net, _on(batch, dev))
-        loss, output, raw, metrics = loss_fn(raw, fused, b)
-        loss.backward()
-        if mesh is not None:
-            all_reduce_grads(net, mesh)
-        if watch_grad:
-            for k, v in grad_norm_probe(net, raw, b).items():
-                metrics[f"grad_norm_{k}"] = v
-        tx.update(net, state.opt_state)
-        metrics = {k: v.detach() for k, v in metrics.items()}
-        with torch.no_grad():
-            metrics["acc"] = _acc(output, b["target"])
-        return dataclasses.replace(state, step=state.step + 1), metrics
+        with span("train.step"):
+            net = state.params
+            net.train()
+            net.zero_grad(set_to_none=True)
+            with span("train.forward"):
+                raw, fused, b = forward(net, _on(batch, dev))
+            with span("train.loss"):
+                loss, output, raw, metrics = loss_fn(raw, fused, b)
+            with span("train.backward"):
+                loss.backward()
+            if mesh is not None:
+                with span("train.all_reduce"):
+                    all_reduce_grads(net, mesh)
+            if watch_grad:
+                with span("train.grad_probe"):
+                    for k, v in grad_norm_probe(net, raw, b).items():
+                        metrics[f"grad_norm_{k}"] = v
+            with span("train.optimizer"):
+                tx.update(net, state.opt_state)
+            with span("train.metrics"), torch.no_grad():
+                metrics = {k: v.detach() for k, v in metrics.items()}
+                metrics["acc"] = _acc(output, b["target"])
+            return dataclasses.replace(state, step=state.step + 1), metrics
 
     return train_step
 
