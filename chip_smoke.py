@@ -62,8 +62,8 @@ Phases, each of which fails the run on its own:
      ``flip_test_merge_jns``, the per-pair int8 bank
      (``quantize_aggregation`` + ``aggregation_int8_apply_jns``),
      ``fuse_routing_jns``, ``final_preds_jns`` and triangulation, 32 groups,
-     8 timed requests: B7; its profiled request must show B7 once and no
-     other hand kernel;
+     8 timed requests: B7; its profiled request must show B7 once, the
+     trunk's requantize kernel 56 times and no other hand kernel;
    - one request of path 1 through ``build_serving_pipeline(aggre_kernel=
      False)`` (the plain aggregation, ``torch._int_mm`` on gathered
      operands, no B3 launch) on path 1's params and input: preds and maxvals
@@ -208,7 +208,12 @@ Phases, each of which fails the run on its own:
    (the kernels line carries each call's case, with its design, and their
    sum); B8b on path 5c's 12 inputs, equal to its plain version and to
    B8a's output, each line with the block its planner chose, then per
-   layer B8b's, B8a's and the yardstick's ms on the same inputs;
+   layer B8b's, B8a's and the yardstick's ms on the same inputs; the int8
+   trunk's requantize (``ops/requant.requant``) on the first call of each of
+   the 16 distinct sites (rows, channels, form, bits) of path 1's request,
+   its time and its bound (5 bytes an element, 6 with a residual, at 3.35
+   TB/s) each counted as often as the request has the site (53 in all), no
+   yardstick;
 5. card vs CPU on one group through the same port on ``device="cpu"`` with
    the same params, for path 1 and path 2 (the s4 bank): maxvals equal,
    preds within atol 1e-4 (the inverse affine's tiny matmul may round
@@ -329,6 +334,7 @@ MESH_FAMILIES = {"NCCL collectives": ("nccl", "Nccl"), **TRAIN_FAMILIES,
 # named "...cudnn...fprop..." or "..._fprop_implicit_gemm_..."), then
 # cuBLAS's other GEMMs; the first match counts
 PATH11_FAMILIES = {"decode (B7)": ("decode_kernel",),
+                   "int8 trunk requantize": ("requant_kernel",),
                    "int8 GEMMs (torch._int_mm)": ("gemm_s8", "igemm", "imma"),
                    "convolutions (cuDNN)": ("cudnn", "fprop", "dgrad", "implicit_gemm"),
                    "BatchNorm": ("batch_norm", "bn_"),
@@ -480,6 +486,7 @@ def profile_request(fn, families=None) -> dict:
                                                          "aggregation_w4_kernel",
                                                          "quantize_kernel"),
                 "decode (B7)": ("decode_kernel",),
+                "trunk requantize": ("requant_kernel",),
                 "bottleneck (B8a, B8b)": ("bottleneck_rows_kernel", "bottleneck_v2_kernel"),
                 "f32 convolutions and GEMMs (float path)": (
                     "cudnn", "conv", "sgemm", "gemv", "f32f32", "fft",
@@ -1345,8 +1352,9 @@ def path11(tmp: str, final_state: str, dev, reset_counts, read_counts, card: str
       and fuse routing on).
 
     Each run's main path must launch B7 once a validate batch and no other
-    hand kernel. Returns its lines, B7's input on one int8 validate batch,
-    B7's launches and what the card-vs-CPU checks take."""
+    hand kernel but the int8 trunk's requantize. Returns its lines, B7's
+    input on one int8 validate batch, B7's launches and what the card-vs-CPU
+    checks take."""
     import torch
 
     from posetpu_torch.cli import common
@@ -2544,6 +2552,7 @@ def main() -> int:
     from posetpu_torch.ops import decode as dec
     from posetpu_torch.ops import deconv as dcv
     from posetpu_torch.ops import phase_tail as pt
+    from posetpu_torch.ops import requant as rq
     from posetpu_torch.ops import resblock as rb
     from posetpu_torch.ops.heatmap import decode_heatmaps, phase_index_tables
     from posetpu_torch.serving import (
@@ -2729,6 +2738,7 @@ def main() -> int:
         rest; the launch counts of this path alone."""
         for name in wrappers:
             wrapper(name).launches = 0
+        rq.requant.launches = 0
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         times = []
@@ -2738,7 +2748,10 @@ def main() -> int:
             preds, maxvals, pts3d = serve(make_x())
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t)
-        counts = {name: wrapper(name).launches for name in wrappers}
+        # the trunk's requantize beside the kernels; it joins ``wrappers``
+        # only for phase 4, since paths 9-12 count the kernels alone
+        counts = {name: wrapper(name).launches for name in wrappers} | {
+            "requant": rq.requant.launches}
         launches_by_path[label] = counts
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         for name in expect:
@@ -2768,6 +2781,9 @@ def main() -> int:
          "quantize_heatmaps"])
     check(launches_by_path["path 2 (premirrored flip, s4 bank)"]["quantize_heatmaps"] == 9,
           "path 2: the quantize kernel is not launched once a request")
+    for label in ("path 1 (defaults)", "path 2 (premirrored flip, s4 bank)"):
+        check(launches_by_path[label]["requant"] == 53 * 9,  # the trunk's 53 sites
+              f"{label}: {launches_by_path[label]['requant']} requantize launches in 9 requests")
     pt.SUBPIX_BATCHED = False
     try:
         drive("path 3 (one-level tail, per-pair deconv0)", serve3,
@@ -2785,8 +2801,10 @@ def main() -> int:
     drive(PATH5A, serve5(fwd5a, p5a), make_x5, GROUPS, 9, tail5)
     drive(PATH5B, serve5(fwd5b, p5b), make_x5, GROUPS, 9, ["fused_bottleneck"] + tail5)
     per_forward = {k: v / 9 for k, v in launches_by_path[PATH5B].items() if v}
+    # the requantize: the stem and the three stride-2 blocks' four sites
     check(per_forward == {"fused_bottleneck": 13, "deconv.fused_subpixel_deconv": 2,
-                          "fused_subpixel_deconv_head": 1, "decode_heatmaps_kernel": 1},
+                          "fused_subpixel_deconv_head": 1, "decode_heatmaps_kernel": 1,
+                          "requant": 13},
           f"{PATH5B}: launches per forward {per_forward}")
     with identity_blocks_through_v2():
         drive(PATH5C, serve5(fwd5b, p5b), make_x5, GROUPS, 3,
@@ -2796,7 +2814,8 @@ def main() -> int:
     drive("path 5's input through the int8 runner's forward (no fused kernel)",
           serve5(fwd5, q5), make_x5, GROUPS, 3, ["decode_heatmaps_kernel"])
     drive(PATH6, serve6, prepare6, GROUPS, 9, ["decode_heatmaps_kernel"])
-    check(launches_by_path[PATH6]["decode_heatmaps_kernel"] == 9,
+    check(launches_by_path[PATH6]["decode_heatmaps_kernel"] == 9
+          and launches_by_path[PATH6]["requant"] == 56 * 9,
           f"{PATH6}: launches {launches_by_path[PATH6]}")
 
     # the fused forwards against the runner's forward on the card. The
@@ -2896,8 +2915,14 @@ def main() -> int:
             v2 = sum(v for k, v in hand.items() if k.startswith("bottleneck_v2_kernel"))
             rows = sum(v for k, v in hand.items() if k.startswith("bottleneck_rows_kernel"))
             check(v2 == 12 and rows == 1, f"path 5c: hand kernel launches {hand}")
-        if label == "path 6":  # B7 decodes the S-minor maps in place, once
-            check(hand == {"decode_kernel": 1}, f"path 6: hand kernel launches {hand}")
+        requant = sum(v for k, v in hand.items() if k.startswith("requant_kernel"))
+        if label in ("path 1", "path 2"):  # the trunk's 53 requantize sites, once each
+            check(requant == 53, f"{label}: {requant} requant_kernel launches")
+        if label == "path 6":  # B7 decodes the S-minor maps in place, once; the trunk's
+            # 53 requantize sites and the three dilated deconvs' through requant_kernel
+            others = {k: v for k, v in hand.items() if not k.startswith("requant_kernel")}
+            check(others == {"decode_kernel": 1} and requant == 56,
+                  f"path 6: hand kernel launches {hand}")
 
     # path 7: the bf16 training step at full width, chained through its state
     cfg7 = train_config(50, 256, 64)
@@ -3048,12 +3073,26 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # one more request per path to take each kernel's inputs for phase 4 (the
-    # callers look the kernels up on their modules at call time)
-    with capture_first_calls([(pt, "fused_subpixel_deconv_batched"),
-                              (pt, "fused_phase_tail2"),
-                              (agg, "aggregation_grouped"),
-                              (agg, "quantize_heatmaps")]) as seen:
-        serve_with(pipe)(pipe.prepare(images))
+    # callers look the kernels up on their modules at call time); of the
+    # requantize, the first call of each distinct site (rows, channels,
+    # form, hi) and the number of sites of its kind
+    requant_sites, rq_requant = {}, rq.requant
+
+    def first_of_each_site(acc, *a, **kw):
+        form = "tail" if kw.get("residual") is not None else "relu" if a[4] else "linear"
+        requant_sites.setdefault((*acc.shape, form, a[3]), [(acc, *a), kw, 0])[2] += 1
+        return rq_requant(acc, *a, **kw)
+    first_of_each_site.launches = 0  # the wrapper counts on this name meanwhile
+    rq.requant = first_of_each_site
+    try:
+        with capture_first_calls([(pt, "fused_subpixel_deconv_batched"),
+                                  (pt, "fused_phase_tail2"),
+                                  (agg, "aggregation_grouped"),
+                                  (agg, "quantize_heatmaps")]) as seen:
+            serve_with(pipe)(pipe.prepare(images))
+    finally:
+        rq.requant = rq_requant
+    del rq_requant
     with capture_first_calls([(agg, "aggregation_grouped_s4"),
                               (pt, "fused_subpixel_deconv_batched")]) as seen2:
         serve_with(pipe_pre)(pipe_pre.prepare(images))
@@ -3073,6 +3112,9 @@ def main() -> int:
                            for k in seen5} | {"fused_bottleneck_v2"}
     check(reached == set(wrappers), f"kernels not reached on their paths: "
           f"{set(wrappers) - reached}")
+    check(len(requant_sites) == 16 and sum(s[2] for s in requant_sites.values()) == 53,
+          f"path 1: requantize sites {[(k, s[2]) for k, s in requant_sites.items()]}")
+    wrappers["requant"] = rq
     check([len(seen5[k]) for k in ("fused_bottleneck", "fused_subpixel_deconv",
                                    "fused_subpixel_deconv_head")] == [13, 2, 1],
           "path 5b: calls per forward")
@@ -3088,18 +3130,20 @@ def main() -> int:
             "fused_subpixel_deconv": "path 3 (one-level tail, per-pair deconv0)",
             "decode_heatmaps_kernel": "path 4 (float, flip test)",
             "fused_bottleneck": PATH5B, "fused_bottleneck_v2": PATH5C,
-            "deconv.fused_subpixel_deconv": PATH5B, "fused_subpixel_deconv_head": PATH5B}
+            "deconv.fused_subpixel_deconv": PATH5B, "fused_subpixel_deconv_head": PATH5B,
+            "requant": "path 1 (defaults)"}
 
     def as_tuple(out):
         return out if isinstance(out, tuple) else (out,)
 
     def compare_cases(name, source, replaces, plain, cases, library=None,
                       peak_ops=PEAK_INT8_OPS, also=None, headline=None, note=None,
-                      extra=None):
+                      extra=None, weights=None):
         """One kernel on each of ``cases`` [(tag, args, kw, operations,
         bytes)]: equal to its plain version on every one. Its time, the plain
         version's and the bound are sums over the cases (one forward's
-        worth), or those of case number ``headline`` alone. ``library``: one
+        worth), each case ``weights[i]`` times where given, or those of case
+        number ``headline`` alone. ``library``: one
         yardstick call, or {tag: call} with one per case.
         ``also(tag, out, args, kw)``: a further check of the output;
         ``note(args, kw)``: more to say on a case's line."""
@@ -3124,10 +3168,13 @@ def main() -> int:
                     "bound_ms": b_ms, "bound_by": b_by}
             if isinstance(library, dict):
                 case["library_ms"] = cuda_ms(library[tag])
+            if weights is not None:
+                case["sites"] = weights[len(per_case)]
             if headline is None or headline == len(per_case):
-                total["ms"] += ms
-                total["plain_ms"] += plain_ms
-                total[b_by] += b_ms
+                w = case.get("sites", 1)
+                total["ms"] += w * ms
+                total["plain_ms"] += w * plain_ms
+                total[b_by] += w * b_ms
             per_case.append(case)
             if len(cases) > 1:
                 log(f"kernel {name}{tag}: equal to plain, {ms:.4f} ms (plain "
@@ -3521,6 +3568,18 @@ def main() -> int:
         f"({x9.shape[0]} images) {results[-1]['ms']:.4f} ms | {card}")
     del z9, cases9a
     del seen5, block_cases
+
+    # the int8 trunk's requantize at the 16 distinct sites of a path-1
+    # request, each counted as often as the request has it: 5 bytes an
+    # element, 6 with a residual (the sums read, the residual read, the int8
+    # written); no library kernel does this work
+    rq_cases = [(f" {m} x {c} {form} hi {hi} (x{n})", args, kw, 0,
+                 m * c * (6 if form == "tail" else 5))
+                for (m, c, form, hi), (args, kw, n) in requant_sites.items()]
+    compare_cases("requant", "posetpu_torch/csrc/requant.cu",
+                  "none: XLA fuses the requantize into each convolution", rq.requant_plain,
+                  rq_cases, weights=[n for _, _, n in requant_sites.values()])
+    del rq_cases, requant_sites
 
     # ------------------------------------------------------------ 5. card vs CPU
     one = images[:1]

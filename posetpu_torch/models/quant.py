@@ -55,6 +55,7 @@ from posetpu_torch.models.multiview import SRC_VIEW
 from posetpu_torch.models.pose_resnet import RESNET_SPEC
 from posetpu_torch.ops import deconv as _dc
 from posetpu_torch.ops import phase_tail as _pt
+from posetpu_torch.ops import requant as _rq
 from posetpu_torch.ops import resblock as _rb
 from posetpu_torch.ops.int_mm import int_mm
 from posetpu_torch.utils.profiling import span
@@ -300,15 +301,29 @@ def _im2col(x, kh, kw, stride, pad):
 
 
 def _conv_int8(x, wq, stride=1, padding=None):
-    """Exact int8 conv: int8 NHWC x HWIO int8 kernel -> int32 NHWC."""
+    """Exact int8 conv: int8 NHWC x HWIO int8 kernel -> (int32 sums
+    [N*Ho*Wo, O], (N, Ho, Wo)). The sums may be a column slice of a padded
+    GEMM output (ops/int_mm.py), which :func:`_requant` reads in place."""
     kh, kw, cin, cout = wq.shape
     if padding is None:
         p = (kh - 1) // 2
         padding = ((p, p), (p, p))
-    cols, (n, ho, wo) = _im2col(x, kh, kw, stride, padding)
+    cols, shape = _im2col(x, kh, kw, stride, padding)
     with span("quant.int_mm", macs=cols.shape[0] * cols.shape[1] * cout):
-        y = int_mm(cols, wq.reshape(kh * kw * cin, cout))
-    return y.reshape(n, ho, wo, cout)
+        return int_mm(cols, wq.reshape(kh * kw * cin, cout)), shape
+
+
+def _requant(acc, s_h, ws, bias, scale, hi=127, relu=True, residual=None, r_scale=None):
+    """One requantize site: int32 sums acc [M, C] -> int8 [M, C] at
+    ``scale`` (``hi`` 7 at a 4-bit boundary), with the block's int8
+    ``residual`` [M, C] at ``r_scale`` at a block's tail (ops/requant.py:
+    one kernel launch on the card). Its span counts the bytes the site reads
+    (the sums, the residual) and writes."""
+    m, c = acc.shape
+    with span("quant.requant", bytes=m * c * (6 if residual is not None else 5)):
+        # PyTorch's 1.0 / scale is reciprocal(scale) * 1.0: the same f32, one launch fewer
+        return _rq.requant(acc, s_h * ws, bias, torch.reciprocal(scale), hi, relu,
+                           residual=residual, r_scale=r_scale)
 
 
 def _max_pool_3x3_s2(x, fill):
@@ -364,6 +379,11 @@ class _Recorder:
         w, b = self.folded[name]
         return _conv_f32(h, w, stride=stride) + b
 
+    def block_out(self, m, s_m, conv, r, r_s, name):
+        """A block's last conv ``conv`` on m, the residual r added, ReLU,
+        recorded at the block's boundary ``name``."""
+        return self.requant(torch.relu(self.conv_f32(m, s_m, conv) + self.dequant(r, r_s)), name)
+
     def max_pool(self, h):
         return _max_pool_3x3_s2(h, float("-inf"))
 
@@ -399,8 +419,9 @@ class _Int8Runner:
     """int8-mode executor. Every tensor between convs (block outputs,
     intra-block activations, branch outputs) is int8 with a calibrated
     scale; dequantize -> affine -> ReLU -> requantize happen in f32 on each
-    conv's int32 output. Every site runs as an exact int8 GEMM, so the
-    runner takes no :func:`conv_dtype_policy`.
+    conv's int32 output, with a block's residual add at its last conv
+    (:func:`_requant`: one kernel launch a site on the card). Every site runs
+    as an exact int8 GEMM, so the runner takes no :func:`conv_dtype_policy`.
 
     ``act4``: boundary names (e.g. "layer1_0.out") stored at 4 bits: the
     same calibrated amax over 7 steps instead of 127. ``act4_mode="s4"``
@@ -445,12 +466,8 @@ class _Int8Runner:
         if subpixel:
             # the padded [2, 2, I, 4*O] phase conv; requantize BEFORE the
             # depth-to-space, so the interleave moves int8 bytes
-            z = _conv_int8(h_q, wq, 1, ((1, 1), (1, 1)))  # [N, H+1, W+1, 4*O]
-            with span("quant.requant"):
-                zf = z.float() * (s_h * ws) + b.repeat(4)
-                if relu:
-                    zf = torch.relu(zf)
-                zq = self._quant(zf, s_out)
+            z, shape = _conv_int8(h_q, wq, 1, ((1, 1), (1, 1)))  # [N*(H+1)*(W+1), 4*O]
+            zq = _requant(z, s_h, ws, b.repeat(4), s_out, relu=relu).reshape(*shape, -1)
             return _subpixel_interleave(zq, h_q.shape[1], h_q.shape[2]), s_out
         if dilated:
             # a stride-2 deconv as the input-dilated stride-1 conv with the
@@ -459,25 +476,39 @@ class _Int8Runner:
             p, opad = _DECONV_PAD[k]
             pad = k - 1 - p
             h_q, padding = _dilate2(h_q), ((pad, pad + opad), (pad, pad + opad))
-        y = _conv_int8(h_q, wq, stride, padding)
-        with span("quant.requant"):
-            y = y.float() * (s_h * ws) + b
-            if relu:
-                y = torch.relu(y)
-            if f"{name}.out" in self.act4:
-                # intra-block 4-bit boundary: int8 values in either mode (nibble
-                # packing is not plumbed through conv consumers, as in the JAX
-                # package)
-                s4 = s_out * (127.0 / 7.0)
-                return torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8), s4
-            return self._quant(y, s_out), s_out
+        y, shape = _conv_int8(h_q, wq, stride, padding)
+        # an intra-block 4-bit boundary stays int8 values in either act4 mode
+        # (nibble packing is not plumbed through conv consumers, as in the JAX
+        # package)
+        s_out, hi = self._boundary(f"{name}.out")
+        return _requant(y, s_h, ws, b, s_out, hi, relu).reshape(*shape, -1), s_out
+
+    def _boundary(self, name):
+        """(scale, hi) of the boundary ``name``: its calibrated scale and
+        127 steps, or at a 4-bit boundary the same amax over 7."""
+        s = self.q["act_scales"][name]
+        if name in self.act4:
+            return s * (127.0 / 7.0), 7
+        return s, 127
 
     def conv_f32(self, h_q, s_h, name, stride=1):
+        """The row-major head: int8 -> f32 [N, h, w, J], a plain epilogue."""
         ws = self.q["w_scales"][name]
         b = self.q["biases"][name]
-        y = _conv_int8(h_q, self.q["weights"][name], stride)
-        with span("quant.requant"):
-            return y.float() * (s_h * ws) + b
+        y, shape = _conv_int8(h_q, self.q["weights"][name], stride)
+        with span("quant.requant", bytes=y.numel() * 8):
+            return y.reshape(*shape, -1).float() * (s_h * ws) + b
+
+    def block_out(self, m_q, s_m, conv, r_q, r_s, name):
+        """A block's last conv ``conv`` on m_q, the residual r_q at r_s
+        added, ReLU, requantized to the boundary ``name``: one site."""
+        acc, shape = _conv_int8(m_q, self.q["weights"][conv])
+        s, hi = self._boundary(name)
+        q = _requant(acc, s_m, self.q["w_scales"][conv], self.q["biases"][conv], s, hi,
+                     residual=r_q.reshape(acc.shape), r_scale=r_s).reshape(*shape, -1)
+        if hi == 7 and self.act4_mode == "packed":
+            q = pack_nibbles(q)
+        return q, s
 
     def final_jns(self, h_q, s_h, dtype=torch.float32):
         """The 1x1 head in the S-minor layout: h_q [N, H, W, C] int8 ->
@@ -503,9 +534,8 @@ class _Int8Runner:
         zs = []
         for a in range(2):
             for bb in range(2):
-                z = _conv_int8(h_q, wq[a::2, bb::2], 1, ((1 - a, a), (1 - bb, bb)))
-                zf = z.float() * (s_h * ws) + b
-                zs.append(self._quant(torch.relu(zf), s_out))
+                z, shape = _conv_int8(h_q, wq[a::2, bb::2], 1, ((1 - a, a), (1 - bb, bb)))
+                zs.append(_requant(z, s_h, ws, b, s_out).reshape(*shape, -1))
         return tuple(zs), s_out
 
     def final_phase(self, zs, s_z):
@@ -527,18 +557,6 @@ class _Int8Runner:
     def max_pool(self, h_q):
         return _max_pool_3x3_s2(h_q, -128)
 
-    def dequant(self, h_q, s_h):
-        return h_q.float() * s_h
-
-    def requant(self, y, name):
-        s = self.q["act_scales"][name]
-        with span("quant.requant"):
-            if name in self.act4:
-                s4 = s * (127.0 / 7.0)
-                q4 = torch.clamp(torch.round(y * (1.0 / s4)), -7, 7).to(torch.int8)
-                return (q4 if self.act4_mode == "s4" else pack_nibbles(q4)), s4
-            return self._quant(y, s), s
-
     def unwrap(self, h_q, s_h):
         """Undo a nibble-packed boundary at its consumer; int8 passes through."""
         if h_q.dtype == torch.uint8:
@@ -552,18 +570,16 @@ def _run_block(runner, h_q, s_h, info):
     if info["kind"] == "bottleneck":
         m, s_m = runner.qchain(h_q, s_h, f"{name}.conv1")
         m, s_m = runner.qchain(m, s_m, f"{name}.conv2", stride=info["stride"])
-        y = runner.conv_f32(m, s_m, f"{name}.conv3")
+        last = f"{name}.conv3"
     else:
         m, s_m = runner.qchain(h_q, s_h, f"{name}.conv1", stride=info["stride"])
-        y = runner.conv_f32(m, s_m, f"{name}.conv2")
+        last = f"{name}.conv2"
     if info["downsample"]:
         r_q, r_s = runner.qchain(h_q, s_h, f"{name}.downsample",
                                  stride=info["stride"], relu=False)
     else:
         r_q, r_s = h_q, s_h
-    with span("quant.requant"):  # the residual add
-        out = torch.relu(y + runner.dequant(r_q, r_s))
-    return runner.requant(out, f"{name}.out")
+    return runner.block_out(m, s_m, last, r_q, r_s, f"{name}.out")
 
 
 def _forward(runner, x, num_layers, deconv_kernels, subpixel_deconvs=False,

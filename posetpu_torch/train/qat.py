@@ -123,6 +123,9 @@ class _FakeQuantRunner:
         w, b = self.p[name]
         return _conv_f32(h, self._fq_w(w), stride=stride) + b
 
+    def block_out(self, m, s_m, conv, r, r_s, name):
+        return self.requant(torch.relu(self.conv_f32(m, s_m, conv) + self.dequant(r, r_s)), name)
+
     def max_pool(self, h):
         # PyTorch's pooling sends the gradient to the first maximum of a
         # window, as XLA's max-pool gradient does (torch.maximum splits ties)

@@ -13,6 +13,7 @@ from posetpu_torch.ops import deconv as tdc
 from posetpu_torch.ops import decode as tdec
 from posetpu_torch.ops import heatmap as thm
 from posetpu_torch.ops import phase_tail as tpt
+from posetpu_torch.ops import requant as trq
 from posetpu_torch.ops import resblock as trb
 
 pytestmark = pytest.mark.gpu
@@ -530,6 +531,157 @@ def test_kernels_refuse_unsupported_shapes(cuda):
             "x_scale": torch.tensor(0.01, device=cuda)}
     with pytest.raises(ValueError):
         tagg.aggregation_grouped(qagg, torch.zeros(2, 2, 4, 40, device=cuda))
+
+
+# the requantize sites of a serving request (ResNet-50 at 256x256, 128
+# images), one case each distinct (rows, channels, form, hi): "relu" a conv
+# epilogue with ReLU, "linear" a downsample's, "tail" a block's tail with
+# its residual (7: a 4-bit boundary at layer1 and layer2)
+REQUANT_SERVING = [(2097152, 64, "relu", 127), (524288, 64, "relu", 127),
+                   (524288, 256, "linear", 127), (524288, 256, "tail", 7),
+                   (524288, 128, "relu", 127), (131072, 128, "relu", 127),
+                   (131072, 512, "linear", 127), (131072, 512, "tail", 7),
+                   (131072, 256, "relu", 127), (32768, 256, "relu", 127),
+                   (32768, 1024, "linear", 127), (32768, 1024, "tail", 127),
+                   (32768, 512, "relu", 127), (8192, 512, "relu", 127),
+                   (8192, 2048, "linear", 127), (8192, 2048, "tail", 127)]
+
+
+def _requant_args(m, c, form, hi, dev, seed, ld=None, r_bits=8):
+    """Sums [m, c] (a column slice of [m, ld] where ld is given), the
+    site's vectors and, at a tail, a residual at ``r_bits``; scaled so the
+    outputs reach past the clamp limits."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    full = torch.randint(-2 ** 21, 2 ** 21, (m, ld or c), generator=gen, dtype=torch.int32,
+                         device=dev)
+    acc = full[:, :c]
+    sv = (torch.rand(c, generator=gen, device=dev) * 1.5 + 0.5) * 2.0 ** -14
+    bias = torch.rand(c, generator=gen, device=dev) * 40 - 20
+    inv = 1.0 / (torch.tensor(0.9, device=dev) * (127.0 / 7.0 if hi == 7 else 1.0))
+    kw = {}
+    if form == "tail":
+        r_hi = 7 if r_bits == 4 else 127
+        kw = {"residual": torch.randint(-r_hi, r_hi + 1, (m, c), generator=gen,
+                                        dtype=torch.int8, device=dev),
+              "r_scale": torch.tensor(0.41 * (127.0 / 7.0 if r_bits == 4 else 1.0),
+                                      device=dev)}
+    return (acc, sv, bias, inv, hi, form != "linear"), kw
+
+
+def _requant_equals_plain(args, kw):
+    before = trq.requant.launches
+    got = trq.requant(*args, **kw)
+    assert trq.requant.launches == before + 1
+    ref = trq.requant_plain(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.int8 and got.is_contiguous()
+    assert torch.equal(got, ref)
+    return ref
+
+
+@pytest.mark.parametrize("m,c,form,hi", REQUANT_SERVING)
+def test_requant_kernel_serving_sites_equal_plain(cuda, m, c, form, hi):
+    args, kw = _requant_args(m, c, form, hi, cuda, seed=m + c)
+    ref = _requant_equals_plain(args, kw)
+    lo = 0 if form != "linear" else -hi
+    assert int(ref.min()) == lo and int(ref.max()) == hi
+
+
+@pytest.mark.parametrize("form,hi,r_bits", [("relu", 127, 8), ("linear", 127, 8),
+                                            ("relu", 7, 8), ("linear", 7, 8),
+                                            ("tail", 127, 8), ("tail", 127, 4),
+                                            ("tail", 7, 8), ("tail", 7, 4)])
+@pytest.mark.parametrize("m,c,ld", [(1, 8, None), (17, 40, None), (17, 40, 64), (33, 24, 32),
+                                    (5, 8, 32), (19, 1032, None), (64, 4 * 48, None)])
+def test_requant_kernel_ragged_shapes_equal_plain(cuda, form, hi, r_bits, m, c, ld):
+    """Every form at ragged shapes: one row, 17 rows, C a multiple of 8 but
+    not of 16 or 128 (a thread's 8 channels, a block's 128 threads), a
+    column slice of a padded torch._int_mm output read in place, and a
+    subpixel site's 4x bias."""
+    args, kw = _requant_args(m, c, form, hi, cuda, seed=7 * m + c, ld=ld, r_bits=r_bits)
+    if c == 4 * 48:  # the subpixel site: the bias repeated over the four phases
+        args = args[:2] + (args[2][:48].repeat(4),) + args[3:]
+    _requant_equals_plain(args, kw)
+
+
+@pytest.mark.parametrize("hi", [127, 7])
+def test_requant_kernel_edge_values(cuda, hi):
+    """Halves that round to even and the clamp limits (sums -132..131 plus
+    0.5 at scale 1); sums near +-2^31 and past 2^24, where int32 -> f32
+    rounds; both with and without a residual."""
+    ties = torch.arange(-132, 132, dtype=torch.int32, device=cuda).reshape(-1, 8)
+    one = torch.tensor(1.0, device=cuda)
+    args = (ties, torch.ones(8, device=cuda), torch.full((8,), 0.5, device=cuda), one, hi,
+            False)
+    got = _requant_equals_plain(args, {})
+    want = torch.clamp(torch.round(ties.double() + 0.5), -hi, hi).to(torch.int8)
+    assert torch.equal(got, want)
+    lim = torch.iinfo(torch.int32)
+    big = torch.cat([torch.arange(lim.max - 63, lim.max + 1, dtype=torch.int64),
+                     torch.arange(lim.min, lim.min + 64, dtype=torch.int64),
+                     2 ** 24 + torch.arange(1, 129, 2), -(2 ** 24) - torch.arange(1, 129, 2)])
+    big = big.to(torch.int32).reshape(-1, 16).to(cuda)
+    sv = torch.full((16,), 2.0 ** -24, device=cuda)
+    bias = torch.linspace(-0.5, 0.5, 16, device=cuda)
+    _requant_equals_plain((big, sv, bias, one, hi, True), {})
+    _requant_equals_plain((big, sv, bias, one, hi, True),
+                          {"residual": torch.full(big.shape, -hi, dtype=torch.int8,
+                                                  device=cuda), "r_scale": one * 0.5})
+
+
+def test_requant_kernel_refuses_what_it_does_not_take(cuda):
+    acc = torch.zeros(4, 8, dtype=torch.int32, device=cuda)
+    sv, bias, one = torch.ones(8, device=cuda), torch.zeros(8, device=cuda), \
+        torch.tensor(1.0, device=cuda)
+    for bad in (acc.float(), acc.t(), acc.reshape(2, 2, 8)):
+        with pytest.raises(ValueError):
+            trq.requant(bad, sv, bias, one)
+    with pytest.raises(ValueError):
+        trq.requant(acc, sv[:4], bias, one)
+    with pytest.raises(ValueError):
+        trq.requant(acc, sv, bias, one, residual=torch.zeros(4, 7, dtype=torch.int8,
+                                                             device=cuda), r_scale=one)
+    # what the kernel's 16- and 8-byte accesses cannot take: C not a
+    # multiple of 8, a row stride not a multiple of 4, sums or a residual
+    # off their alignment
+    wide = torch.zeros(4, 32, dtype=torch.int32, device=cuda)
+    flat = wide.reshape(-1)
+    for bad in (wide[:, :20], flat.as_strided((3, 8), (10, 1)), flat[2:26].reshape(3, 8),
+                flat[1:57].reshape(7, 8)):
+        c = bad.shape[1]
+        with pytest.raises(ValueError, match="requant"):
+            trq.requant(bad, torch.ones(c, device=cuda), torch.zeros(c, device=cuda), one)
+    r8 = torch.zeros(33, dtype=torch.int8, device=cuda)[1:].reshape(4, 8)
+    with pytest.raises(ValueError, match="aligned"):
+        trq.requant(acc, sv, bias, one, residual=r8, r_scale=one)
+
+
+def test_served_request_requant_kernel_equals_plain(cuda, monkeypatch):
+    """One request of the serving model (ResNet-50 at 256x256, 2 groups of
+    4 views, act4 at layer1 and layer2, B2 and B1): the kernel launches 53
+    times (37 conv epilogues, 16 block tails) and the heatmaps equal those
+    of the plain passes on the card bit for bit."""
+    import chip_smoke
+    from posetpu_torch.models import quant as tq
+    from posetpu_torch.models.pose_resnet import PoseResNet
+
+    gen = torch.Generator().manual_seed(20)
+    model = PoseResNet(num_layers=50).eval()
+    chip_smoke.trained_like_(model, gen)
+    act4 = tuple(f"layer1_{i}.out" for i in range(3)) + tuple(
+        f"layer2_{i}.out" for i in range(4))
+    q, fwd = tq.quantize_pose_resnet(model, [torch.randn(8, 256, 256, 3, generator=gen)],
+                                     jns_head="phase", phase_kernel=2, stem_s2d="pre",
+                                     subpixel_deconvs={"deconv0"}, act4=act4,
+                                     act4_mode="s4", device=cuda)
+    x = torch.randint(-127, 128, (8, 128, 128, 12), generator=gen, dtype=torch.int8).to(cuda)
+    before = trq.requant.launches
+    got = fwd(q, x)
+    assert trq.requant.launches == before + 53
+    monkeypatch.setattr(trq, "requant", trq.requant_plain)
+    ref = fwd(q, x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, ref) and float(ref.std()) > 0
 
 
 def _block_args(gen, cin, cm, cout, with_ds, dev):

@@ -106,8 +106,8 @@ class _Logging(tq._Int8Runner):
         self.log["pool"] = super().max_pool(h_q)
         return self.log["pool"]
 
-    def requant(self, y, name):
-        out = super().requant(y, name)
+    def block_out(self, m_q, s_m, conv, r_q, r_s, name):
+        out = super().block_out(m_q, s_m, conv, r_q, r_s, name)
         self.log[name] = out[0]
         return out
 

@@ -138,6 +138,8 @@ def test_act4_carriers_match_jax(rng, act4_mode):
     assert torch.equal(fwd(carried, torch.from_numpy(setup[3])), got)
     # the carrier really is packed: a uint8 boundary of half the channels
     runner = tq._Int8Runner(carried, act4=ACT4, act4_mode="packed")
-    h_q, _ = runner.requant(torch.rand(1, 4, 4, 64), "layer1_0.out")
+    x8 = torch.randint(-127, 128, (1, 4, 4, 64), dtype=torch.int8)
+    s = carried["act_scales"]["layer1_0.conv1.out"]
+    h_q, _ = runner.block_out(x8, s, "layer1_0.conv2", x8, s, "layer1_0.out")
     assert h_q.dtype == torch.uint8 and h_q.shape[-1] == 32
     assert runner.unwrap(h_q, None)[0].shape[-1] == 64

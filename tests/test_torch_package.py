@@ -107,11 +107,12 @@ def test_no_jax_or_reference_package_reference(path):
 
 
 def test_every_kernel_source_has_a_wrapper_module():
-    """Each csrc/*.cu is built by the ops module of the same name; tail2.cu
-    by ops/phase_tail.py, whose launcher its wrappers (B1, B2, B5, B6) and
+    """Each csrc/*.cu is built by the ops module of the same name (requant.cu
+    by ops/requant.py, the int8 trunk's requantize); tail2.cu by
+    ops/phase_tail.py, whose launcher its wrappers (B1, B2, B5, B6) and
     ops/deconv.py's (B9a, B9b) call."""
     sources = sorted(p.stem for p in (PKG / "csrc").glob("*.cu"))
-    assert sources == ["aggregation", "decode", "resblock", "tail2"]
+    assert sources == ["aggregation", "decode", "requant", "resblock", "tail2"]
     for name in sources:
         text = (PKG / "ops" / f"{ {'tail2': 'phase_tail'}.get(name, name)}.py").read_text()
         assert f'_build.load("{name}"' in text, name

@@ -8,7 +8,8 @@
 - on, a request's and a step's spans have the names and parents the
   benchmark's readers look for, every trunk operation under its stage;
 - the im2col spans count the bytes and the int8 GEMM spans the
-  multiply-accumulates that the convolutions' shapes give;
+  multiply-accumulates that the convolutions' shapes give, the requantize
+  spans the bytes they read and write;
 - ``trace`` writes ``trace.json`` and ``spans.json``;
 - device time and idle gaps are put down to the innermost span open when
   the host launched the operation (at the gap's middle), the rest and the
@@ -130,17 +131,18 @@ def _r18_convs():
     """(H, W, C in, kernel, stride, pad, C out) of each int8 GEMM of the
     serving trunk at 64x64, in the order it runs: the space-to-depth stem
     (the 7x7/s2 kernel as 4x4/s1 over 12 channels, padding (2, 1)), then
-    each basic block's conv1, conv2 and downsample."""
+    each basic block's conv1, downsample and conv2 (the last, requantized
+    with the residual)."""
     convs = [(32, 32, 12, 4, 1, (2, 1), 64)]
     h, c = 16, 64
     for planes in (64, 128, 256, 512):
         for b in range(2):
             stride = 2 if (b == 0 and planes != 64) else 1
             convs.append((h, h, c, 3, stride, (1, 1), planes))
-            ho = h // stride
-            convs.append((ho, ho, planes, 3, 1, (1, 1), planes))
             if stride == 2:
                 convs.append((h, h, c, 1, 2, (0, 0), planes))
+            ho = h // stride
+            convs.append((ho, ho, planes, 3, 1, (1, 1), planes))
             h, c = ho, planes
     return convs
 
@@ -160,6 +162,28 @@ def test_im2col_bytes_and_int_mm_macs_from_shapes(served):
         want_macs.append(nv * ho * wo * k * k * c * o)
     assert got_bytes == want_bytes
     assert got_macs == want_macs
+
+
+def test_requant_bytes_from_shapes(served):
+    """Each requantize site counts the int32 sums it reads (4 bytes an
+    output element), the int8 it writes (1) and, at a block's tail, the int8
+    residual it reads (1): the stem, then each block's conv1, its downsample
+    and its tail (conv2 with the residual), in the order they run."""
+    _, spans = _session_spans(lambda: _serve(*served))
+    got = [s.counts["bytes"] for s in sorted(spans, key=lambda s: s.start_us)
+           if s.name == "quant.requant"]
+    nv = N * V
+
+    def out(h, w, c, k, stride, pad, o):
+        return nv * ((h + sum(pad) - k) // stride + 1) * ((w + sum(pad) - k) // stride + 1) * o
+
+    convs = _r18_convs()
+    want, i = [5 * out(*convs[0])], 1
+    while i < len(convs):
+        block = convs[i:i + (3 if convs[i + 1][3] == 1 else 2)]  # a 1x1: the downsample
+        want += [5 * out(*cv) for cv in block[:-1]] + [6 * out(*block[-1])]
+        i += len(block)
+    assert len(got) == 20 and got == want
 
 
 def _train_batch(rng):

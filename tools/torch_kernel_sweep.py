@@ -9,6 +9,7 @@
     python3 tools/torch_kernel_sweep.py tail2        # B1, B5: per launch and ring shape
     python3 tools/torch_kernel_sweep.py agg          # B3, B4: quantize, GEMM, rings
     python3 tools/torch_kernel_sweep.py deconv       # B9a, B9b, B2, B6: designs, rings, sets
+    python3 tools/torch_kernel_sweep.py requant      # the trunk's requantize, site by site
 
 ``check`` builds ``csrc/resblock.cu`` and ``csrc/decode.cu``, prints ptxas'
 register report and holds B8a (``ops/resblock.fused_bottleneck``) equal to
@@ -59,7 +60,12 @@ ring depth for 1, 2, 4 or 8 (phase, n-half) pairs a block, each launch held
 equal to its plain version, then its wrapper and the device time by kernel;
 then B6 (the same launch with the N-minor store) at 32 and 128 images: 1, 2,
 4 or 8 pairs a block at rings 4 and 7, and its wrapper beside B2's on the same
-input. Inputs are random from a seed; nothing is read from disk. Every line of
+input. ``requant`` times the int8 trunk's requantize kernel
+(``ops/requant.requant``) at each distinct site of a serving request
+(ResNet-50 at 256x256, 128 images): back-to-back device time a call, the
+plain passes it replaced, and GB/s by the bytes the site must move (the
+int32 sums and any residual read, the int8 written), each held equal to its
+plain version; then the request's 53 sites summed against 3.35 TB/s. Inputs are random from a seed; nothing is read from disk. Every line of
 numbers ends with the card's name and power limit.
 """
 
@@ -81,6 +87,7 @@ from posetpu_torch.ops import aggregation as agg  # noqa: E402
 from posetpu_torch.ops import decode as dec  # noqa: E402
 from posetpu_torch.ops import deconv as dcv  # noqa: E402
 from posetpu_torch.ops import phase_tail as pt  # noqa: E402
+from posetpu_torch.ops import requant as rq  # noqa: E402
 from posetpu_torch.ops import resblock as rb  # noqa: E402
 from posetpu_torch.ops.heatmap import decode_heatmaps  # noqa: E402
 from chip_smoke import phase_gemms  # noqa: E402
@@ -729,6 +736,48 @@ def deconv(dev, n=128):
               f"{device_by_kernel(b6)}, B2 {device_by_kernel(b2)} | {card()}", flush=True)
 
 
+# the distinct requantize sites of a serving request (ResNet-50 at 256x256,
+# 128 images): (rows, channels, form, hi, sites a request); "tail" a block's
+# last conv with its residual, "linear" a downsample
+REQUANT_SITES = [(2097152, 64, "relu", 127, 1), (524288, 64, "relu", 127, 6),
+                 (524288, 256, "linear", 127, 1), (524288, 256, "tail", 7, 3),
+                 (524288, 128, "relu", 127, 1), (131072, 128, "relu", 127, 7),
+                 (131072, 512, "linear", 127, 1), (131072, 512, "tail", 7, 4),
+                 (131072, 256, "relu", 127, 1), (32768, 256, "relu", 127, 11),
+                 (32768, 1024, "linear", 127, 1), (32768, 1024, "tail", 127, 6),
+                 (32768, 512, "relu", 127, 1), (8192, 512, "relu", 127, 5),
+                 (8192, 2048, "linear", 127, 1), (8192, 2048, "tail", 127, 3)]
+
+
+def requant(dev):
+    ptxas(["requant"])
+    gen = torch.Generator(device=dev).manual_seed(0)
+    total_ms = plain_total = total_mb = 0.0
+    for m, c, form, hi, count in REQUANT_SITES:
+        acc = torch.randint(-2 ** 21, 2 ** 21, (m, c), generator=gen, dtype=torch.int32,
+                            device=dev)
+        sv = (torch.rand(c, generator=gen, device=dev) + 0.5) * 2.0 ** -14
+        bias = torch.rand(c, generator=gen, device=dev) * 40 - 20
+        args = (acc, sv, bias, torch.tensor(1 / 0.9, device=dev), hi, form != "linear")
+        kw = {}
+        if form == "tail":
+            kw = {"residual": torch.randint(-hi, hi + 1, (m, c), generator=gen,
+                                            dtype=torch.int8, device=dev),
+                  "r_scale": torch.tensor(0.41, device=dev)}
+        ok = torch.equal(rq.requant(*args, **kw), rq.requant_plain(*args, **kw))
+        ms = burst_ms(lambda: rq.requant(*args, **kw))
+        plain = burst_ms(lambda: rq.requant_plain(*args, **kw), k=5)
+        mb = m * c * (6 if form == "tail" else 5) / 1e6
+        total_ms, plain_total, total_mb = (total_ms + count * ms, plain_total + count * plain,
+                                           total_mb + count * mb)
+        print(f"requant {m} x {c} {form} hi {hi} (x{count} a request): {ms:.4f} ms "
+              f"({'equal' if ok else 'DIFFERS'}), {mb / ms:.0f} GB/s; plain {plain:.4f} ms; "
+              f"bound {mb / 3.35e3:.4f} ms | {card()}", flush=True)
+    print(f"requant a request (53 sites): {total_ms:.3f} ms, {total_mb:.1f} MB, "
+          f"{total_mb / total_ms:.0f} GB/s; plain {plain_total:.3f} ms; bound "
+          f"{total_mb / 3.35e3:.3f} ms | {card()}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
@@ -738,7 +787,7 @@ def main() -> int:
     for mode in sys.argv[1:] or ["check"]:
         {"check": check, "sweep": sweep, "v2": v2, "decode": decode, "imma": imma,
          "tail2": tail2,
-         "agg": aggregation, "deconv": deconv}[mode](dev)
+         "agg": aggregation, "deconv": deconv, "requant": requant}[mode](dev)
     return 0
 
 
