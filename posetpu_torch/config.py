@@ -104,6 +104,21 @@ def _default_config() -> Config:
             NUM_DECONV_KERNELS=[4, 4, 4],
             FINAL_CONV_KERNEL=1,
         ),
+        # ViTPose (Xu et al. 2022) as the backbone (BACKBONE_MODEL: vitpose):
+        # ViT-Huge's widths, its drop-path rate, and the classic decoder's
+        # two deconvolutions (ViTPose_huge_coco_256x192.py)
+        POSE_VIT=Section(
+            PATCH_SIZE=16,
+            PATCH_PADDING=2,
+            EMBED_DIM=1280,
+            DEPTH=32,
+            NUM_HEADS=16,
+            MLP_RATIO=4,
+            DROP_PATH_RATE=0.55,
+            NUM_DECONV_FILTERS=[256, 256],
+            NUM_DECONV_KERNELS=[4, 4],
+            FINAL_CONV_KERNEL=1,
+        ),
         LOCAL_DISCRIMINATOR=Section(
             LOW_FEATURES_CHANNELS=256,
             HIGH_FEATURES_CHANNELS=256,
@@ -200,8 +215,19 @@ def _default_config() -> Config:
             # small batch (PIPELINE_r04.json mechanism[1]); warmup is the
             # standard remedy and what the fund home-regime A/B uses.
             WARMUP_EPOCHS=0,
+            # mmcv's linear warm-up by iterations: the rate times
+            # 1 - (1 - i / WARMUP_ITERS) * (1 - WARMUP_RATIO) at step i (0 = off)
+            WARMUP_ITERS=0,
+            WARMUP_RATIO=0.001,
             LR_DISCRIMINATOR=0.001,
+            # "adam", "adamw" (decoupled decay WD on every parameter of two or
+            # more dimensions but pos_embed) or "sgd"
             OPTIMIZER="adam",
+            # adamw: layer-wise lr decay of a ViT backbone, each parameter's
+            # rate times LAYER_DECAY ** (depth + 1 - its layer) (1 = off)
+            LAYER_DECAY=1.0,
+            # clip the gradient at this global L2 norm before the update (0 = off)
+            CLIP_GRAD_NORM=0.0,
             MOMENTUM=0.9,
             WD=0.0001,
             NESTEROV=False,
@@ -365,9 +391,15 @@ def update_dir(cfg: Config, model_dir: str = "", log_dir: str = "", data_dir: st
 
 
 def get_model_name(cfg: Config) -> tuple[str, str]:
-    """Derive model name/dir suffix (reference: get_model_name, config.py:311-324)."""
-    name = f"{cfg.MODEL}_{cfg.POSE_RESNET.NUM_LAYERS}"
-    deconv_suffix = "".join(f"d{n}" for n in cfg.POSE_RESNET.NUM_DECONV_FILTERS)
+    """Derive model name/dir suffix (reference: get_model_name, config.py:311-324);
+    a ViTPose backbone is named by its depth and width."""
+    if cfg.BACKBONE_MODEL == "vitpose":
+        name = f"{cfg.MODEL}_{cfg.POSE_VIT.DEPTH}x{cfg.POSE_VIT.EMBED_DIM}"
+        filters = cfg.POSE_VIT.NUM_DECONV_FILTERS
+    else:
+        name = f"{cfg.MODEL}_{cfg.POSE_RESNET.NUM_LAYERS}"
+        filters = cfg.POSE_RESNET.NUM_DECONV_FILTERS
+    deconv_suffix = "".join(f"d{n}" for n in filters)
     full_name = (
         f"{cfg.NETWORK.IMAGE_SIZE[1]}x{cfg.NETWORK.IMAGE_SIZE[0]}_{name}_{deconv_suffix}"
     )

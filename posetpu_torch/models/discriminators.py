@@ -215,7 +215,10 @@ class HeatmapDiscriminator(_Critic):
 def _feature_channels(cfg) -> tuple[int, int]:
     """(layer1 channels, deconv channels) of ``cfg``'s PoseResNet: the low
     and high features the critics read (the JAX package reads them off a
-    traced forward)."""
+    traced forward). Another backbone is refused (ValueError)."""
+    if cfg.BACKBONE_MODEL != "pose_resnet":
+        raise ValueError(f"the MI and domain critics are sized for PoseResNet's layer1 and "
+                         f"deconv features, not BACKBONE_MODEL {cfg.BACKBONE_MODEL!r}")
     kind, _ = RESNET_SPEC[int(cfg.POSE_RESNET.NUM_LAYERS)]
     return 64 * (4 if kind == "bottleneck" else 1), int(cfg.POSE_RESNET.NUM_DECONV_FILTERS[-1])
 
@@ -224,6 +227,10 @@ def build_discriminators(cfg, generator: torch.Generator | None = None) -> dict:
     """The critics ``cfg.LOSS`` enables, keyed and ordered like the
     reference's model_dict (run/pose2d/train.py:163-180), their weights
     drawn from ``generator``, on the CPU."""
+    flags = ("USE_LOCAL_MI_LOSS", "USE_DOMAIN_TRANSFER_LOSS", "USE_VIEW_MI_LOSS",
+             "USE_JOINTS_MI_LOSS", "USE_HEATMAP_MI_LOSS")
+    if not any(cfg.LOSS[f] for f in flags):
+        return {}
     low, high = _feature_channels(cfg)
     joints = int(cfg.NETWORK.NUM_JOINTS)
     d = {}

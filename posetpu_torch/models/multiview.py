@@ -57,31 +57,60 @@ def aggregate(heatmaps, bank, dtype=torch.float32):
 
 class MultiViewPose(nn.Module):
     """Shared backbone over 4 views + optional aggregation
-    (multiview_pose_resnet.py:61-84)."""
+    (multiview_pose_resnet.py:61-84). The backbone is a PoseResNet, held
+    as ``resnet`` (the name the int8 path, serving and the weight bridges
+    read), or a ViTPose, held as ``vit``; :attr:`backbone` is either."""
 
-    def __init__(self, resnet: PoseResNet, heatmap_size: int | None = None,
+    def __init__(self, backbone: nn.Module, heatmap_size: int | None = None,
                  generator: torch.Generator | None = None, dtype=torch.float32):
         super().__init__()
-        self.resnet = resnet
+        self.backbone_name = "resnet" if isinstance(backbone, PoseResNet) else "vit"
+        self.add_module(self.backbone_name, backbone)
         self.aggre_layer = (None if heatmap_size is None
                             else Aggregation(heatmap_size, generator, dtype))
+
+    @property
+    def backbone(self) -> nn.Module:
+        return getattr(self, self.backbone_name)
 
     def forward(self, views):
         """views: [N, V, H, W, 3] -> (raw [N, V, h, w, J], fused or None,
         low_features, high_features)."""
         n, v = views.shape[:2]
-        heatmaps, low, high = self.resnet(views.reshape((n * v,) + views.shape[2:]))
+        heatmaps, low, high = self.backbone(views.reshape((n * v,) + views.shape[2:]))
         split = lambda t: t.reshape((n, v) + t.shape[1:])
         heatmaps, low, high = split(heatmaps), split(low), split(high)
         fused = None if self.aggre_layer is None else self.aggre_layer(heatmaps)
         return heatmaps, fused, low, high
 
 
+BACKBONES = ("pose_resnet", "vitpose")
+
+
 def get_multiview_pose_net(cfg, generator: torch.Generator | None = None,
                            dtype=torch.float32) -> MultiViewPose:
-    """``dtype`` for the backbone and the bank's product; parameters f32."""
-    resnet = get_pose_net(cfg, dtype)
+    """The backbone ``cfg.BACKBONE_MODEL`` names (``pose_resnet`` from
+    ``cfg.POSE_RESNET``, ``vitpose`` from ``cfg.POSE_VIT``) over the views,
+    and the bank where ``NETWORK.AGGRE``. ``dtype`` for the backbone and
+    the bank's product; parameters f32."""
+    if cfg.BACKBONE_MODEL == "pose_resnet":
+        backbone = get_pose_net(cfg, dtype)
+    elif cfg.BACKBONE_MODEL == "vitpose":
+        from posetpu_torch.models.vitpose import get_pose_net as get_vitpose
+
+        backbone = get_vitpose(cfg, dtype)
+    else:
+        raise ValueError(f"unknown BACKBONE_MODEL {cfg.BACKBONE_MODEL!r}: one of {BACKBONES}")
     if generator is not None:
-        resnet.init_weights(generator)
+        backbone.init_weights(generator)
     size = int(cfg.NETWORK.HEATMAP_SIZE[0]) if bool(cfg.NETWORK.AGGRE) else None
-    return MultiViewPose(resnet, size, generator, dtype)
+    return MultiViewPose(backbone, size, generator, dtype)
+
+
+def require_pose_resnet(model, where: str) -> None:
+    """ValueError unless ``model`` (a MultiViewPose, or a backbone) runs a
+    PoseResNet: the paths built for its layers say so before they start."""
+    backbone = model.backbone if isinstance(model, MultiViewPose) else model
+    if not isinstance(backbone, PoseResNet):
+        raise ValueError(f"{where} is built for PoseResNet (BACKBONE_MODEL pose_resnet), "
+                         f"not {type(backbone).__name__}")

@@ -22,6 +22,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from posetpu_torch.parallel.batchnorm import batch_stats_mesh, global_batch_norm
+from posetpu_torch.utils.profiling import span
 
 BN_MOMENTUM = 0.1  # torch's convention; Flax's 0.9 = 1 - 0.1
 
@@ -92,6 +93,35 @@ def conv(m, x, dtype):
     if isinstance(m, nn.ConvTranspose2d):
         return F.conv_transpose2d(x, w, b, m.stride, m.padding, m.output_padding)
     return F.conv2d(x, w, b, m.stride, m.padding)
+
+
+def add_deconv_head(m: nn.Module, inplanes: int, filters, kernels, num_joints: int,
+                    final_conv_kernel: int = 1, deconv_with_bias: bool = False) -> None:
+    """SimpleBaseline's heatmap head as submodules of ``m``: for each filter
+    count a stride-2 ``deconv{i}_conv`` (``nn.ConvTranspose2d``) and its
+    ``deconv{i}_bn``, then ``final_layer``, a convolution with bias to the
+    joints. The names are the ones the weight bridge and the int8 path
+    read; PoseResNet's three deconvolutions and ViTPose's two
+    (TopdownHeatmapSimpleHead) are both this head."""
+    for i, (nf, nk) in enumerate(zip(filters, kernels)):
+        padding, out_padding = {4: (1, 0), 3: (1, 1), 2: (0, 0)}[nk]
+        m.add_module(f"deconv{i}_conv", nn.ConvTranspose2d(
+            inplanes, nf, nk, 2, padding, out_padding, bias=deconv_with_bias))
+        m.add_module(f"deconv{i}_bn", _bn(nf))
+        inplanes = nf
+    pad = 1 if final_conv_kernel == 3 else 0
+    m.final_layer = nn.Conv2d(inplanes, num_joints, final_conv_kernel, 1, pad, bias=True)
+
+
+def deconv_head(m: nn.Module, x, num_deconvs: int, dtype):
+    """The head :func:`add_deconv_head` put on ``m``, over NCHW features
+    ``x`` in ``dtype``: (heatmaps NCHW in ``dtype``, the last deconvolution's
+    features after BatchNorm and ReLU)."""
+    with span("head.deconv"):
+        for i in range(num_deconvs):
+            x = conv(getattr(m, f"deconv{i}_conv"), x, dtype)
+            x = F.relu(getattr(m, f"deconv{i}_bn")(x))
+        return conv(m.final_layer, x, dtype), x
 
 
 class BasicBlock(nn.Module):
@@ -177,15 +207,8 @@ class PoseResNet(nn.Module):
                 self.block_names.append(name)
                 inplanes = planes * block_cls.expansion
 
-        for i, (nf, nk) in enumerate(zip(self.deconv_filters, self.deconv_kernels)):
-            padding, out_padding = {4: (1, 0), 3: (1, 1), 2: (0, 0)}[nk]
-            self.add_module(f"deconv{i}_conv", nn.ConvTranspose2d(
-                inplanes, nf, nk, 2, padding, out_padding, bias=deconv_with_bias))
-            self.add_module(f"deconv{i}_bn", _bn(nf))
-            inplanes = nf
-        pad = 1 if final_conv_kernel == 3 else 0
-        self.final_layer = nn.Conv2d(inplanes, num_joints, final_conv_kernel,
-                                     1, pad, bias=True)
+        add_deconv_head(self, inplanes, self.deconv_filters, self.deconv_kernels, num_joints,
+                        final_conv_kernel, deconv_with_bias)
         self.init_weights()
 
     def init_weights(self, generator: torch.Generator | None = None):
@@ -208,11 +231,7 @@ class PoseResNet(nn.Module):
             x = getattr(self, name)(x)
             if name.startswith("layer1_"):
                 x1 = x
-        f = x
-        for i in range(len(self.deconv_filters)):
-            f = conv(getattr(self, f"deconv{i}_conv"), f, self.dtype)
-            f = F.relu(getattr(self, f"deconv{i}_bn")(f))
-        heatmaps = conv(self.final_layer, f, self.dtype)
+        heatmaps, f = deconv_head(self, x, len(self.deconv_filters), self.dtype)
         nhwc = lambda t: t.permute(0, 2, 3, 1)
         return nhwc(heatmaps).float(), nhwc(x1), nhwc(f)
 

@@ -51,7 +51,7 @@ import torch
 import torch.nn.functional as F
 
 from posetpu_torch import resolve_device
-from posetpu_torch.models.multiview import SRC_VIEW
+from posetpu_torch.models.multiview import SRC_VIEW, require_pose_resnet
 from posetpu_torch.models.pose_resnet import RESNET_SPEC
 from posetpu_torch.ops import deconv as _dc
 from posetpu_torch.ops import phase_tail as _pt
@@ -773,6 +773,7 @@ def quantize_pose_resnet(model, calib_batches, *, subpixel_deconvs=False, jns_he
 
     ``act4``: boundary names stored at 4 bits, ``act4_mode`` their carrier
     (see _Int8Runner)."""
+    require_pose_resnet(model, "quantize_pose_resnet")
     dks = tuple(int(k) for k in model.deconv_kernels)
     if phase_kernel not in (False, 1, 2):
         raise ValueError(f"phase_kernel must be False, 1 or 2; got {phase_kernel!r}")

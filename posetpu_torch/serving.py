@@ -125,9 +125,11 @@ def build_serving_pipeline(cfg, model, calib_batches, *, flip_test=False,
         quantize_aggregation_grouped_s4,
         quantize_pose_resnet,
     )
+    from posetpu_torch.models.multiview import require_pose_resnet
     from posetpu_torch.ops import aggregation as agg
     from posetpu_torch.ops.heatmap import phase_index_tables
 
+    require_pose_resnet(model, "the int8 serving pipeline")
     if flip_test not in (False, True, "premirrored"):
         raise ValueError(f"flip_test must be False, True, or 'premirrored'; "
                          f"got {flip_test!r} (a typo string would be truthy and "

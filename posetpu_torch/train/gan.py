@@ -47,6 +47,7 @@ from posetpu_torch.core.mi import (
     sample_draws,
     view_mi_loss,
 )
+from posetpu_torch.models.multiview import require_pose_resnet
 from posetpu_torch.parallel.batchnorm import sync_batch_stats
 from posetpu_torch.parallel.mesh import all_reduce_grads, check_mesh, gather_rows
 from posetpu_torch.train.state import TrainState
@@ -108,7 +109,10 @@ def make_adversarial_train_step(model, disc_models: dict, cfg, tx_base, tx_disc:
     share through the gather, summed over the ranks by one all-reduce a
     dtype before its optimizer steps.
 
-    CUDA unless ``device`` is given (under a mesh, the mesh's device)."""
+    CUDA unless ``device`` is given (under a mesh, the mesh's device). The
+    critics read PoseResNet's layer1 and deconv features: another backbone
+    is refused (ValueError)."""
+    require_pose_resnet(model, "the adversarial step (its critics are sized for ResNet's layer1)")
     check_mesh(mesh, "make_adversarial_train_step")
     dev = resolve_device(device if mesh is None else mesh.device)
     generator = torch.Generator(device=dev).manual_seed(seed)
